@@ -1,0 +1,69 @@
+"""Brain-simulation substrate of the port: model generator, neuron
+dynamics, single-device reference engine, the loopback communicator and
+the distributed engine whose spike exchange follows the paper's routing."""
+from repro_torch.snn.model import BrainModel, generate_brain_model
+from repro_torch.snn.neuron import (
+    IzhikevichParams,
+    LIFParams,
+    NeuronState,
+    init_state,
+    izhikevich_step,
+    lif_step,
+    make_generators,
+)
+from repro_torch.snn.engine import (
+    RunResult,
+    SNNEngine,
+    expand_synapses,
+    expand_synapses_sparse,
+)
+from repro_torch.snn.sparse import (
+    BlockSynapses,
+    exchange_messages,
+    exchange_schedule,
+    exchange_volume,
+)
+from repro_torch.snn.ragged import (
+    RaggedPlan,
+    RaggedRound,
+    bridge_inner_from_table,
+    build_ragged_plan,
+    build_ragged_plan_from_mask,
+)
+from repro_torch.snn.comm import LoopbackComm
+from repro_torch.snn.distributed import (
+    DistributedSNN,
+    PlanBuffer,
+    group_mesh_permutation,
+    partition_permutation,
+)
+
+__all__ = [
+    "BrainModel",
+    "generate_brain_model",
+    "LIFParams",
+    "IzhikevichParams",
+    "NeuronState",
+    "init_state",
+    "lif_step",
+    "izhikevich_step",
+    "make_generators",
+    "SNNEngine",
+    "RunResult",
+    "expand_synapses",
+    "expand_synapses_sparse",
+    "BlockSynapses",
+    "exchange_messages",
+    "exchange_schedule",
+    "exchange_volume",
+    "RaggedPlan",
+    "RaggedRound",
+    "bridge_inner_from_table",
+    "build_ragged_plan",
+    "build_ragged_plan_from_mask",
+    "LoopbackComm",
+    "DistributedSNN",
+    "PlanBuffer",
+    "group_mesh_permutation",
+    "partition_permutation",
+]
