@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port (``src/repro_torch``) on the card, with nothing of JAX or
-of the JAX package ``repro``.  Each phase prints one JSON line; any failed
+of the JAX package ``repro``: the brain simulation (phases 3-4) and LM
+serving (phase 5).  Each phase prints one JSON line; any failed
 check raises, so the script exits nonzero.
 
 1. Environment: the card's name and power limit (``nvidia-smi``), torch
@@ -15,7 +16,8 @@ check raises, so the script exits nonzero.
    of the inputs as the yardstick, with ``rtol=1e-5, atol=1e-4`` (the
    kernels sum in another order than the einsum); the difference from the
    float32 plain version is reported beside it.  Two runs must be
-   bit-identical.  Kernel, plain, library-yardstick and bound times.
+   bit-identical.  Kernel, plain, library-yardstick and bound times; at
+   the main path's shapes also their device times (``torch.profiler``).
 3. The launcher (``repro_torch.launch.run_brainsim.main``) for each of the
    four exchanges, at its defaults and with channel noise (``--noise 2``,
    which spreads the firing over the run so the rasters depend on the
@@ -30,12 +32,31 @@ check raises, so the script exits nonzero.
    step's synaptic current equals the dense ``s @ W`` in float64; the
    raster equals the single-device engine's with the ``spike_accum``
    kernel as its current hook; a lost ragged payload changes the raster.
-5. Last line: ``{"ok": true, "device": {...}}``.
+5. Serving (``repro_torch.serve``, the LM path: prefill runs the
+   ``flash_attention`` kernel, decode the ``decode_attention`` kernel):
+   (a) phi4-mini-3.8b reduced with 2 kv heads, prefill of 64 tokens and 8
+   teacher-forced decode steps on the card and on the CPU from the same
+   numpy parameters, logits within two bf16 steps (bf16) and 1e-3
+   (float32); (b) phi4-mini-3.8b at full width and depth, bf16, random
+   weights from a seed: 8 requests (prompt lengths 64-1,000) through
+   ``ServeEngine.generate`` (waves of 4) and ``generate_continuous``, 64
+   greedy tokens each, the first wave's tokens equal under both, exactly
+   ``n_layers`` launches of each attention kernel per prefill / decode
+   step; prefill(S) + decode(S) against prefill(S + 1) within 0.05 under
+   float32 compute; prefill / decode times, tokens/s, launches and device
+   busy share of decode steps, peak memory; (c) the serving launcher
+   ``python -m repro_torch.launch.serve`` at its defaults.
+6. A ``kernels`` line (all four kernels) and the last line,
+   ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 before phase 3 and read after phase 4: the
-main path must have launched every kernel.  Runs made only to check
-(probed currents, planted faults) leave the counts as they were.  Exits 2
-without CUDA.
+The attention kernels are checked in phase 2 too: the reference's sweep
+(MQA, bidirectional, window 96, 384 tokens, ragged ``seq_lens``) and
+phi4-mini's full-width shapes, float32 and bfloat16 at the reference's
+tolerances, on transposed views as the model passes them.  Launch counts
+are set to 0 before phase 3 and read after phase 5(b): the main paths must
+have launched every kernel.  Runs made only to check (probed currents,
+planted faults, the card-vs-CPU and consistency checks, the profiled
+window) leave the counts as they were.  Exits 2 without CUDA.
 """
 from __future__ import annotations
 
@@ -44,6 +65,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -96,6 +118,22 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timings(kern, plain, lib, main: bool) -> dict:
+    """Times of a kernel, its plain version and the library call.  ``ms``
+    keys: CUDA events around back-to-back calls, which include the host's
+    dispatch where the host is the slower side.  For a case of the main
+    path (``main``) also ``device_ms`` keys: the device time of the kernels
+    each call launches, from ``torch.profiler``."""
+    out = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 5), "library_ms": cuda_ms(lib, 5)}
+    if main:
+        reps = 10
+        for key, fn in (("device_ms", kern), ("plain_device_ms", plain),
+                        ("library_device_ms", lib)):
+            prof = _device_profile(lambda n, fn=fn: [fn() for _ in range(n)], reps)
+            out[key] = prof["device_busy_s"] * 1e3 / reps
+    return out
+
+
 @contextlib.contextmanager
 def uncounted():
     """Kernel launches made inside are checks, not the main path's run:
@@ -145,8 +183,8 @@ def sustained(raster, min_active: int) -> dict:
 # -- phase 2 ---------------------------------------------------------------
 
 
-def _bound(nbytes: float, flops: float, rate: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / rate * 1e3, flops / F32_PEAK * 1e3
+def _bound(nbytes: float, flops: float, rate: float, peak: float = F32_PEAK) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / rate * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -220,12 +258,126 @@ def phase_kernels(dev, rate: float) -> dict:
             cases[case] = {
                 "fired_rows": fired, "max_abs_err": err, "bit_identical_rerun": True,
                 "max_abs_diff_vs_plain_f32": float((out - want).abs().max()),
-                "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 5),
-                "library_ms": cuda_ms(lib, 5), "bound_ms": bound_ms, "bound_by": bound_by,
+                **timings(kern, plain, lib, case == "rate_1pct"),
+                "bound_ms": bound_ms, "bound_by": bound_by,
             }
             worst = max(worst, err)
         result[name] = {"cases": cases, "max_abs_err": worst}
     del blocks, w2, blocks64, w2_64
+    torch.cuda.empty_cache()
+    return result
+
+
+BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
+ATTN_TOL = {"float32": dict(rtol=3e-3, atol=3e-3),  # tests/test_kernels.py:19-20
+            "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# (name, b, hq, hkv, sq, sk, d, causal, window): the reference's sweep
+# (tests/test_kernels.py:23-44), then phi4-mini-3.8b's prefill (a 4-slot wave
+# padded to 1,024 tokens)
+FLASH_CASES = [
+    ("gqa", 2, 4, 2, 256, 256, 64, True, None),
+    ("mqa", 1, 8, 1, 128, 128, 32, True, None),
+    ("bidirectional", 2, 4, 4, 256, 256, 64, False, None),
+    ("window_96", 1, 4, 2, 256, 256, 64, True, 96),
+    ("seq_384", 1, 2, 2, 384, 384, 16, True, 128),
+    ("phi4_prefill", 4, 24, 8, 1024, 1024, 128, True, None),
+]
+# (name, b, hq, hkv, s, d, valid rows or None for all / "ragged"):
+# tests/test_kernels.py:47-61, then phi4-mini-3.8b's decode (4 slots, cache
+# 1,088 = 1,024 + 64 rows, 1,056 of them valid half-way through the wave)
+DECODE_CASES = [
+    ("full_cache", 2, 4, 2, 1024, 64, None),
+    ("ragged_g4", 3, 8, 2, 512, 32, "ragged"),
+    ("ragged_d128", 1, 2, 1, 2048, 128, "ragged"),
+    ("phi4_decode", 4, 24, 8, 1088, 128, 1056),
+]
+
+
+def _valid_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask keeps: the work this input needs."""
+    import numpy as np
+
+    qp, kp = np.arange(sq)[:, None], np.arange(sk)[None, :]
+    mask = np.ones((sq, sk), bool)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    return int(mask.sum())
+
+
+def phase_attention(dev, rate: float) -> dict:
+    """K3 / K4 against their plain versions, on transposed views of
+    [B, S, H, D] activations and of a [B, W, Hkv, D] cache as the model
+    passes them: the reference's sweep with its tolerances, and
+    phi4-mini-3.8b's full-width shapes; float32 and bfloat16; two runs
+    bit-identical.  The library yardstick is one
+    ``scaled_dot_product_attention`` call on KV heads repeated beforehand
+    (the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention as k
+    from repro_torch.kernels.ref import attention_ref, decode_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    result = {"flash_attention": {}, "decode_attention": {}}
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def record(table, key, kern, plain, lib, nbytes, flops, dtype):
+        out, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"{key}: reruns differ")
+        err = float((out.float() - want.float()).abs().max())
+        check(torch.allclose(out.float(), want.float(), **ATTN_TOL[dtype]), f"{key}: max err {err}")
+        bound_ms, bound_by = _bound(nbytes, flops, rate,
+                                    BF16_PEAK if dtype == "bfloat16" else F32_PEAK)
+        table[key] = {"max_abs_err": err, "bit_identical_rerun": True,
+                      **timings(kern, plain, lib, key.startswith("phi4")),
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+
+    for dtype in ("float32", "bfloat16"):
+        td = getattr(torch, dtype)
+        for name, b, hq, hkv, sq, sk, d, causal, window in FLASH_CASES:
+            q = randn(b, sq, hq, d, dtype=td).transpose(1, 2)
+            kk, v = (randn(b, sk, hkv, d, dtype=td).transpose(1, 2) for _ in "kv")
+            kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (kk, v))
+            mask = None
+            if window is not None:
+                qp = torch.arange(sq, device=dev)[:, None]
+                kp = torch.arange(sk, device=dev)[None, :]
+                mask = kp > qp - window
+                if causal:
+                    mask &= kp <= qp
+            lib = (lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)) \
+                if mask is not None else \
+                (lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal))
+            pairs = _valid_pairs(sq, sk, causal, window)
+            nbytes = (q.numel() * 2 + kk.numel() * 2) * q.element_size()  # q, k, v, out
+            record(result["flash_attention"], f"{name}/{dtype}",
+                   lambda: k.flash_attention(q, kk, v, causal=causal, window=window),
+                   lambda: attention_ref(q, kk, v, causal=causal, window=window),
+                   lib, nbytes, 4.0 * b * hq * pairs * d, dtype)
+        for name, b, hq, hkv, s, d, valid in DECODE_CASES:
+            q = randn(b, hq, d, dtype=td)
+            kk, v = (randn(b, s, hkv, d, dtype=td).transpose(1, 2) for _ in "kv")
+            if valid == "ragged":
+                sl = torch.randint(1, s + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+            else:
+                sl = torch.full((b,), valid or s, dtype=torch.int32, device=dev)
+            kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (kk, v))
+            mask = (torch.arange(s, device=dev)[None, :] < sl[:, None])[:, None, None, :]
+            rows = float(sl.sum())
+            nbytes = (2 * rows * hkv * d + 2 * q.numel()) * q.element_size() + sl.numel() * 4
+            record(result["decode_attention"], f"{name}/{dtype}",
+                   lambda: k.decode_attention(q, kk, v, seq_lens=sl),
+                   lambda: decode_attention_ref(q, kk, v, seq_lens=sl),
+                   lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr, attn_mask=mask),
+                   nbytes, 4.0 * rows * hq * d, dtype)
+    for table in result.values():
+        table["max_abs_err"] = max(c["max_abs_err"] for c in table.values())
     torch.cuda.empty_cache()
     return result
 
@@ -275,19 +427,19 @@ def phase_launcher(device: str, argv: list[str] | None = None) -> dict:
 # -- phase 4 ---------------------------------------------------------------
 
 
-def _device_profile(eng, steps: int) -> dict:
-    """Where one run's time goes: device time by kernel under
+def _device_profile(run, steps: int) -> dict:
+    """Where ``run(steps)``'s time goes: device time by kernel under
     ``torch.profiler`` and the device's busy share of the run's wall time
     (the profiler's own cost is inside that wall time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng.run(2)
+    run(2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run(steps)
+        run(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -382,7 +534,7 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
         runs[tag] = {"ms_per_step": wall / steps * 1e3, "steps_per_s": steps / wall,
                      "bytes_per_step": vol[exch], "spike_accum_blocks_launches": launched}
     if dev.type == "cuda":
-        out["profile"] = _device_profile(engine("sparse"), steps)
+        out["profile"] = _device_profile(engine("sparse").run, steps)
     runs["ragged_fused"]["step_profile"] = engine("ragged").step_profile(4)
     raster = rasters["sparse"]
     for tag in ("ragged_fused", "ragged_per_round"):
@@ -434,6 +586,258 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
     return out
 
 
+# -- phase 5 ---------------------------------------------------------------
+
+SERVE_ARCH = "phi4-mini-3.8b"
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW = 8, 4, 64
+F32_LOGIT_BOUND = 0.05  # tests/test_models.py:94-114, float32 compute
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """The model's matmul dtype (``layers.COMPUTE_DTYPE``) for a check."""
+    from repro_torch.models import layers
+
+    saved = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = dtype
+    try:
+        yield
+    finally:
+        layers.COMPUTE_DTYPE = saved
+
+
+def _bf16_close(got, want, n_vocab: int) -> tuple[float, float]:
+    """(max |got - want|, its allowance): two bf16 steps of the reference
+    value plus two steps of its rms (tests/test_torch_lm.py's bound)."""
+    got, want = got[..., :n_vocab].float().cpu(), want[..., :n_vocab].float().cpu()
+    rms = float(want.double().pow(2).mean().sqrt())
+    excess = float(((got - want).abs() - 2**-6 * want.abs()).max())
+    return float((got - want).abs().max()), excess - 2**-6 * rms
+
+
+def _numpy_params(cfg, seed: int) -> dict:
+    """The LM's parameter tree as numpy float32, drawn from a seed."""
+    import numpy as np
+
+    from repro_torch.models import lm
+
+    rng = np.random.default_rng(seed)
+
+    def build(node):
+        if isinstance(node, lm.PDef):
+            if node.init == "zeros":
+                return np.zeros(node.shape, np.float32)
+            return rng.standard_normal(node.shape, dtype=np.float32) * np.float32(node.scale)
+        return {k: build(node[k]) for k in sorted(node)}
+
+    return build(lm.param_defs(cfg))
+
+
+def _card_vs_cpu(dev) -> dict:
+    """(a) phi4-mini-3.8b reduced with 2 kv heads: prefill of 64 tokens and
+    8 teacher-forced decode steps, on the card (kernels) and on the CPU
+    (plain versions), from one set of numpy parameters; bf16 and float32
+    compute."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(ARCHS[SERVE_ARCH].reduced(), n_kv_heads=2)
+    tree = _numpy_params(cfg, 0)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 72)).astype(np.int32)
+    out = {}
+    for dtype, label in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        logits = {}
+        with compute_dtype(dtype):
+            for where in (str(dev), "cpu"):
+                params = convert.lm_params(tree, cfg, where)
+                t = torch.from_numpy(toks).to(where)
+                lg, cache = lm.prefill(params, {"tokens": t[:, :64]}, cfg, max_len=72)
+                steps = [lg]
+                for i in range(8):
+                    lg, cache = lm.decode_step(params, cache, {"tokens": t[:, 64 + i : 65 + i]},
+                                               64 + i, cfg)
+                    steps.append(lg)
+                logits[where] = torch.stack(steps).cpu()
+        card, cpu = logits[str(dev)], logits["cpu"]
+        check(bool(torch.isfinite(card[..., : cfg.vocab_size]).all()), f"{label}: non-finite logits")
+        if label == "bfloat16":
+            err, over = _bf16_close(card, cpu, cfg.vocab_size)
+            check(over <= 0, f"card vs CPU, bf16: {err} exceeds two bf16 steps by {over}")
+            bound = "rtol 2^-6 + atol 2^-6 rms"
+        else:
+            err = float((card - cpu)[..., : cfg.vocab_size].abs().max())
+            check(err <= 1e-3, f"card vs CPU, float32: max logits diff {err}")
+            bound = "1e-3"
+        out[label] = {"max_abs_logit_diff": err, "bound": bound,
+                      "max_abs_logit": float(cpu[..., : cfg.vocab_size].abs().max()),
+                      "same_argmax": bool(torch.equal(card[..., : cfg.vocab_size].argmax(-1),
+                                                      cpu[..., : cfg.vocab_size].argmax(-1)))}
+    return out
+
+
+def _prefill_decode_consistency(params, cfg, prompt: list[int], dev) -> dict:
+    """prefill(S) then decode_step(token S) against the last logits of
+    prefill(S + 1): K3 and K4 held against each other at full width.
+    float32 compute holds to the reference's 0.05; bf16 is reported."""
+    import torch
+
+    from repro_torch.models import lm
+
+    toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+    s = toks.shape[1] - 1
+    out = {"S": s}
+    for dtype, label in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        with compute_dtype(dtype):
+            _, cache = lm.prefill(params, {"tokens": toks[:, :s]}, cfg, max_len=s + 1)
+            dec, _ = lm.decode_step(params, cache, {"tokens": toks[:, s:]}, s, cfg)
+            full, _ = lm.prefill(params, {"tokens": toks}, cfg)
+        err = float((dec - full)[:, : cfg.vocab_size].abs().max())
+        out[label] = {"max_abs_logit_diff": err,
+                      "max_abs_logit": float(full[:, : cfg.vocab_size].abs().max()),
+                      "same_argmax": bool(torch.equal(dec[:, : cfg.vocab_size].argmax(-1),
+                                                      full[:, : cfg.vocab_size].argmax(-1)))}
+        del cache
+    check(out["float32"]["max_abs_logit_diff"] < F32_LOGIT_BOUND,
+          f"prefill+decode vs prefill(S+1): {out['float32']}")
+    return out
+
+
+class _Timed:
+    """Counts and times (synchronised, on the host clock) calls of
+    ``lm.prefill`` / ``lm.decode_step`` as the engine makes them."""
+
+    def __init__(self, fn):
+        self.fn, self.ms = fn, []
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def phase_serve(dev) -> dict:
+    """(b) phi4-mini-3.8b at full width and depth (bf16, random weights from
+    a seed): 8 requests through ``ServeEngine.generate`` (two waves of 4)
+    and ``generate_continuous``, with (a) and the consistency check run
+    outside the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    out: dict = {}
+    with uncounted():
+        out["card_vs_cpu_reduced"] = _card_vs_cpu(dev)
+    cfg = ARCHS[SERVE_ARCH]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    out["init_params_s"] = time.perf_counter() - t0
+    out["param_bytes"] = sum(int(t.numel() * t.element_size()) for t in _leaves(params))
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 1001, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+    out["prompt_lens"] = [int(n) for n in lens]
+    eng = ServeEngine(cfg, params, ServeConfig(batch_slots=SERVE_SLOTS), device=dev)
+
+    runs = {}
+    results = {}
+    real = lm.prefill, lm.decode_step
+    for name in ("generate", "generate_continuous"):
+        lm.prefill, lm.decode_step = _Timed(real[0]), _Timed(real[1])
+        before = dict(LAUNCHES)
+        try:
+            t0 = time.perf_counter()
+            results[name] = getattr(eng, name)(prompts, max_new_tokens=SERVE_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            pre, dec = lm.prefill.ms, lm.decode_step.ms
+        finally:
+            lm.prefill, lm.decode_step = real
+        k3 = LAUNCHES["flash_attention"] - before["flash_attention"]
+        k4 = LAUNCHES["decode_attention"] - before["decode_attention"]
+        per_call = cfg.n_layers if dev.type == "cuda" else 0  # the CPU takes the plain versions
+        check(k3 == per_call * len(pre), f"{name}: {k3} K3 launches, {len(pre)} prefills")
+        check(k4 == per_call * len(dec), f"{name}: {k4} K4 launches, {len(dec)} steps")
+        toks = results[name]
+        check(len(toks) == SERVE_REQUESTS and all(len(t) == SERVE_NEW for t in toks),
+              f"{name}: {[len(t) for t in toks]} tokens per request")
+        check(all(0 <= t < cfg.vocab_size for r in toks for t in r), f"{name}: token outside vocab")
+        runs[name] = {"wall_s": wall, "tokens": SERVE_REQUESTS * SERVE_NEW,
+                      "tokens_per_s": SERVE_REQUESTS * SERVE_NEW / wall,
+                      "prefill_calls": len(pre), "prefill_ms": pre,
+                      "decode_steps": len(dec), "decode_ms_per_step_mean": float(np.mean(dec)),
+                      "decode_ms_per_step_median": float(np.median(dec)),
+                      "decode_tokens_per_s": SERVE_SLOTS * len(dec) / (sum(dec) / 1e3),
+                      "flash_attention_launches": k3, "decode_attention_launches": k4,
+                      "distinct_tokens_per_request": [len(set(t)) for t in toks]}
+    check(results["generate_continuous"][:SERVE_SLOTS] == results["generate"][:SERVE_SLOTS],
+          "the first wave's tokens differ between the schedulers")
+    out["runs"] = runs
+    out["first_wave_equal"] = True
+    out["peak_memory_serving"] = torch.cuda.max_memory_allocated(dev)
+
+    with uncounted():
+        out["prefill_decode_consistency"] = _prefill_decode_consistency(
+            params, cfg, prompts[0] + [int(rng.integers(0, cfg.vocab_size))], dev)
+        # launches and busy share of decode steps: a 4-slot wave at plen 1,024
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 1024))
+                                .astype(np.int32)).to(dev)
+        with torch.inference_mode():
+            logits, cache = lm.prefill(params, {"tokens": toks}, cfg, max_len=1024 + 16)
+            tok = logits.argmax(-1).to(torch.int32)[:, None]
+            pos = iter(range(1024, 1024 + 16))
+
+            def steps(n):
+                for _ in range(n):
+                    lm.decode_step(params, cache, {"tokens": tok}, next(pos), cfg)
+
+            prof = _device_profile(steps, 8)
+        prof["kernel_launches_per_step"] = prof["kernel_launches"] / 8
+        out["decode_profile"] = prof
+        del cache, logits
+    out["peak_memory"] = torch.cuda.max_memory_allocated(dev)
+    del params, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else [v]
+
+
+def phase_serve_launcher() -> dict:
+    """(c) ``python -m repro_torch.launch.serve --arch phi4-mini-3.8b`` on
+    the card at its defaults."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", SERVE_ARCH],
+                         capture_output=True, text=True, env=env, cwd=root, timeout=300)
+    check(res.returncode == 0, f"serve launcher failed:\n{res.stderr[-2000:]}")
+    lines = res.stdout.strip().splitlines()
+    check(len(lines) == 2 and all(" -> [" in ln for ln in lines), f"launcher printed {lines}")
+    return {"wall_s": time.perf_counter() - t0, "lines": lines}
+
+
 def main() -> int:
     import torch
 
@@ -450,33 +854,46 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     rate, rate_note = mem_rate(name)
     t0 = time.perf_counter()
-    _build.load_library("spike_accum")
+    sources = ("spike_accum", "attention")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
+        for fut in [pool.submit(_build.build_library, src) for src in sources]:
+            fut.result()
+    for src in sources:
+        _build.load_library(src)
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "build_s": time.perf_counter() - t0, "nvcc_s": _build.BUILD_SECONDS,
           "mem_rate": rate_note, "tf32": False})
 
     kern = phase_kernels(dev, rate)
+    kern.update(phase_attention(dev, rate))
     emit({"phase": "kernels_check", **kern})
 
-    reset_launches()  # the main path starts here
+    reset_launches()  # the main paths start here
     emit({"phase": "launcher", **phase_launcher("cuda")})
     emit({"phase": "real_size", **phase_real_size("cuda")})
+    emit({"phase": "serve", **phase_serve(dev)})
     launches = dict(LAUNCHES)
+    emit({"phase": "serve_launcher", **phase_serve_launcher()})
     for kname, n in launches.items():
         check(n > 0, f"main path never launched {kname}")
 
-    source = "src/repro_torch/kernels/csrc/spike_accum.cu"
-    replaces = {"spike_accum_blocks": "src/repro/kernels/spike_accum.py:133",
-                "spike_accum": "src/repro/kernels/spike_accum.py:62"}
+    csrc = "src/repro_torch/kernels/csrc/"
     rows = []
-    for kname in ("spike_accum_blocks", "spike_accum"):
-        c = kern[kname]["cases"]["rate_1pct"]
-        rows.append({"name": kname, "route": "cuda", "source": source,
-                     "replaces": replaces[kname], "launches": launches[kname],
-                     "max_abs_err": kern[kname]["max_abs_err"], "ms": c["ms"],
+    for kname, source, replaces, case in (
+        ("spike_accum_blocks", "spike_accum.cu", "spike_accum.py:133", "rate_1pct"),
+        ("spike_accum", "spike_accum.cu", "spike_accum.py:62", "rate_1pct"),
+        ("flash_attention", "attention.cu", "flash_attention.py:116", "phi4_prefill/bfloat16"),
+        ("decode_attention", "attention.cu", "decode_attention.py:94", "phi4_decode/bfloat16"),
+    ):
+        table = kern[kname]
+        c = table["cases"][case] if "cases" in table else table[case]
+        rows.append({"name": kname, "route": "cuda", "source": csrc + source,
+                     "replaces": "src/repro/kernels/" + replaces, "launches": launches[kname],
+                     "max_abs_err": table["max_abs_err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                     "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+                     "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                     "device_ms": c["device_ms"]})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

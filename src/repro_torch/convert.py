@@ -13,7 +13,9 @@ from one set of numpy inputs through these functions:
   device tensors the distributed engine's kernel reads, built on the
   device tile by tile (no second host copy of the tiles);
 * :func:`neuron_params` — the neuron-parameter dataclass fields;
-* :func:`neuron_state` — the ``v``/``u`` state.
+* :func:`neuron_state` — the ``v``/``u`` state;
+* :func:`lm_params` — the JAX LM's parameter tree (``repro.models.lm``)
+  as the port's, leaf for leaf.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import lm
 from repro_torch.snn.neuron import IzhikevichParams, LIFParams, NeuronState
 from repro_torch.snn.sparse import BlockSynapses
 
@@ -33,6 +36,7 @@ __all__ = [
     "padded_tiles",
     "neuron_params",
     "neuron_state",
+    "lm_params",
 ]
 
 
@@ -104,3 +108,28 @@ def neuron_state(
         u=torch.as_tensor(np.asarray(u, dtype=np.float32), device=dev),
         key=key,
     )
+
+
+def lm_params(tree: Mapping, cfg, device: str | torch.device | None = None) -> dict:
+    """The port's LM parameters from the reference's tree (nested dicts of
+    arrays, as ``repro.models.lm.init_params`` builds it) for ``cfg``.
+
+    Each leaf is read as float32 numpy — hand over ``np.asarray(x,
+    np.float32)`` for a bf16 JAX leaf, whose own numpy dtype torch refuses;
+    bf16 → f32 → bf16 is exact — and stored on ``device`` in the dtype of
+    its :class:`~repro_torch.models.lm.PDef`.  Keys and shapes must match
+    :func:`repro_torch.models.lm.param_defs` exactly."""
+    dev = resolve_device(device)
+
+    def conv(node, pd, path):
+        if isinstance(pd, lm.PDef):
+            a = np.array(node, dtype=np.float32)  # a writable copy
+            if a.shape != pd.shape:
+                raise ValueError(f"{path}: shape {a.shape}, expected {pd.shape}")
+            return torch.from_numpy(a).to(device=dev, dtype=pd.dtype)
+        if not isinstance(node, Mapping) or set(node) != set(pd):
+            got = sorted(node) if isinstance(node, Mapping) else type(node).__name__
+            raise ValueError(f"{path or '/'}: keys {got}, expected {sorted(pd)}")
+        return {k: conv(node[k], pd[k], f"{path}/{k}") for k in sorted(pd)}
+
+    return conv(tree, lm.param_defs(cfg), "")

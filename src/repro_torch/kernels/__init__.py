@@ -1,7 +1,10 @@
-"""Kernel layer of the port: the two spike-accumulation kernels written
-for Hopper (``csrc/spike_accum.cu``), their plain PyTorch versions, and the
-device dispatch between them."""
+"""Kernel layer of the port: the spike-accumulation kernels
+(``csrc/spike_accum.cu``) and the attention kernels (``csrc/attention.cu``)
+written for Hopper, their plain PyTorch versions, and the device dispatch
+between them (:mod:`repro_torch.kernels.ops`; its ``attention`` and
+``decode_attention`` are not re-exported here, where the names are the
+kernel modules')."""
+from repro_torch.kernels._build import LAUNCHES, reset_launches
 from repro_torch.kernels.ops import spike_currents, spike_currents_blocks
-from repro_torch.kernels.spike_accum import LAUNCHES, reset_launches
 
 __all__ = ["LAUNCHES", "reset_launches", "spike_currents", "spike_currents_blocks"]

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use, and
+count their launches.
 
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface and loaded with ``ctypes``:
@@ -24,7 +25,10 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "build_library", "load_library", "BUILD_SECONDS"]
+__all__ = [
+    "NVCC_FLAGS", "build_dir", "build_library", "load_library", "BUILD_SECONDS",
+    "LAUNCHES", "reset_launches", "raise_on",
+]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = (
@@ -35,6 +39,12 @@ NVCC_FLAGS = (
 #: seconds spent compiling each library in this process (0.0 when loaded
 #: from an earlier build)
 BUILD_SECONDS: dict[str, float] = {}
+
+#: kernel launches per kernel name, counted where each wrapper launches
+LAUNCHES: dict[str, int] = {
+    "spike_accum_blocks": 0, "spike_accum": 0,
+    "flash_attention": 0, "decode_attention": 0,
+}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -98,3 +108,14 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_library(name)))
             _LIBS[name] = lib
         return lib
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def raise_on(err: int, name: str) -> None:
+    """Raise when a launcher returned a nonzero CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -2,17 +2,51 @@
 
 The tensor's device decides — there is no policy flag: a CPU tensor
 takes the plain PyTorch version (:mod:`repro_torch.kernels.ref`), a CUDA
-tensor takes the hand-written kernel (:mod:`repro_torch.kernels.spike_accum`)
-or raises.  There is no fallback from the kernel to the plain version.
+tensor takes the hand-written kernel (:mod:`repro_torch.kernels.spike_accum`,
+:mod:`repro_torch.kernels.attention`) or raises.  There is no fallback from
+the kernel to the plain version.  The signatures and layouts are those of
+``repro/kernels/ops.py``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import spike_accum as _cuda
 
-__all__ = ["spike_currents", "spike_currents_blocks"]
+__all__ = ["attention", "decode_attention", "spike_currents", "spike_currents_blocks"]
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Masked attention (prefill).  q ``[B, Hq, Sq, D]``, k/v
+    ``[B, Hkv, Sk, D]``, any strides with the last dim contiguous."""
+    if q.device.type == "cpu":
+        return _ref.attention_ref(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+    return _attn.flash_attention(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    seq_lens: torch.Tensor | None = None,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """One-token attention against a KV cache (decode).  q ``[B, Hq, D]``,
+    k/v ``[B, Hkv, S, D]``, ``seq_lens`` optional ``int[B]``."""
+    if q.device.type == "cpu":
+        return _ref.decode_attention_ref(q, k, v, seq_lens=seq_lens, sm_scale=sm_scale)
+    return _attn.decode_attention(q, k, v, seq_lens=seq_lens, sm_scale=sm_scale)
 
 
 def spike_currents(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -16,8 +16,9 @@ fixed summation order and no atomics (see the source for the design).
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, allocate the output with ``torch.empty``, launch on the
 current stream, raise when the launch reports an error, and count their
-launches in :data:`LAUNCHES`.  The dispatch between these kernels and
-their plain versions lives in :mod:`repro_torch.kernels.ops`.
+launches in :data:`LAUNCHES` (shared by every kernel of the port).  The
+dispatch between these kernels and their plain versions lives in
+:mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
@@ -25,21 +26,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import load_library
+from repro_torch.kernels._build import LAUNCHES, load_library, raise_on, reset_launches
 
 __all__ = ["LAUNCHES", "reset_launches", "spike_accum", "spike_accum_blocks"]
-
-#: kernel launches per kernel name, counted where each wrapper launches
-LAUNCHES: dict[str, int] = {"spike_accum_blocks": 0, "spike_accum": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _bound = None
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _lib():
@@ -67,11 +60,6 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     return dev
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def spike_accum_blocks(
@@ -116,7 +104,7 @@ def spike_accum_blocks(
             out.data_ptr(), n_dev, n_blocks, b, k, bj,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(err, "spike_accum_blocks")
+    raise_on(err, "spike_accum_blocks")
     LAUNCHES["spike_accum_blocks"] += 1
     return out if stacked else out[0]
 
@@ -143,6 +131,6 @@ def spike_accum(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             spikes.data_ptr(), w.data_ptr(), out.data_ptr(), m, n,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _raise_on(err, "spike_accum")
+    raise_on(err, "spike_accum")
     LAUNCHES["spike_accum"] += 1
     return out

@@ -1,0 +1,223 @@
+"""Batched serving engine of the port: prefill + decode over request slots.
+
+Port of ``repro/serve/engine.py``, with its two schedulers:
+
+* **wave batching** (``generate``): requests are padded to a common
+  prompt length, prefilled in one shot, decoded in lockstep until the
+  wave drains.
+* **continuous batching** (``generate_continuous``): a fixed pool of
+  decode slots; when a request finishes, the next queued request is
+  prefilled (batch-1) and its cache is spliced into the batched cache
+  at the freed slot.
+
+Both run :func:`repro_torch.models.lm.prefill` / ``decode_step`` eagerly
+under ``torch.inference_mode()``.  The schedules, and the reference's
+quirks, are kept as they are: the initial fill of ``generate_continuous``
+leaves every slot with the last prefilled request's cache (``_splice_cache``
+into a batch-1 cache replaces it), a newcomer attends to the zero K/V its
+prefill left in slots ``[plen, pos)`` because ``slot_pos`` is shared by the
+batch and not spliced, and both schedulers run one decode step past the
+last token they keep.  Greedy decoding matches the reference;
+``temperature > 0`` samples with a ``torch.Generator`` seeded from
+``ServeConfig.seed``, whose streams differ from ``jax.random``'s.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+
+__all__ = ["ServeConfig", "ServeEngine"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    max_len: int = 512
+    batch_slots: int = 4
+    temperature: float = 0.0
+    eos_id: int | None = None
+    seed: int = 0
+
+
+class ServeEngine:
+    def __init__(
+        self,
+        cfg: ArchConfig,
+        params: dict,
+        sc: ServeConfig = ServeConfig(),
+        *,
+        device: str | torch.device | None = None,
+    ):
+        lm.check_supported(cfg)
+        self.device = resolve_device(device)
+        emb = params["embed"]["tok"]
+        if emb.device.type != self.device.type:
+            raise ValueError(f"params lie on {emb.device}, the engine on {self.device}")
+        self.cfg, self.params, self.sc = cfg, params, sc
+        self._gen = torch.Generator(device=self.device).manual_seed(sc.seed)
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        logits = logits[..., : self.cfg.vocab_size]
+        if self.sc.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax(logits / self.sc.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self._gen)[..., 0].to(torch.int32)
+
+    def _tokens(self, toks: np.ndarray) -> dict:
+        return {"tokens": torch.from_numpy(toks).to(self.device)}
+
+    @torch.inference_mode()
+    def generate(
+        self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 32
+    ) -> list[list[int]]:
+        """Serve all prompts (in waves of ``batch_slots``)."""
+        out: list[list[int]] = []
+        for i in range(0, len(prompts), self.sc.batch_slots):
+            out.extend(self._wave(prompts[i : i + self.sc.batch_slots], max_new_tokens))
+        return out
+
+    # ---- continuous batching ------------------------------------------
+
+    @torch.inference_mode()
+    def generate_continuous(
+        self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 32
+    ) -> list[list[int]]:
+        """Slot-based continuous batching.
+
+        Every prompt is left-padded to one prefill length bucket, so all
+        slots share the decode position; requests enter the moment a slot
+        frees.  Caches hold ``plen + 2 * max_new_tokens`` slots; with many
+        queued requests the position can pass that, and later writes are
+        no-ops (the reference's behaviour).
+        """
+        b = self.sc.batch_slots
+        plen = max(8, 1 << (max(len(p) for p in prompts) - 1).bit_length())
+        queue = list(range(len(prompts)))
+        results: list[list[int]] = [[] for _ in prompts]
+        slot_req = [-1] * b  # request id per slot
+        slot_left = [0] * b  # tokens remaining per slot
+
+        def padded(r):
+            t = np.zeros((1, plen), np.int32)
+            p = prompts[r][-plen:]
+            t[0, plen - len(p):] = p
+            return self._tokens(t)
+
+        max_len = plen + max_new_tokens * 2  # headroom across refills
+
+        def prefill(r):
+            return lm.prefill(self.params, padded(r), self.cfg, max_len=max_len)
+
+        caches = None
+        tok = np.zeros(b, np.int32)
+        for s_ in range(b):
+            if not queue:
+                break
+            r = queue.pop(0)
+            logits, c1 = prefill(r)
+            tok[s_] = int(self._sample(logits)[0])
+            results[r].append(int(tok[s_]))
+            slot_req[s_], slot_left[s_] = r, max_new_tokens - 1
+            caches = c1 if caches is None else _splice_cache(caches, c1, s_)
+        if caches is None:
+            return results
+        caches = _tile_cache(caches, b)
+        step = 0
+        while any(sr >= 0 for sr in slot_req):
+            logits, caches = lm.decode_step(
+                self.params, caches, self._tokens(tok[:, None].copy()), plen + step, self.cfg
+            )
+            nxt = self._sample(logits).cpu().numpy()
+            step += 1
+            for s_ in range(b):
+                r = slot_req[s_]
+                if r < 0:
+                    continue
+                done = slot_left[s_] <= 0 or (
+                    self.sc.eos_id is not None and results[r] and results[r][-1] == self.sc.eos_id
+                )
+                if not done:
+                    results[r].append(int(nxt[s_]))
+                    tok[s_] = int(nxt[s_])
+                    slot_left[s_] -= 1
+                if slot_left[s_] <= 0:
+                    if queue:  # refill the freed slot immediately
+                        r2 = queue.pop(0)
+                        logits2, c1 = prefill(r2)
+                        caches = _splice_cache(caches, c1, s_)
+                        tok[s_] = int(self._sample(logits2)[0])
+                        results[r2].append(int(tok[s_]))
+                        slot_req[s_], slot_left[s_] = r2, max_new_tokens - 1
+                    else:
+                        slot_req[s_] = -1
+        return results
+
+    def _wave(self, prompts, max_new_tokens) -> list[list[int]]:
+        b = len(prompts)
+        plen = max(len(p) for p in prompts)
+        plen = max(8, 1 << (plen - 1).bit_length())  # pad to pow2
+        toks = np.zeros((b, plen), np.int32)
+        for r, p in enumerate(prompts):
+            toks[r, plen - len(p) :] = p  # left-pad (keeps last token hot)
+        logits, caches = lm.prefill(
+            self.params, self._tokens(toks), self.cfg, max_len=plen + max_new_tokens
+        )
+        results: list[list[int]] = [[] for _ in range(b)]
+        done = np.zeros(b, bool)
+        tok = self._sample(logits)
+        for step in range(max_new_tokens):
+            t = tok.cpu().numpy()
+            for r in range(b):
+                if not done[r]:
+                    results[r].append(int(t[r]))
+                    if self.sc.eos_id is not None and t[r] == self.sc.eos_id:
+                        done[r] = True
+            if done.all():
+                break
+            logits, caches = lm.decode_step(
+                self.params, caches, {"tokens": tok[:, None]}, plen + step, self.cfg
+            )
+            tok = self._sample(logits)
+        return results
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of nested dicts / lists of one structure."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, list):
+        return [_tree_map(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)
+
+
+def _tile_cache(cache, b: int):
+    """Broadcast a batch-1 cache to b slots (every slot a copy of slot 0)."""
+    def tile(x):
+        if x.dim() >= 2 and x.shape[1] == 1:  # [R, B=1, ...] per-layer stacks
+            return x.expand((x.shape[0], b) + tuple(x.shape[2:])).clone()
+        return x
+    return _tree_map(tile, cache)
+
+
+def _splice_cache(batched, single, slot: int):
+    """Write a batch-1 cache into slot ``slot`` of a batched cache (in place
+    where the batched cache has more than one slot)."""
+    def splice(bc, sc_):
+        if (
+            bc.dim() >= 2
+            and sc_.dim() == bc.dim()
+            and sc_.shape[1] == 1
+            and bc.shape[0] == sc_.shape[0]
+        ):
+            if bc.shape[1] == 1:
+                return sc_
+            bc[:, slot] = sc_[:, 0].to(bc.dtype)
+        return bc
+    return _tree_map(splice, batched, single)

@@ -24,6 +24,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = [
     "LIFParams",
     "IzhikevichParams",
@@ -92,8 +94,11 @@ def init_state(
     params,
     key: Key = None,
     *,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> NeuronState:
+    """Resting state of ``n`` neurons on ``device`` (default the card; see
+    :func:`repro_torch.device.resolve_device`)."""
+    device = resolve_device(device)
     shape = (n,) if isinstance(n, int) else tuple(n)
     if isinstance(params, LIFParams):
         v0 = torch.full(shape, params.v_rest, dtype=torch.float32, device=device)

@@ -119,3 +119,33 @@ def test_state_carried_across(model):
         np.testing.assert_array_equal(tspk.numpy(), np.asarray(jspk))
     np.testing.assert_allclose(ts.v.numpy(), np.asarray(js.v), atol=1e-4, rtol=0)
     np.testing.assert_allclose(ts.u.numpy(), np.asarray(js.u), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-7b", "phi4-mini-3.8b"])
+def test_lm_params_carry_the_reference_tree_bitwise(arch):
+    """``lm_params`` of the JAX ``init_params`` tree (leaves handed over as
+    float32: bf16 → f32 → bf16 is exact) holds the same values in the same
+    dtypes, leaf for leaf; a tree with a missing or misshapen leaf raises."""
+    from repro.configs import ARCHS as JAX_ARCHS
+    from repro.models import lm as jlm
+    from repro_torch.configs import ARCHS
+
+    jc, pc = JAX_ARCHS[arch].reduced(), ARCHS[arch].reduced()
+    jp = jlm.init_params(jc, jax.random.PRNGKey(7))
+    tree = jax.tree.map(lambda x: np.asarray(x, np.float32), jp)
+    tp = convert.lm_params(tree, pc, CPU)
+    jleaves = jax.tree_util.tree_flatten_with_path(jp)[0]
+    assert len(jleaves) == len(jax.tree.leaves(tp))
+    for path, leaf in jleaves:
+        node = tp
+        for k in path:
+            node = node[k.key]
+        assert str(node.dtype).split(".")[-1] == str(leaf.dtype), path
+        np.testing.assert_array_equal(node.float().numpy(), np.asarray(leaf, np.float32),
+                                      err_msg=jax.tree_util.keystr(path))
+    del tree["seg0"]["ln1_0"]
+    with pytest.raises(ValueError, match="keys"):
+        convert.lm_params(tree, pc, CPU)
+    tree["seg0"]["ln1_0"] = np.zeros((1, pc.d_model), np.float32)
+    with pytest.raises(ValueError, match="shape"):
+        convert.lm_params(tree, pc, CPU)

@@ -149,3 +149,118 @@ def test_distributed_engine_on_the_card(dev, exchange):
     cpu = DistributedSNN(mesh=(4, 2), params=LIFParams(), exchange=exchange,
                          i_ext=drive, syn=syn, device="cpu").run(steps)
     assert torch.equal(raster.cpu(), cpu)
+
+
+# -- attention (K3 flash_attention, K4 decode_attention) --------------------
+
+ATTN_TOL = {torch.float32: dict(rtol=3e-3, atol=3e-3), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,sk,d,causal,window",
+    [
+        (2, 4, 2, 256, 256, 64, True, None),
+        (1, 8, 1, 128, 128, 32, True, None),  # MQA
+        (2, 4, 4, 256, 256, 64, False, None),  # bidirectional MHA
+        (1, 4, 2, 256, 256, 64, True, 96),  # sliding window
+        (1, 2, 2, 384, 384, 16, True, 128),  # non-pow2 seq
+        (2, 6, 2, 200, 200, 128, True, None),  # ragged tiles, group 3, head 128
+        (1, 2, 1, 8, 4, 32, False, 2),  # rows 5-7 see no key -> 0
+    ],
+)
+def test_flash_attention_matches_plain(dev, dtype, b, hq, hkv, sq, sk, d, causal, window):
+    """The reference's sweep (``tests/test_kernels.py:23-44``) with its
+    tolerances, on transposed ``[B, S, H, D]`` views as the model passes
+    them; reruns are bit-identical."""
+    from repro_torch.kernels import attention as k
+    from repro_torch.kernels.ref import attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, kk, v = (torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+                for s, h in ((sq, hq), (sk, hkv), (sk, hkv)))
+    before = k.LAUNCHES["flash_attention"]
+    out = k.flash_attention(q, kk, v, causal=causal, window=window)
+    again = k.flash_attention(q, kk, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["flash_attention"] == before + 2
+    assert torch.equal(out, again) and out.stride() == q.stride() and out.dtype == dtype
+    want = attention_ref(q, kk, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,hq,hkv,s,d,ragged",
+    [(2, 4, 2, 1024, 64, False), (3, 8, 2, 512, 32, True), (1, 2, 1, 2048, 128, True),
+     (4, 24, 8, 1088, 128, True)],  # phi4-mini's decode shape
+)
+def test_decode_attention_matches_plain(dev, dtype, b, hq, hkv, s, d, ragged):
+    """The reference's sweep (``tests/test_kernels.py:47-61``) on
+    ``[B, W, Hkv, D]`` cache views; rows past ``seq_lens`` are not read."""
+    from repro_torch.kernels import attention as k
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn((b, hq, d), generator=gen, device=dev).to(dtype)
+    kc, vc = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype) for _ in "kv")
+    sl = (torch.randint(1, s + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+          if ragged else None)
+    out = k.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), seq_lens=sl)
+    torch.cuda.synchronize()
+    assert torch.equal(out, k.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                                               seq_lens=sl))
+    want = decode_attention_ref(q, kc.transpose(1, 2), vc.transpose(1, 2), seq_lens=sl)
+    torch.testing.assert_close(out.float(), want.float(), **ATTN_TOL[dtype])
+    if ragged:
+        n = int(sl.min())
+        kc[:, n:] = float("nan")  # never read
+        again = k.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                                   seq_lens=torch.full_like(sl, n))
+        assert torch.isfinite(again).all()
+
+
+def test_attention_wrappers_reject_bad_inputs(dev):
+    from repro_torch.kernels import attention as k
+
+    q = torch.zeros((1, 2, 8, 48), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        k.flash_attention(q, q, q)
+    q = torch.zeros((1, 3, 8, 32), device=dev)
+    with pytest.raises(ValueError, match="bad shapes"):
+        k.flash_attention(q, q[:, :2], q[:, :2])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="bfloat16"):
+        k.decode_attention(q[:, :, 0], q, q.bfloat16())
+
+
+def test_serve_engine_on_the_card(dev):
+    """A small ServeEngine run through both kernels: the card's greedy
+    tokens and logits agree with the CPU's plain path under float32
+    compute, and each layer launches one kernel per prefill / decode step."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = ARCHS["phi4-mini-3.8b"].reduced()
+    params = lm.init_params(cfg, 0, device="cpu")
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    on_card = to_card(params)
+    saved = L.COMPUTE_DTYPE
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        prompts = [[1, 2, 3], [4, 5], [6, 7, 8, 9, 10]]
+        before = dict(LAUNCHES)
+        card = ServeEngine(cfg, on_card, ServeConfig(batch_slots=4), device=dev).generate(prompts, 6)
+        assert LAUNCHES["flash_attention"] - before["flash_attention"] == cfg.n_layers
+        assert LAUNCHES["decode_attention"] - before["decode_attention"] == 6 * cfg.n_layers
+        cpu = ServeEngine(cfg, params, ServeConfig(batch_slots=4), device="cpu").generate(prompts, 6)
+        assert card == cpu
+    finally:
+        L.COMPUTE_DTYPE = saved

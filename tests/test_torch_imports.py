@@ -54,24 +54,41 @@ def test_device_rule(no_cuda):
 
 
 def test_entry_points_raise_without_cuda(no_cuda):
-    from repro_torch.launch import run_brainsim
-    from repro_torch.snn import DistributedSNN, LIFParams, SNNEngine
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import run_brainsim, serve
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+    from repro_torch.snn import DistributedSNN, LIFParams, SNNEngine, init_state
 
     w = np.zeros((8, 8), np.float32)
+    cfg = ARCHS["deepseek-7b"].reduced()
     with pytest.raises(RuntimeError, match="CUDA"):
         SNNEngine(w_syn=w, params=LIFParams())
     with pytest.raises(RuntimeError, match="CUDA"):
         DistributedSNN(mesh=(2,), w_syn=w, params=LIFParams())
     with pytest.raises(RuntimeError, match="CUDA"):
         run_brainsim.main(["--populations", "16", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_state(4, LIFParams())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(cfg)
+    params = lm.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "deepseek-7b", "--max-new", "1"])
     # the same calls run when the CPU is asked for
     SNNEngine(w_syn=w, params=LIFParams(), device="cpu").run(2)
     DistributedSNN(mesh=(2,), w_syn=w, params=LIFParams(), device="cpu").run(2)
+    assert init_state(4, LIFParams(), device="cpu").v.device.type == "cpu"
+    assert len(ServeEngine(cfg, params, device="cpu").generate([[1, 2]], 2)[0]) == 2
+    assert len(serve.main(["--arch", "deepseek-7b", "--max-new", "1", "--device", "cpu"])) == 2
 
 
 def test_cpu_tensor_takes_the_plain_version():
     from repro_torch.kernels import LAUNCHES, reset_launches, spike_currents_blocks
     from repro_torch.kernels import spike_currents
+    from repro_torch.kernels.ops import attention, decode_attention
 
     reset_launches()
     out = spike_currents_blocks(torch.ones(2, 4), torch.tensor([0, 1]),
@@ -79,4 +96,11 @@ def test_cpu_tensor_takes_the_plain_version():
     assert torch.equal(out, torch.full((3,), 8.0))
     assert torch.equal(spike_currents(torch.ones(4), torch.ones(4, 3)),
                        torch.full((3,), 4.0))
-    assert LAUNCHES == {"spike_accum_blocks": 0, "spike_accum": 0}
+    v = torch.arange(12.0).view(1, 1, 3, 4)
+    out = attention(torch.zeros(1, 2, 3, 4), torch.zeros(1, 1, 3, 4), v)
+    assert torch.equal(out[0, 1, 2], v[0, 0].mean(0))  # uniform over the causal prefix
+    out = decode_attention(torch.zeros(1, 2, 4), torch.zeros(1, 1, 3, 4), v,
+                           seq_lens=torch.tensor([2], dtype=torch.int32))
+    assert torch.equal(out[0, 0], v[0, 0, :2].mean(0))
+    assert LAUNCHES == {"spike_accum_blocks": 0, "spike_accum": 0,
+                        "flash_attention": 0, "decode_attention": 0}

@@ -1,0 +1,269 @@
+"""The port's LM (``repro_torch.models``) against the JAX package's
+(``repro.models``) on the CPU, from the same parameters
+(``repro_torch.convert.lm_params`` of the JAX ``init_params`` tree) and the
+same numpy tokens: the layers one by one, prefill and several decode steps
+for ``deepseek-7b`` reduced (MHA) and ``phi4-mini-3.8b`` reduced with two
+kv heads (GQA, group 2).
+
+Tolerance.  Both packages compute in bfloat16 with float32 softmax and
+norms and round at the same places, but their matmuls sum in other orders,
+so an output may land one bf16 step (2^-8 .. 2^-7 relative) away:
+``rtol = 2^-6`` (two steps) and ``atol = 2^-6 · rms(reference)`` for values
+near zero.  The float32 checks (``COMPUTE_DTYPE`` float32 in both
+packages) hold to ``1e-4`` relative.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JAX_ARCHS
+from repro.models import layers as JL
+from repro.models import lm as jlm
+from repro.sharding.policies import ShardingPolicy
+from repro_torch import convert
+from repro_torch.configs import ARCHS
+from repro_torch.models import layers as L
+from repro_torch.models import lm
+
+POL = ShardingPolicy()
+CPU = "cpu"
+MODELS = {"deepseek-7b": None, "phi4-mini-3.8b": 2}  # arch -> n_kv_heads override
+
+
+def _cfgs(arch: str):
+    jc, pc = JAX_ARCHS[arch].reduced(), ARCHS[arch].reduced()
+    if MODELS.get(arch):
+        jc = dataclasses.replace(jc, n_kv_heads=MODELS[arch])
+        pc = dataclasses.replace(pc, n_kv_heads=MODELS[arch])
+    return jc, pc
+
+
+def _params(jc, pc, seed: int = 0):
+    jp = jlm.init_params(jc, jax.random.PRNGKey(seed))
+    tree = jax.tree.map(lambda x: np.asarray(x, np.float32), jp)
+    return jp, convert.lm_params(tree, pc, CPU)
+
+
+def _f32(x) -> np.ndarray:
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+def assert_bf16_close(port, ref, n_vocab=None, msg=""):
+    port, ref = _f32(port), _f32(ref)
+    if n_vocab is not None:
+        port, ref = port[..., :n_vocab], ref[..., :n_vocab]
+    rms = float(np.sqrt(np.mean(ref.astype(np.float64) ** 2)))
+    np.testing.assert_allclose(port, ref, rtol=2**-6, atol=2**-6 * rms, err_msg=msg)
+
+
+def _bf16(rng, *shape) -> tuple[np.ndarray, torch.Tensor]:
+    """A bf16-exact numpy array and the same values as a bf16 tensor."""
+    a = np.array(jnp.asarray(rng.normal(size=shape), jnp.bfloat16), np.float32)
+    return a, torch.from_numpy(a).to(torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def phi4():
+    jc, pc = _cfgs("phi4-mini-3.8b")
+    jp, tp = _params(jc, pc)
+    return jc, pc, jp, tp
+
+
+def _layer0(tree):
+    return jax.tree.map(lambda x: x[0], tree["seg0"])
+
+
+def test_norm_rope_mlp_match(phi4):
+    jc, pc, jp, tp = phi4
+    rng = np.random.default_rng(0)
+    x, tx = _bf16(rng, 2, 16, pc.d_model)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    jl, tl = _layer0(jp), lm._layer(tp["seg0"], 0)
+    scale = rng.normal(size=pc.d_model).astype(np.float32) * 0.1
+    assert_bf16_close(L.rms_norm(tx, torch.from_numpy(scale)), JL.rms_norm(jx, jnp.asarray(scale)))
+    h, th = _bf16(rng, 2, 16, 4, 32)
+    pos = np.arange(3, 19)
+    assert_bf16_close(L.rope(th, torch.from_numpy(pos), 10_000.0),
+                      JL.rope(jnp.asarray(h, jnp.bfloat16), jnp.asarray(pos), 10_000.0))
+    # one position as an int (decode) equals a length-1 position vector
+    torch.testing.assert_close(L.rope(th[:, :1], 7, 10_000.0),
+                               L.rope(th[:, :1], torch.tensor([7]), 10_000.0), rtol=0, atol=0)
+    assert_bf16_close(L.swiglu_mlp(tx, tl["mlp0"]), JL.swiglu_mlp(jx, jl["mlp0"], POL))
+
+
+@pytest.mark.parametrize("mixer", ["full", "swa"])
+def test_attention_block_matches(phi4, mixer):
+    jc, pc, jp, tp = phi4
+    jc, pc = (dataclasses.replace(c, window=24) for c in (jc, pc))
+    x, tx = _bf16(np.random.default_rng(1), 2, 48, pc.d_model)
+    jout, (jk, jv) = JL.attention_block(jnp.asarray(x, jnp.bfloat16), _layer0(jp)["m0"], jc,
+                                        mixer, POL, return_kv=True)
+    tout, (tk, tv) = L.attention_block(tx, lm._layer(tp["seg0"], 0)["m0"], pc, mixer,
+                                       return_kv=True)
+    assert tout.shape == (2, 48, pc.d_model) and tk.shape == (2, 48, pc.n_kv_heads, pc.head_dim)
+    assert_bf16_close(tout, jout)
+    assert_bf16_close(tk, jk)
+    assert_bf16_close(tv, jv)
+
+
+def test_attention_decode_matches(phi4):
+    """One decode step against a half-filled cache: the output and the
+    cache written in place equal the reference's new cache."""
+    jc, pc, jp, tp = phi4
+    rng = np.random.default_rng(2)
+    b, w, n = 3, 16, 9
+    x, tx = _bf16(rng, b, 1, pc.d_model)
+    k, tk = _bf16(rng, b, w, pc.n_kv_heads, pc.head_dim)
+    v, tv = _bf16(rng, b, w, pc.n_kv_heads, pc.head_dim)
+    k[:, n:] = v[:, n:] = 0.0
+    tk[:, n:] = tv[:, n:] = 0.0
+    sp = np.where(np.arange(w) < n, np.arange(w), -1).astype(np.int32)
+    jcache = {"k": jnp.asarray(k, jnp.bfloat16), "v": jnp.asarray(v, jnp.bfloat16),
+              "slot_pos": jnp.asarray(sp)}
+    tcache = {"k": tk, "v": tv, "slot_pos": torch.from_numpy(sp.copy())}
+    jout, jnew = JL.attention_decode(jnp.asarray(x, jnp.bfloat16), _layer0(jp)["m0"], jcache,
+                                     jnp.int32(n), jc, "full", POL)
+    tout, tnew = L.attention_decode(tx, lm._layer(tp["seg0"], 0)["m0"], tcache, n, pc, "full")
+    assert tnew["k"] is tk  # written in place
+    assert_bf16_close(tout, jout)
+    assert_bf16_close(tk, jnew["k"])
+    assert_bf16_close(tv, jnew["v"])
+    np.testing.assert_array_equal(tcache["slot_pos"].numpy(), np.asarray(jnew["slot_pos"]))
+    with pytest.raises(NotImplementedError, match="ring-buffer"):
+        L.attention_decode(tx, lm._layer(tp["seg0"], 0)["m0"], tcache, n, pc, "swa")
+
+
+@pytest.mark.parametrize("arch", sorted(MODELS))
+def test_prefill_and_decode_match(arch):
+    """prefill(S) and 4 teacher-forced decode steps: logits and caches
+    equal the reference's (bf16 bound above); the port's forward over all
+    S + 4 tokens agrees with its own last decode step."""
+    jc, pc = _cfgs(arch)
+    jp, tp = _params(jc, pc)
+    b, s, extra = 2, 48, 4
+    toks = np.random.default_rng(3).integers(0, jc.vocab_size, (b, s + extra)).astype(np.int32)
+    jl, jcache = jax.jit(lambda p, t: jlm.prefill(p, {"tokens": t}, jc, POL, max_len=s + extra))(
+        jp, jnp.asarray(toks[:, :s]))
+    tl, tcache = lm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :s])}, pc, max_len=s + extra)
+    assert tl.shape == (b, lm.padded_vocab(pc)) and tl.dtype == torch.float32
+    assert_bf16_close(tl, jl, jc.vocab_size, f"{arch} prefill")
+    assert (tl[:, jc.vocab_size:] == -1e30).all()
+    dec = jax.jit(lambda p, c, t, pos: jlm.decode_step(p, c, {"tokens": t}, pos, jc, POL))
+    for i in range(extra):
+        jl, jcache = dec(jp, jcache, jnp.asarray(toks[:, s + i : s + i + 1]), jnp.int32(s + i))
+        tl, tcache = lm.decode_step(tp, tcache, {"tokens": torch.from_numpy(toks[:, s + i : s + i + 1])},
+                                    s + i, pc)
+        assert_bf16_close(tl, jl, jc.vocab_size, f"{arch} decode {i}")
+    for key in ("k", "v"):
+        assert_bf16_close(tcache[0]["0"][key], jcache[0]["0"][key], msg=key)
+    np.testing.assert_array_equal(tcache[0]["0"]["slot_pos"].numpy(),
+                                  np.asarray(jcache[0]["0"]["slot_pos"]))
+    h = lm.forward(tp, lm.embed_inputs(tp, {"tokens": torch.from_numpy(toks)}, pc), pc)
+    assert_bf16_close(tl, lm.lm_logits(tp, h[:, -1:], pc)[:, 0], pc.vocab_size, "forward")
+
+
+def test_float32_compute_matches(phi4, monkeypatch):
+    """With ``COMPUTE_DTYPE`` float32 in both packages the logits agree to
+    float32 rounding: the algorithm, not the bf16 rounding, is compared."""
+    monkeypatch.setattr(JL, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
+    jc, pc, jp, tp = phi4
+    b, s = 2, 40
+    toks = np.random.default_rng(4).integers(0, jc.vocab_size, (b, s + 2)).astype(np.int32)
+    jl, jcache = jlm.prefill(jp, {"tokens": jnp.asarray(toks[:, :s])}, jc, POL, max_len=s + 2)
+    tl, tcache = lm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :s])}, pc, max_len=s + 2)
+    assert tcache[0]["0"]["k"].dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy()[:, : jc.vocab_size], np.asarray(jl)[:, : jc.vocab_size],
+                               rtol=1e-4, atol=1e-4 * float(np.abs(np.asarray(jl)).max()))
+    for i in range(2):
+        jl, jcache = jlm.decode_step(jp, jcache, {"tokens": jnp.asarray(toks[:, s + i : s + i + 1])},
+                                     jnp.int32(s + i), jc, POL)
+        tl, tcache = lm.decode_step(tp, tcache, {"tokens": torch.from_numpy(toks[:, s + i : s + i + 1])},
+                                    s + i, pc)
+    np.testing.assert_allclose(tl.numpy()[:, : jc.vocab_size], np.asarray(jl)[:, : jc.vocab_size],
+                               rtol=1e-4, atol=1e-4 * float(np.abs(np.asarray(jl)).max()))
+
+
+def test_slot_pos_prefix_and_seq_lens(phi4, monkeypatch):
+    """``slot_pos`` stays the prefix ``[0, n)``; each decode step attends to
+    ``seq_lens = min(pos + 1, W)`` slots, counted on the device; writes past
+    the cache (``pos >= W``) are no-ops, as in the reference."""
+    jc, pc, jp, tp = phi4
+    b, s, w = 2, 12, 14
+    toks = np.random.default_rng(5).integers(0, jc.vocab_size, (b, s + 4)).astype(np.int32)
+    _, jcache = jlm.prefill(jp, {"tokens": jnp.asarray(toks[:, :s])}, jc, POL, max_len=w)
+    _, tcache = lm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :s])}, pc, max_len=w)
+    seen = []
+    real = L.ops.decode_attention
+
+    def spy(q, k, v, *, seq_lens=None, sm_scale=None):
+        seen.append(seq_lens.tolist())
+        return real(q, k, v, seq_lens=seq_lens, sm_scale=sm_scale)
+
+    monkeypatch.setattr(L.ops, "decode_attention", spy)
+    for pos in range(s, s + 4):  # pos 12, 13 fill the cache; 14, 15 fall past it
+        t = toks[:, pos : pos + 1]
+        jl, jcache = jlm.decode_step(jp, jcache, {"tokens": jnp.asarray(t)}, jnp.int32(pos), jc, POL)
+        tl, tcache = lm.decode_step(tp, tcache, {"tokens": torch.from_numpy(t)}, pos, pc)
+        assert_bf16_close(tl, jl, jc.vocab_size, f"pos {pos}")
+        for seg in tcache:
+            sp = seg["0"]["slot_pos"]
+            n = min(pos + 1, w)
+            assert torch.equal(sp, torch.where(torch.arange(w) < n, torch.arange(w), -1)
+                               .to(torch.int32).expand_as(sp))
+        assert seen[-pc.n_layers:] == [[min(pos + 1, w)] * b] * pc.n_layers
+        np.testing.assert_array_equal(tcache[0]["0"]["slot_pos"].numpy(),
+                                      np.asarray(jcache[0]["0"]["slot_pos"]))
+
+
+@pytest.mark.parametrize("arch", sorted(JAX_ARCHS))
+def test_configs_are_the_references(arch):
+    """The port's copy of each config, and its reduced form, field for
+    field equal to ``repro.configs``'."""
+    assert sorted(ARCHS) == sorted(JAX_ARCHS)
+    for port, ref in ((ARCHS[arch], JAX_ARCHS[arch]),
+                      (ARCHS[arch].reduced(), JAX_ARCHS[arch].reduced())):
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "mamba2-1.3b", "recurrentgemma-9b",
+                                  "qwen3-moe-30b-a3b", "llava-next-mistral-7b",
+                                  "musicgen-large"])
+def test_unsupported_configs_raise(arch):
+    cfg = ARCHS[arch].reduced()
+    for call in (lambda: lm.param_defs(cfg), lambda: lm.init_params(cfg, device=CPU),
+                 lambda: lm.init_cache(cfg, 1, 8, device=CPU)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    swa_only = dataclasses.replace(ARCHS["deepseek-7b"].reduced(), layer_pattern=("swa",) * 4)
+    with pytest.raises(NotImplementedError, match="swa"):
+        lm.param_defs(swa_only)
+
+
+def test_init_params_structure_and_seed():
+    cfg = ARCHS["phi4-mini-3.8b"].reduced()
+    a, b = lm.init_params(cfg, 3, device=CPU), lm.init_params(cfg, 3, device=CPU)
+    c = lm.init_params(cfg, 4, device=CPU)
+    ref = jlm.init_params(JAX_ARCHS["phi4-mini-3.8b"].reduced(), jax.random.PRNGKey(0))
+    flat = dict(jax.tree_util.tree_flatten_with_path(ref)[0])
+    assert len(flat) == len(jax.tree.leaves(ref))
+    names = {jax.tree_util.keystr(k): v for k, v in flat.items()}
+
+    def walk(t, path=""):
+        for k, v in t.items():
+            yield from walk(v, f"{path}['{k}']") if isinstance(v, dict) else [(f"{path}['{k}']", v)]
+
+    port = dict(walk(a))
+    assert port.keys() == names.keys()
+    for key, v in port.items():
+        assert tuple(v.shape) == names[key].shape, key
+        assert str(v.dtype).split(".")[-1] == str(names[key].dtype), key
+    assert all(torch.equal(x, y) for (_, x), (_, y) in zip(walk(a), walk(b)))
+    assert not torch.equal(a["embed"]["tok"], c["embed"]["tok"])
+    assert 0.9 < a["embed"]["tok"].float().std().item() < 1.1
