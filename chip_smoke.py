@@ -5,19 +5,28 @@
 
 Drives the port (``src/repro_torch``) on the card, with nothing of JAX or
 of the JAX package ``repro``: the brain simulation (phases 3-4) and LM
-serving (phase 5).  Each phase prints one JSON line; any failed
-check raises, so the script exits nonzero.
+serving of three architectures (phase 5).  Each phase prints one JSON
+line; any failed check raises, so the script exits nonzero.
 
 1. Environment: the card's name and power limit (``nvidia-smi``), torch
-   and CUDA versions, the kernel build's seconds; TF32 off.
+   and CUDA versions, the kernel build's seconds (one ``nvcc`` per source,
+   all started together); TF32 off.
 2. Kernels: each hand-written kernel against its plain PyTorch version
-   at the main path's shapes (firing 0 %, 1 %, one fully active block,
-   every row, weighted spikes).  The plain versions run on float64 copies
-   of the inputs as the yardstick, with ``rtol=1e-5, atol=1e-4`` (the
-   kernels sum in another order than the einsum); the difference from the
-   float32 plain version is reported beside it.  Two runs must be
-   bit-identical.  Kernel, plain, library-yardstick and bound times; at
-   the main path's shapes also their device times (``torch.profiler``).
+   at the main paths' shapes, two runs bit-identical.  Spike accumulation
+   (firing 0 %, 1 %, one fully active block, every row, weighted spikes)
+   against the plain versions on float64 copies with ``rtol=1e-5,
+   atol=1e-4`` (the kernels sum in another order than the einsum).
+   Attention on transposed views as the model passes them, float32 and
+   bfloat16 at the reference's tolerances: the reference's sweep (MQA,
+   bidirectional, window 96, 384 tokens, ragged ``seq_lens``),
+   phi4-mini-3.8b's shapes, recurrentgemma-9b's (MQA with 16 q heads, head
+   dim 256, window 2,048; decode with ``slot_pos``, also a misaligned ring
+   whose valid slots are not a prefix).  The scans against their plain
+   versions on float64 copies at the reference's ``3e-3``: ``ssd_scan`` at
+   the reference's sweep, chunks of 127 and 96, and mamba2-1.3b's prefill;
+   ``rglru_scan`` at the sweep and recurrentgemma-9b's prefill.  Kernel,
+   plain, library-yardstick (none for the scans) and bound times; at the
+   main paths' shapes also their device times (``torch.profiler``).
 3. The launcher (``repro_torch.launch.run_brainsim.main``) for each of the
    four exchanges, at its defaults and with channel noise (``--noise 2``,
    which spreads the firing over the run so the rasters depend on the
@@ -32,31 +41,37 @@ check raises, so the script exits nonzero.
    step's synaptic current equals the dense ``s @ W`` in float64; the
    raster equals the single-device engine's with the ``spike_accum``
    kernel as its current hook; a lost ragged payload changes the raster.
-5. Serving (``repro_torch.serve``, the LM path: prefill runs the
-   ``flash_attention`` kernel, decode the ``decode_attention`` kernel):
-   (a) phi4-mini-3.8b reduced with 2 kv heads, prefill of 64 tokens and 8
-   teacher-forced decode steps on the card and on the CPU from the same
+5. Serving (``repro_torch.serve``) of phi4-mini-3.8b (attention: prefill
+   runs ``flash_attention``, decode ``decode_attention``), mamba2-1.3b (48
+   ssm layers: prefill runs ``ssd_scan``, decode plain recurrence steps)
+   and recurrentgemma-9b (26 rglru layers running ``rglru_scan`` in
+   prefill, 12 local-attention layers with a ring-buffer cache), each
+   freed before the next: (a) the reduced config, prefill of 64 tokens and
+   8 teacher-forced decode steps on the card and on the CPU from the same
    numpy parameters, logits within two bf16 steps (bf16) and 1e-3
-   (float32); (b) phi4-mini-3.8b at full width and depth, bf16, random
-   weights from a seed: 8 requests (prompt lengths 64-1,000) through
-   ``ServeEngine.generate`` (waves of 4) and ``generate_continuous``, 64
-   greedy tokens each, the first wave's tokens equal under both, exactly
-   ``n_layers`` launches of each attention kernel per prefill / decode
-   step; prefill(S) + decode(S) against prefill(S + 1) within 0.05 under
-   float32 compute; prefill / decode times, tokens/s, launches and device
-   busy share of decode steps, peak memory; (c) the serving launcher
-   ``python -m repro_torch.launch.serve`` at its defaults.
-6. A ``kernels`` line (all four kernels) and the last line,
-   ``{"ok": true, "device": {...}}``.
+   (float32); (b) full width and depth, bf16, random weights from a seed:
+   8 requests (prompt lengths 64-1,000) through ``ServeEngine.generate``
+   (waves of 4) and ``generate_continuous``, 64 greedy tokens each (for
+   recurrentgemma-9b also one batch-1 request of 4,096 tokens, two
+   windows), every prefill and every decode step launching exactly one
+   kernel per layer of its mixer (no scan in decode), finite logits; the
+   first wave's tokens equal under both schedulers (phi4-mini-3.8b), or,
+   under float32 compute, its last request's (the only one the reference's
+   initial fill of ``generate_continuous`` leaves with its own state);
+   prefill(S) + decode(S) against prefill(S + 1) within 0.05 under float32
+   compute (S = 861, 127, 4,096); prefill / decode times, tokens/s,
+   launches and device busy share of decode steps, peak memory; (c) the
+   serving launcher ``python -m repro_torch.launch.serve`` at its
+   defaults.
+6. A ``kernels`` line (all six kernels), the card's name and power limit,
+   and the last line, ``{"ok": true, "device": {...}}``.
 
-The attention kernels are checked in phase 2 too: the reference's sweep
-(MQA, bidirectional, window 96, 384 tokens, ragged ``seq_lens``) and
-phi4-mini's full-width shapes, float32 and bfloat16 at the reference's
-tolerances, on transposed views as the model passes them.  Launch counts
-are set to 0 before phase 3 and read after phase 5(b): the main paths must
-have launched every kernel.  Runs made only to check (probed currents,
-planted faults, the card-vs-CPU and consistency checks, the profiled
-window) leave the counts as they were.  Exits 2 without CUDA.
+Each main path (phases 3-4, and each model of phase 5) runs with the
+launch counts set to 0 just before it and read just after, and must have
+launched each of its kernels; the ``kernels`` line sums them.  Runs made
+only to check (probed currents, planted faults, the card-vs-CPU and
+consistency checks, the profiled windows) leave the counts as they were.
+Exits 2 without CUDA.
 """
 from __future__ import annotations
 
@@ -119,16 +134,21 @@ def cuda_ms(fn, reps: int = 20) -> float:
 
 
 def timings(kern, plain, lib, main: bool) -> dict:
-    """Times of a kernel, its plain version and the library call.  ``ms``
-    keys: CUDA events around back-to-back calls, which include the host's
-    dispatch where the host is the slower side.  For a case of the main
-    path (``main``) also ``device_ms`` keys: the device time of the kernels
-    each call launches, from ``torch.profiler``."""
-    out = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 5), "library_ms": cuda_ms(lib, 5)}
+    """Times of a kernel, its plain version and the library call (None
+    where no single PyTorch call computes the function).  ``ms`` keys: CUDA
+    events around back-to-back calls, which include the host's dispatch
+    where the host is the slower side.  For a case of the main path
+    (``main``) also ``device_ms`` keys: the device time of the kernels each
+    call launches, from ``torch.profiler``."""
+    out = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 5),
+           "library_ms": None if lib is None else cuda_ms(lib, 5)}
     if main:
         reps = 10
         for key, fn in (("device_ms", kern), ("plain_device_ms", plain),
                         ("library_device_ms", lib)):
+            if fn is None:
+                out[key] = None
+                continue
             prof = _device_profile(lambda n, fn=fn: [fn() for _ in range(n)], reps)
             out[key] = prof["device_busy_s"] * 1e3 / reps
     return out
@@ -271,9 +291,37 @@ def phase_kernels(dev, rate: float) -> dict:
 BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 ATTN_TOL = {"float32": dict(rtol=3e-3, atol=3e-3),  # tests/test_kernels.py:19-20
             "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# recurrentgemma's bf16 cases average 400-4,000 keys, so their outputs are
+# a few hundredths and 2e-2 would let a lost 32-key tile through.  They
+# are also held to one bf16 step of the reference value plus two steps of
+# the rms of its row (the head dim of one query): K3 rounds P to bf16
+# before P V, as the TPU kernel does (flash_attention.py:97), and that
+# error scales with the row, not with the whole output.  A planted fault
+# (the values of one 32-key tile zeroed) must fail the same bound.
+BF16_REL, BF16_ROW = 2**-7, 2**-6
+
+
+def _bf16_row_excess(got, want) -> float:
+    """max((|got - want| - 2^-7 |want|) / rms_row(want)) - 2^-6: <= 0 passes."""
+    import torch
+
+    got, want = got.float(), want.float()
+    row = want.double().pow(2).mean(-1, keepdim=True).sqrt().float()
+    row = row.clamp_min(torch.finfo(torch.float32).tiny)
+    return float(((got - want).abs() - BF16_REL * want.abs()).div(row).max()) - BF16_ROW
+
+
+def _zero_tile(v, start: int):
+    """A copy of the [B, H, S, D] view ``v`` with rows [start, start + 32) zeroed."""
+    bad = v.clone()
+    bad[:, :, start:start + 32] = 0
+    return bad
+
 # (name, b, hq, hkv, sq, sk, d, causal, window): the reference's sweep
 # (tests/test_kernels.py:23-44), then phi4-mini-3.8b's prefill (a 4-slot wave
-# padded to 1,024 tokens)
+# padded to 1,024 tokens) and recurrentgemma-9b's local layers (MQA, head
+# dim 256, window 2,048: a 4-slot wave of 1,024 tokens, and the batch-1
+# 4,096-token prompt)
 FLASH_CASES = [
     ("gqa", 2, 4, 2, 256, 256, 64, True, None),
     ("mqa", 1, 8, 1, 128, 128, 32, True, None),
@@ -281,16 +329,28 @@ FLASH_CASES = [
     ("window_96", 1, 4, 2, 256, 256, 64, True, 96),
     ("seq_384", 1, 2, 2, 384, 384, 16, True, 128),
     ("phi4_prefill", 4, 24, 8, 1024, 1024, 128, True, None),
+    ("rg_prefill", 4, 16, 1, 1024, 1024, 256, True, 2048),
+    ("rg_prefill_4096", 1, 16, 1, 4096, 4096, 256, True, 2048),
 ]
-# (name, b, hq, hkv, s, d, valid rows or None for all / "ragged"):
-# tests/test_kernels.py:47-61, then phi4-mini-3.8b's decode (4 slots, cache
-# 1,088 = 1,024 + 64 rows, 1,056 of them valid half-way through the wave)
+# (name, b, hq, hkv, s, d, valid): valid rows None for all, "ragged", a
+# prefix length, or slot_pos handed to the kernel with slot_lo = pos -
+# 2,048: ("prefix", n) fills slots [0, n) at decode position n - 1,
+# ("ring", n) holds positions [n - s, n) after a prefill of n tokens, slot
+# n % s then overwritten by position n.  tests/test_kernels.py:47-61, then
+# phi4-mini-3.8b's decode (4 slots, cache 1,088 = 1,024 + 64 rows, 1,056 of
+# them valid half-way through the wave), recurrentgemma-9b's local decode
+# (the same wave: window 2,048 > 1,088, so its slot_pos is a prefix) and its
+# ring after a misaligned 3,000-token prefill (slot 952 holds position
+# 3,000; slot 0 holds 952, outside the window)
 DECODE_CASES = [
     ("full_cache", 2, 4, 2, 1024, 64, None),
     ("ragged_g4", 3, 8, 2, 512, 32, "ragged"),
     ("ragged_d128", 1, 2, 1, 2048, 128, "ragged"),
     ("phi4_decode", 4, 24, 8, 1088, 128, 1056),
+    ("rg_decode", 4, 16, 1, 1088, 256, ("prefix", 1056)),
+    ("rg_ring_misaligned", 1, 16, 1, 2048, 256, ("ring", 3000)),
 ]
+RG_WINDOW = 2048
 
 
 def _valid_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -326,16 +386,22 @@ def phase_attention(dev, rate: float) -> dict:
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def record(table, key, kern, plain, lib, nbytes, flops, dtype):
+    def record(table, key, kern, plain, lib, nbytes, flops, dtype, planted=None):
         out, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
         check(torch.equal(out, again), f"{key}: reruns differ")
         err = float((out.float() - want.float()).abs().max())
         check(torch.allclose(out.float(), want.float(), **ATTN_TOL[dtype]), f"{key}: max err {err}")
+        extra = {}
+        if planted is not None:  # recurrentgemma's bf16 cases
+            excess, fault = _bf16_row_excess(out, want), _bf16_row_excess(planted(), want)
+            check(excess <= 0, f"{key}: {excess} rms of its row over the bf16 bound")
+            check(fault > 0, f"{key}: a zeroed 32-key tile passes the bf16 bound")
+            extra = {"bf16_row_excess": excess, "planted_fault_row_excess": fault}
         bound_ms, bound_by = _bound(nbytes, flops, rate,
                                     BF16_PEAK if dtype == "bfloat16" else F32_PEAK)
-        table[key] = {"max_abs_err": err, "bit_identical_rerun": True,
-                      **timings(kern, plain, lib, key.startswith("phi4")),
+        table[key] = {"max_abs_err": err, "bit_identical_rerun": True, **extra,
+                      **timings(kern, plain, lib, key.startswith(("phi4", "rg_"))),
                       "bound_ms": bound_ms, "bound_by": bound_by}
 
     for dtype in ("float32", "bfloat16"):
@@ -345,7 +411,7 @@ def phase_attention(dev, rate: float) -> dict:
             kk, v = (randn(b, sk, hkv, d, dtype=td).transpose(1, 2) for _ in "kv")
             kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (kk, v))
             mask = None
-            if window is not None:
+            if window is not None and window < sk:  # a window >= S cuts nothing
                 qp = torch.arange(sq, device=dev)[:, None]
                 kp = torch.arange(sk, device=dev)[None, :]
                 mask = kp > qp - window
@@ -356,26 +422,118 @@ def phase_attention(dev, rate: float) -> dict:
                 (lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=causal))
             pairs = _valid_pairs(sq, sk, causal, window)
             nbytes = (q.numel() * 2 + kk.numel() * 2) * q.element_size()  # q, k, v, out
+            planted = (lambda: attention_ref(q, kk, _zero_tile(v, sk // 2), causal=causal,
+                                             window=window)) \
+                if dtype == "bfloat16" and name.startswith("rg_") else None
             record(result["flash_attention"], f"{name}/{dtype}",
                    lambda: k.flash_attention(q, kk, v, causal=causal, window=window),
                    lambda: attention_ref(q, kk, v, causal=causal, window=window),
-                   lib, nbytes, 4.0 * b * hq * pairs * d, dtype)
+                   lib, nbytes, 4.0 * b * hq * pairs * d, dtype, planted)
         for name, b, hq, hkv, s, d, valid in DECODE_CASES:
             q = randn(b, hq, d, dtype=td)
             kk, v = (randn(b, s, hkv, d, dtype=td).transpose(1, 2) for _ in "kv")
-            if valid == "ragged":
-                sl = torch.randint(1, s + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+            idx = torch.arange(s, dtype=torch.int32, device=dev)
+            if isinstance(valid, tuple):  # slot_pos, as the windowed decode passes it
+                kind, n = valid
+                if kind == "prefix":
+                    sp, lo = torch.where(idx < n, idx, -1).to(torch.int32), n - 1 - RG_WINDOW
+                else:  # a prefill of n rows kept the last s; decode at n wrote slot n % s
+                    sp, lo = idx + (n - s), n - RG_WINDOW
+                    sp[n % s] = n
+                kw = {"slot_pos": sp, "slot_lo": lo}
+                keep = ((sp >= 0) & (sp > lo)).expand(b, s)
             else:
-                sl = torch.full((b,), valid or s, dtype=torch.int32, device=dev)
+                sl = (torch.randint(1, s + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+                      if valid == "ragged" else
+                      torch.full((b,), valid or s, dtype=torch.int32, device=dev))
+                kw = {"seq_lens": sl}
+                keep = idx[None, :] < sl[:, None]
             kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (kk, v))
-            mask = (torch.arange(s, device=dev)[None, :] < sl[:, None])[:, None, None, :]
-            rows = float(sl.sum())
-            nbytes = (2 * rows * hkv * d + 2 * q.numel()) * q.element_size() + sl.numel() * 4
+            rows = float(keep.sum())
+            index_bytes = 4 * next(iter(kw.values())).numel()
+            nbytes = (2 * rows * hkv * d + 2 * q.numel()) * q.element_size() + index_bytes
+            planted = (lambda: decode_attention_ref(q, kk, _zero_tile(v, s // 2), **kw)) \
+                if dtype == "bfloat16" and name.startswith("rg_") else None
             record(result["decode_attention"], f"{name}/{dtype}",
-                   lambda: k.decode_attention(q, kk, v, seq_lens=sl),
-                   lambda: decode_attention_ref(q, kk, v, seq_lens=sl),
-                   lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr, attn_mask=mask),
-                   nbytes, 4.0 * rows * hq * d, dtype)
+                   lambda: k.decode_attention(q, kk, v, **kw),
+                   lambda: decode_attention_ref(q, kk, v, **kw),
+                   lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr,
+                                                          attn_mask=keep[:, None, None, :]),
+                   nbytes, 4.0 * rows * hq * d, dtype, planted)
+    for table in result.values():
+        table["max_abs_err"] = max(c["max_abs_err"] for c in table.values())
+    torch.cuda.empty_cache()
+    return result
+
+
+SCAN_TOL = dict(rtol=3e-3, atol=3e-3)  # tests/test_kernels.py:74-76, 101-103
+# (name, b, s, h, g, p, n, chunk): the reference's sweep (tests/test_kernels.py:
+# 64-76), chunks that are not powers of two (127 = min(128, S) at S = 127;
+# 96), then mamba2-1.3b's prefill (a 4-slot wave of 1,024 tokens)
+SSD_CASES = [
+    ("sweep_1", 2, 256, 4, 2, 32, 16, 64),
+    ("sweep_2", 1, 128, 2, 1, 16, 8, 128),
+    ("sweep_3", 1, 512, 8, 2, 64, 32, 128),
+    ("chunk_127", 1, 127, 64, 1, 64, 128, 128),
+    ("chunk_96", 2, 384, 8, 2, 32, 16, 96),
+    ("mamba2_prefill", 4, 1024, 64, 1, 64, 128, 128),
+]
+# (name, b, s, d): tests/test_kernels.py:94-103, then recurrentgemma-9b's
+# prefill (a 4-slot wave of 1,024 tokens, lru_width 4,096)
+RGLRU_CASES = [
+    ("sweep_1", 2, 256, 128), ("sweep_2", 1, 128, 256), ("sweep_3", 3, 512, 64),
+    ("rg_prefill", 4, 1024, 4096),
+]
+
+
+def phase_scans(dev, rate: float) -> dict:
+    """K5 / K6 against their plain versions on float64 copies (the
+    reference's tolerance), two runs bit-identical.  No single PyTorch call
+    computes either function, so there is no library time.  K5's
+    operations are those the function needs: per (batch, head, chunk)
+    2 T N + 2 T P + 4 L N P, where T = L (L + 1) / 2 are the (t, s <= t)
+    pairs the causal mask keeps (the kernel computes only those), as
+    ``_valid_pairs`` counts them for K3."""
+    import torch
+
+    from repro_torch.kernels import scan as k
+    from repro_torch.kernels.ref import rglru_ref, ssd_chunked
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    result = {"ssd_scan": {}, "rglru_scan": {}}
+
+    def record(table, name, kern, plain, exact, nbytes, flops, main):
+        out, again = kern(), kern()
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"{name}: reruns differ")
+        err = float((out.double() - exact).abs().max())
+        check(torch.allclose(out.double(), exact, **SCAN_TOL), f"{name}: max err {err}")
+        bound_ms, bound_by = _bound(nbytes, flops, rate)
+        table[name] = {"max_abs_err": err, "bit_identical_rerun": True,
+                       "max_abs_diff_vs_plain_f32": float((out - plain()).abs().max()),
+                       **timings(kern, plain, None, main),
+                       "bound_ms": bound_ms, "bound_by": bound_by}
+
+    for name, b, s, h, g, p, n, chunk in SSD_CASES:
+        x = torch.randn((b, s, h, p), generator=gen, device=dev)
+        a = 0.85 + 0.149 * torch.rand((b, s, h), generator=gen, device=dev)
+        bm, cm = (torch.randn((b, s, g, n), generator=gen, device=dev) for _ in "bc")
+        ell = min(chunk, s)
+        exact = ssd_chunked(x.double(), a.double(), bm.double(), cm.double(), chunk=chunk)
+        pairs = _valid_pairs(ell, ell, True, None)
+        flops = b * h * (s // ell) * (2 * pairs * n + 2 * pairs * p + 4 * ell * n * p)
+        nbytes = (2 * x.numel() + a.numel() + 2 * bm.numel()) * 4
+        record(result["ssd_scan"], name,
+               lambda: k.ssd_scan(x, a, bm, cm, chunk=chunk),
+               lambda: ssd_chunked(x, a, bm, cm, chunk=chunk),
+               exact, nbytes, flops, name.startswith("mamba2"))
+        del exact
+    for name, b, s, d in RGLRU_CASES:
+        a = 0.8 + 0.199 * torch.rand((b, s, d), generator=gen, device=dev)
+        bb = torch.randn((b, s, d), generator=gen, device=dev)
+        record(result["rglru_scan"], name, lambda: k.rglru_scan(a, bb),
+               lambda: rglru_ref(a, bb), rglru_ref(a.double(), bb.double()),
+               3 * a.numel() * 4, 2 * a.numel(), name.startswith("rg"))
     for table in result.values():
         table["max_abs_err"] = max(c["max_abs_err"] for c in table.values())
     torch.cuda.empty_cache()
@@ -591,6 +749,17 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
 SERVE_ARCH = "phi4-mini-3.8b"
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW = 8, 4, 64
 F32_LOGIT_BOUND = 0.05  # tests/test_models.py:94-114, float32 compute
+LONG_PROMPT = 4096  # recurrentgemma-9b's batch-1 request: two local windows
+# per serving path: n_kv_heads of the reduced config checked card vs CPU (phi4
+# with 2 for GQA), the prompt length S + 1 of the prefill(S) + decode vs
+# prefill(S + 1) check (None: the first request's prompt plus one token;
+# mamba2: S = 127, since prefill(S) needs min(128, S) to divide S), and
+# whether the first wave's tokens must agree between the schedulers
+SERVE_PATHS = {
+    "phi4-mini-3.8b": {"kv": 2, "consistency_len": None, "first_wave": True},
+    "mamba2-1.3b": {"kv": None, "consistency_len": 128, "first_wave": False},
+    "recurrentgemma-9b": {"kv": None, "consistency_len": LONG_PROMPT + 1, "first_wave": False},
+}
 
 
 @contextlib.contextmanager
@@ -616,28 +785,21 @@ def _bf16_close(got, want, n_vocab: int) -> tuple[float, float]:
 
 
 def _numpy_params(cfg, seed: int) -> dict:
-    """The LM's parameter tree as numpy float32, drawn from a seed."""
-    import numpy as np
-
+    """The LM's parameter tree as numpy float32, drawn from a seed (on the
+    host, with the model's own initialisers)."""
     from repro_torch.models import lm
 
-    rng = np.random.default_rng(seed)
+    def to_np(node):
+        return {k: to_np(v) for k, v in node.items()} if isinstance(node, dict) \
+            else node.float().numpy()
 
-    def build(node):
-        if isinstance(node, lm.PDef):
-            if node.init == "zeros":
-                return np.zeros(node.shape, np.float32)
-            return rng.standard_normal(node.shape, dtype=np.float32) * np.float32(node.scale)
-        return {k: build(node[k]) for k in sorted(node)}
-
-    return build(lm.param_defs(cfg))
+    return to_np(lm.init_params(cfg, seed, device="cpu"))
 
 
-def _card_vs_cpu(dev) -> dict:
-    """(a) phi4-mini-3.8b reduced with 2 kv heads: prefill of 64 tokens and
-    8 teacher-forced decode steps, on the card (kernels) and on the CPU
-    (plain versions), from one set of numpy parameters; bf16 and float32
-    compute."""
+def _card_vs_cpu(dev, arch: str, kv) -> dict:
+    """(a) ``arch`` reduced: prefill of 64 tokens and 8 teacher-forced
+    decode steps, on the card (kernels) and on the CPU (plain versions),
+    from one set of numpy parameters; bf16 and float32 compute."""
     import dataclasses
 
     import numpy as np
@@ -647,7 +809,9 @@ def _card_vs_cpu(dev) -> dict:
     from repro_torch.configs import ARCHS
     from repro_torch.models import lm
 
-    cfg = dataclasses.replace(ARCHS[SERVE_ARCH].reduced(), n_kv_heads=2)
+    cfg = ARCHS[arch].reduced()
+    if kv:
+        cfg = dataclasses.replace(cfg, n_kv_heads=kv)
     tree = _numpy_params(cfg, 0)
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 72)).astype(np.int32)
     out = {}
@@ -683,8 +847,9 @@ def _card_vs_cpu(dev) -> dict:
 
 def _prefill_decode_consistency(params, cfg, prompt: list[int], dev) -> dict:
     """prefill(S) then decode_step(token S) against the last logits of
-    prefill(S + 1): K3 and K4 held against each other at full width.
-    float32 compute holds to the reference's 0.05; bf16 is reported."""
+    prefill(S + 1): the prefill kernels held against the decode path at
+    full width.  float32 compute holds to the reference's 0.05; bf16 is
+    reported."""
     import torch
 
     from repro_torch.models import lm
@@ -693,56 +858,116 @@ def _prefill_decode_consistency(params, cfg, prompt: list[int], dev) -> dict:
     s = toks.shape[1] - 1
     out = {"S": s}
     for dtype, label in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
-        with compute_dtype(dtype):
+        with compute_dtype(dtype), torch.inference_mode():
             _, cache = lm.prefill(params, {"tokens": toks[:, :s]}, cfg, max_len=s + 1)
             dec, _ = lm.decode_step(params, cache, {"tokens": toks[:, s:]}, s, cfg)
+            del cache
             full, _ = lm.prefill(params, {"tokens": toks}, cfg)
+        check(bool(torch.isfinite(dec[:, : cfg.vocab_size]).all()
+                   and torch.isfinite(full[:, : cfg.vocab_size]).all()),
+              f"{label}: non-finite logits")
         err = float((dec - full)[:, : cfg.vocab_size].abs().max())
         out[label] = {"max_abs_logit_diff": err,
                       "max_abs_logit": float(full[:, : cfg.vocab_size].abs().max()),
                       "same_argmax": bool(torch.equal(dec[:, : cfg.vocab_size].argmax(-1),
                                                       full[:, : cfg.vocab_size].argmax(-1)))}
-        del cache
     check(out["float32"]["max_abs_logit_diff"] < F32_LOGIT_BOUND,
           f"prefill+decode vs prefill(S+1): {out['float32']}")
     return out
 
 
+def _launches_per_call(cfg) -> tuple[dict, dict]:
+    """The kernel launches one prefill and one decode step must make: one
+    per layer of the kernel its mixer runs, nothing else."""
+    pat = cfg.layer_pattern
+    n_attn = sum(m in ("full", "swa", "local") for m in pat)
+    zero = {"spike_accum_blocks": 0, "spike_accum": 0}
+    prefill = {**zero, "flash_attention": n_attn, "decode_attention": 0,
+               "ssd_scan": pat.count("ssm"), "rglru_scan": pat.count("rglru")}
+    decode = {**zero, "flash_attention": 0, "decode_attention": n_attn,
+              "ssd_scan": 0, "rglru_scan": 0}
+    return prefill, decode
+
+
 class _Timed:
     """Counts and times (synchronised, on the host clock) calls of
-    ``lm.prefill`` / ``lm.decode_step`` as the engine makes them."""
+    ``lm.prefill`` / ``lm.decode_step`` as the engine makes them, records
+    each call's kernel launches and checks its logits are finite."""
 
-    def __init__(self, fn):
-        self.fn, self.ms = fn, []
+    def __init__(self, fn, n_vocab: int):
+        self.fn, self.n_vocab, self.ms, self.launches = fn, n_vocab, [], []
 
     def __call__(self, *args, **kw):
         import torch
 
+        from repro_torch.kernels import LAUNCHES
+
         torch.cuda.synchronize()
+        before = dict(LAUNCHES)
         t0 = time.perf_counter()
         out = self.fn(*args, **kw)
         torch.cuda.synchronize()
         self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.launches.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+        check(bool(torch.isfinite(out[0][..., : self.n_vocab]).all()), "non-finite logits")
         return out
 
 
-def phase_serve(dev) -> dict:
-    """(b) phi4-mini-3.8b at full width and depth (bf16, random weights from
-    a seed): 8 requests through ``ServeEngine.generate`` (two waves of 4)
-    and ``generate_continuous``, with (a) and the consistency check run
-    outside the launch counts."""
+def _serve_timed(eng, name: str, prompts, cfg, per_call) -> dict:
+    """One scheduler of ``eng`` over ``prompts``, every prefill and decode
+    call timed and its launches held to ``per_call``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+
+    real = lm.prefill, lm.decode_step
+    lm.prefill, lm.decode_step = _Timed(real[0], cfg.vocab_size), _Timed(real[1], cfg.vocab_size)
+    try:
+        t0 = time.perf_counter()
+        toks = getattr(eng, name)(prompts, max_new_tokens=SERVE_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pre, dec = lm.prefill, lm.decode_step
+    finally:
+        lm.prefill, lm.decode_step = real
+    for kind, timed, want in (("prefill", pre, per_call[0]), ("decode", dec, per_call[1])):
+        for i, got in enumerate(timed.launches):
+            check(got == want, f"{name}: {kind} call {i} launched {got}, expected {want}")
+    check(len(toks) == len(prompts) and all(len(t) == SERVE_NEW for t in toks),
+          f"{name}: {[len(t) for t in toks]} tokens per request")
+    check(all(0 <= t < cfg.vocab_size for r in toks for t in r), f"{name}: token outside vocab")
+    slots = eng.sc.batch_slots
+    return {"tokens_out": toks, "wall_s": wall, "tokens": len(prompts) * SERVE_NEW,
+            "tokens_per_s": len(prompts) * SERVE_NEW / wall,
+            "prefill_calls": len(pre.ms), "prefill_ms": pre.ms,
+            "decode_steps": len(dec.ms), "decode_ms_per_step_mean": float(np.mean(dec.ms)),
+            "decode_ms_per_step_median": float(np.median(dec.ms)),
+            "decode_tokens_per_s": slots * len(dec.ms) / (sum(dec.ms) / 1e3),
+            "launches_per_prefill": per_call[0], "launches_per_decode_step": per_call[1],
+            "distinct_tokens_per_request": [len(set(t)) for t in toks]}
+
+
+def phase_serve(dev, arch: str) -> dict:
+    """(b) ``arch`` at full width and depth (bf16, random weights from a
+    seed): 8 requests through ``ServeEngine.generate`` (two waves of 4) and
+    ``generate_continuous``, every prefill and decode step launching exactly
+    its layers' kernels; for recurrentgemma-9b also one batch-1 request of
+    4,096 tokens.  (a), the prefill + decode consistency and a profiled
+    decode window run outside the launch counts."""
     import numpy as np
     import torch
 
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels import LAUNCHES
     from repro_torch.models import lm
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    out: dict = {}
+    opts = SERVE_PATHS[arch]
+    out: dict = {"arch": arch}
     with uncounted():
-        out["card_vs_cpu_reduced"] = _card_vs_cpu(dev)
-    cfg = ARCHS[SERVE_ARCH]
+        out["card_vs_cpu_reduced"] = _card_vs_cpu(dev, arch, opts["kv"])
+    cfg = ARCHS[arch]
+    per_call = _launches_per_call(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = lm.init_params(cfg, 0, device=dev)
@@ -755,46 +980,40 @@ def phase_serve(dev) -> dict:
     out["prompt_lens"] = [int(n) for n in lens]
     eng = ServeEngine(cfg, params, ServeConfig(batch_slots=SERVE_SLOTS), device=dev)
 
-    runs = {}
-    results = {}
-    real = lm.prefill, lm.decode_step
-    for name in ("generate", "generate_continuous"):
-        lm.prefill, lm.decode_step = _Timed(real[0]), _Timed(real[1])
-        before = dict(LAUNCHES)
-        try:
-            t0 = time.perf_counter()
-            results[name] = getattr(eng, name)(prompts, max_new_tokens=SERVE_NEW)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            pre, dec = lm.prefill.ms, lm.decode_step.ms
-        finally:
-            lm.prefill, lm.decode_step = real
-        k3 = LAUNCHES["flash_attention"] - before["flash_attention"]
-        k4 = LAUNCHES["decode_attention"] - before["decode_attention"]
-        per_call = cfg.n_layers if dev.type == "cuda" else 0  # the CPU takes the plain versions
-        check(k3 == per_call * len(pre), f"{name}: {k3} K3 launches, {len(pre)} prefills")
-        check(k4 == per_call * len(dec), f"{name}: {k4} K4 launches, {len(dec)} steps")
-        toks = results[name]
-        check(len(toks) == SERVE_REQUESTS and all(len(t) == SERVE_NEW for t in toks),
-              f"{name}: {[len(t) for t in toks]} tokens per request")
-        check(all(0 <= t < cfg.vocab_size for r in toks for t in r), f"{name}: token outside vocab")
-        runs[name] = {"wall_s": wall, "tokens": SERVE_REQUESTS * SERVE_NEW,
-                      "tokens_per_s": SERVE_REQUESTS * SERVE_NEW / wall,
-                      "prefill_calls": len(pre), "prefill_ms": pre,
-                      "decode_steps": len(dec), "decode_ms_per_step_mean": float(np.mean(dec)),
-                      "decode_ms_per_step_median": float(np.median(dec)),
-                      "decode_tokens_per_s": SERVE_SLOTS * len(dec) / (sum(dec) / 1e3),
-                      "flash_attention_launches": k3, "decode_attention_launches": k4,
-                      "distinct_tokens_per_request": [len(set(t)) for t in toks]}
-    check(results["generate_continuous"][:SERVE_SLOTS] == results["generate"][:SERVE_SLOTS],
-          "the first wave's tokens differ between the schedulers")
+    runs = {name: _serve_timed(eng, name, prompts, cfg, per_call)
+            for name in ("generate", "generate_continuous")}
+    same = [runs["generate_continuous"]["tokens_out"][i] == runs["generate"]["tokens_out"][i]
+            for i in range(SERVE_SLOTS)]
+    if opts["first_wave"]:
+        check(all(same), "the first wave's tokens differ between the schedulers")
+    else:
+        # the reference's quirk: generate_continuous's initial fill leaves
+        # every slot with the last prefilled request's state, so only that
+        # request decodes as in a wave (phi4's requests each repeat one token
+        # and agree all the same).  Under float32 compute, where bf16
+        # rounding of a batch-4 against a batch-1 prefill cannot flip a
+        # token, that request must agree between the schedulers.
+        with uncounted(), compute_dtype(torch.float32):
+            first = prompts[:SERVE_SLOTS]
+            f32 = [eng.generate(first, max_new_tokens=8)[-1],
+                   eng.generate_continuous(first, max_new_tokens=8)[-1]]
+        check(f32[0] == f32[1], f"float32: the first wave's last request differs: {f32}")
+        out["first_wave_last_equal_float32"] = True
+    out["first_wave_equal"] = same
+    if opts["consistency_len"] == LONG_PROMPT + 1:
+        long_prompt = rng.integers(0, cfg.vocab_size, LONG_PROMPT).tolist()
+        one = ServeEngine(cfg, params, ServeConfig(batch_slots=1), device=dev)
+        runs["long_prompt_batch1"] = _serve_timed(one, "generate", [long_prompt], cfg, per_call)
+    for run in runs.values():
+        run.pop("tokens_out")
     out["runs"] = runs
-    out["first_wave_equal"] = True
     out["peak_memory_serving"] = torch.cuda.max_memory_allocated(dev)
 
     with uncounted():
-        out["prefill_decode_consistency"] = _prefill_decode_consistency(
-            params, cfg, prompts[0] + [int(rng.integers(0, cfg.vocab_size))], dev)
+        n = opts["consistency_len"]
+        prompt = (prompts[0] + [int(rng.integers(0, cfg.vocab_size))] if n is None
+                  else rng.integers(0, cfg.vocab_size, n).tolist())
+        out["prefill_decode_consistency"] = _prefill_decode_consistency(params, cfg, prompt, dev)
         # launches and busy share of decode steps: a 4-slot wave at plen 1,024
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 1024))
                                 .astype(np.int32)).to(dev)
@@ -839,6 +1058,7 @@ def phase_serve_launcher() -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -854,7 +1074,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     rate, rate_note = mem_rate(name)
     t0 = time.perf_counter()
-    sources = ("spike_accum", "attention")
+    sources = ("spike_accum", "attention", "scan")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         for fut in [pool.submit(_build.build_library, src) for src in sources]:
             fut.result()
@@ -867,16 +1087,31 @@ def main() -> int:
 
     kern = phase_kernels(dev, rate)
     kern.update(phase_attention(dev, rate))
+    kern.update(phase_scans(dev, rate))
     emit({"phase": "kernels_check", **kern})
 
-    reset_launches()  # the main paths start here
-    emit({"phase": "launcher", **phase_launcher("cuda")})
-    emit({"phase": "real_size", **phase_real_size("cuda")})
-    emit({"phase": "serve", **phase_serve(dev)})
-    launches = dict(LAUNCHES)
+    # each main path runs with the counts set to 0 just before it and read
+    # just after, and must have launched each of its kernels
+    launches = dict.fromkeys(LAUNCHES, 0)
+
+    def path(kernels, *phases):
+        reset_launches()
+        for phase, fn in phases:
+            emit({"phase": phase, **fn()})
+        got = dict(LAUNCHES)
+        for kname in kernels:
+            check(got[kname] > 0, f"{phases[0][0]}: main path never launched {kname}")
+        for kname, n in got.items():
+            launches[kname] += n
+
+    path(("spike_accum_blocks", "spike_accum"),
+         ("launcher", lambda: phase_launcher("cuda")),
+         ("real_size", lambda: phase_real_size("cuda")))
+    path(("flash_attention", "decode_attention"), ("serve", lambda: phase_serve(dev, SERVE_ARCH)))
+    path(("ssd_scan",), ("serve_mamba2", lambda: phase_serve(dev, "mamba2-1.3b")))
+    path(("rglru_scan", "flash_attention", "decode_attention"),
+         ("serve_recurrentgemma", lambda: phase_serve(dev, "recurrentgemma-9b")))
     emit({"phase": "serve_launcher", **phase_serve_launcher()})
-    for kname, n in launches.items():
-        check(n > 0, f"main path never launched {kname}")
 
     csrc = "src/repro_torch/kernels/csrc/"
     rows = []
@@ -885,6 +1120,8 @@ def main() -> int:
         ("spike_accum", "spike_accum.cu", "spike_accum.py:62", "rate_1pct"),
         ("flash_attention", "attention.cu", "flash_attention.py:116", "phi4_prefill/bfloat16"),
         ("decode_attention", "attention.cu", "decode_attention.py:94", "phi4_decode/bfloat16"),
+        ("ssd_scan", "scan.cu", "ssd_scan.py:81", "mamba2_prefill"),
+        ("rglru_scan", "scan.cu", "rglru_scan.py:53", "rg_prefill"),
     ):
         table = kern[kname]
         c = table["cases"][case] if "cases" in table else table[case]
@@ -893,7 +1130,8 @@ def main() -> int:
                      "max_abs_err": table["max_abs_err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-                     "device_ms": c["device_ms"]})
+                     "device_ms": c["device_ms"], "case": case})
+    emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

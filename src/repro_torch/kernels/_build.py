@@ -44,6 +44,7 @@ BUILD_SECONDS: dict[str, float] = {}
 LAUNCHES: dict[str, int] = {
     "spike_accum_blocks": 0, "spike_accum": 0,
     "flash_attention": 0, "decode_attention": 0,
+    "ssd_scan": 0, "rglru_scan": 0,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

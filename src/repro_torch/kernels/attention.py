@@ -5,7 +5,8 @@
   attention with GQA, causal and sliding-window masks (prefill).
 * :func:`decode_attention` replaces the Pallas
   ``repro/kernels/decode_attention.py:decode_attention`` (:94): one query
-  token against a KV cache with per-row valid lengths (decode).
+  token against a KV cache with per-row valid lengths (decode), and, for
+  windowed layers, the ring buffer's per-slot validity (``slot_pos``).
 
 Both take the JAX kernels' layouts — q ``[B, Hq, Sq, D]`` (decode
 ``[B, Hq, D]``), k/v ``[B, Hkv, S, D]`` — with any strides whose last
@@ -33,9 +34,9 @@ from repro_torch.kernels._build import LAUNCHES, load_library, raise_on
 
 __all__ = ["flash_attention", "decode_attention", "decode_splits"]
 
-FLASH_HEAD_DIMS = (16, 32, 64, 128)
-DECODE_HEAD_DIMS = (32, 64, 128)
-MAX_GROUP = 8  # q heads per kv head the decode kernel serves from one read
+FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
+DECODE_HEAD_DIMS = (32, 64, 128, 256)
+MAX_GROUP = 8  # q heads one decode block serves from one read of the rows
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,7 +53,7 @@ def _lib():
         ]
         lib.flash_attention_launch.restype = _I
         lib.decode_attention_launch.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _P
+            _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _P
         ]
         lib.decode_attention_launch.restype = _I
         _bound = lib
@@ -139,10 +140,13 @@ def flash_attention(
     return out
 
 
-def decode_splits(b: int, hkv: int, s: int, n_sm: int) -> tuple[int, int]:
+def decode_splits(b: int, hkv: int, s: int, n_sm: int, group: int = 1) -> tuple[int, int]:
     """``(n_split, chunk)``: enough cache splits for about two blocks per
-    SM, each split at least 64 rows, ``n_split * chunk >= s``."""
-    n_split = max(1, min(-(-2 * n_sm // (b * hkv)), -(-s // 64)))
+    SM (a kv head with more than ``MAX_GROUP`` q heads takes one block per
+    ``MAX_GROUP`` of them), each split at least 64 rows,
+    ``n_split * chunk >= s``."""
+    blocks = b * hkv * -(-group // MAX_GROUP)
+    n_split = max(1, min(-(-2 * n_sm // blocks), -(-s // 64)))
     return n_split, max(1, -(-s // n_split))
 
 
@@ -153,19 +157,24 @@ def decode_attention(
     *,
     seq_lens: torch.Tensor | None = None,
     sm_scale: float | None = None,
+    slot_pos: torch.Tensor | None = None,
+    slot_lo: int = -1,
 ) -> torch.Tensor:
     """One-token attention against a KV cache on the card.
 
-    q ``[B, Hq, D]``, k/v ``[B, Hkv, S, D]`` (``Hq % Hkv == 0``, at most
-    8 q heads per kv head), ``seq_lens`` optional ``int[B]`` valid lengths
-    (default ``S``; rows past it are not read).  Returns ``[B, Hq, D]`` in
-    q's dtype; a row with length 0 is 0.
+    q ``[B, Hq, D]``, k/v ``[B, Hkv, S, D]`` (``Hq % Hkv == 0``),
+    ``seq_lens`` optional ``int[B]`` valid lengths (default ``S``; rows past
+    it are not read).  ``slot_pos`` optional ``int32[S]`` shared by the
+    batch: row ``w`` then also needs ``slot_pos[w] >= 0`` and
+    ``slot_pos[w] > slot_lo`` (the kernel reads it; rows that fail are not
+    read).  Returns ``[B, Hq, D]`` in q's dtype; a row with no valid key
+    is 0.
     """
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
     b, hq, d = q.shape
     _, hkv, s, _ = k.shape
-    if k.shape[0] != b or hq % hkv or hq // hkv > MAX_GROUP:
+    if k.shape[0] != b or hq % hkv:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)}")
     dev = _check("decode_attention", {"q": q, "k": k, "v": v}, DECODE_HEAD_DIMS)
     if seq_lens is None:
@@ -175,10 +184,15 @@ def decode_attention(
     if seq_lens.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"seq_lens must be int32 (or int64), got {seq_lens.dtype}")
     seq_lens = seq_lens.to(torch.int32).contiguous()
+    if slot_pos is not None and (
+        tuple(slot_pos.shape) != (s,) or slot_pos.device != dev
+        or slot_pos.dtype != torch.int32 or not slot_pos.is_contiguous()
+    ):
+        raise ValueError(f"slot_pos must be contiguous int32[{s}] on {dev}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     n_split, chunk = decode_splits(
-        b, hkv, s, torch.cuda.get_device_properties(dev).multi_processor_count)
+        b, hkv, s, torch.cuda.get_device_properties(dev).multi_processor_count, hq // hkv)
     part_m = torch.empty((b, hq, n_split), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, hq, n_split, d), dtype=torch.float32, device=dev)
@@ -186,6 +200,7 @@ def decode_attention(
     with torch.cuda.device(dev):
         err = _lib().decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), seq_lens.data_ptr(),
+            None if slot_pos is None else slot_pos.data_ptr(), max(int(slot_lo), -1),
             out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), int(q.dtype == torch.bfloat16), b, hq, hkv,
             s, d, n_split, chunk, _strides(q, k, v, out), float(sm_scale),

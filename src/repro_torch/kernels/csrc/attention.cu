@@ -8,9 +8,11 @@
 //     flash_attention (:116, body _kernel :33).
 //
 //   decode_attention  one query token per (batch, q head) against a KV cache
-//     whose first seq_lens[b] rows are valid.  Replaces
-//     repro/kernels/decode_attention.py:decode_attention (:94, body _kernel
-//     :33).
+//     whose first seq_lens[b] rows are valid and, when slot_pos is given,
+//     whose row w also holds a position slot_pos[w] >= 0 above slot_lo (the
+//     windowed ring buffer's rule, repro/models/layers.py:260-262).
+//     Replaces repro/kernels/decode_attention.py:decode_attention (:94, body
+//     _kernel :33).
 //
 // Every tensor is addressed through its (batch, head, row) strides with the
 // last dimension contiguous, so the model hands over transposed views of
@@ -29,8 +31,13 @@
 // 64-71).  One block owns one (64-row q tile, q head, batch) and loops over
 // its KV tiles: that loop takes the place of the TPU's sequential KV grid
 // axis.  float32 inputs take a CUDA-core kernel of the same structure
-// (16-row tiles, one key per lane).  Not yet done: wgmma, TMA and a
-// multi-stage copy pipeline.
+// (16-row tiles, one key per lane).  At head dim 256 (recurrentgemma-9b)
+// the Q fragments (64 registers) and the output accumulator (128) would not
+// fit in a thread's registers beside the scores, so Q stays in shared
+// memory and is read fragment by fragment, and KV tiles are 32 keys; the
+// tiles then pass the 48 KB of static shared memory and both kernels take
+// theirs dynamically.  Not yet done: wgmma, TMA and a multi-stage copy
+// pipeline.
 //
 // Decode reads each valid K/V row once per kv head and does 4 flops per
 // element per q head of the group: it is bound by memory (bytes of the valid
@@ -41,7 +48,11 @@
 // sizes, so the cache axis is split across blocks (flash-decoding) and a
 // second kernel combines the partial (max, normaliser, output) of the
 // splits in ascending order.  No atomics: reruns agree bit for bit.
-// Tail rows past seq_lens[b] are not read.
+// Tail rows past seq_lens[b] are not read, nor are rows whose slot_pos
+// fails the window rule (the kernel reads slot_pos itself; no mask is
+// built).  A block serves at most kMaxGroup q heads, held in registers; a
+// larger group (recurrentgemma-9b's 16 q heads on one kv head) is split
+// over several blocks, each reading the kv head's rows again (from L2).
 //
 // Softmax is taken in base 2 (scores pre-multiplied by scale * log2 e).
 // Masked scores are -inf and a row that has seen no valid key keeps
@@ -105,7 +116,6 @@ __device__ __forceinline__ void kv_tile_range(int q0, int bq, int bk, int sk,
 // ---------------------------------------------------------------------------
 
 constexpr int kBq = 64;        // q rows per block, 16 per warp
-constexpr int kBk = 64;        // keys per KV tile
 constexpr int kMmaThreads = 128;
 
 __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
@@ -135,16 +145,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Loads rows [r0, r0 + kBk) of a [rows, D] bf16 matrix (row stride `ld`
+// Loads rows [r0, r0 + R) of a [rows, D] bf16 matrix (row stride `ld`
 // elements, last dim contiguous, 16-byte aligned) into shared memory with
 // row stride D + 8; rows at or past `rows` are zero.
-template <int D>
+template <int D, int R>
 __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* sm,
                                                const __nv_bfloat16* g,
                                                long long ld, int r0,
                                                int rows) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kBk * kChunks; i += kMmaThreads) {
+  for (int i = threadIdx.x; i < R * kChunks; i += kMmaThreads) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -155,7 +165,18 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* sm,
   }
 }
 
-// grid (ceil(sq / kBq), hq, batch); block kMmaThreads.
+// KV tile length and where Q lives, by head dim: registers up to 128,
+// shared memory at 256 (see the header).
+template <int D>
+struct FlashShape {
+  static constexpr int kBk = D > 128 ? 32 : 64;
+  static constexpr bool kQShared = D > 128;
+  static constexpr size_t kSmemBytes =
+      sizeof(__nv_bfloat16) * (D + 8) * (2 * kBk + (kQShared ? kBq : 0));
+};
+
+// grid (ceil(sq / kBq), hq, batch); block kMmaThreads; dynamic shared
+// memory FlashShape<D>::kSmemBytes.
 //
 // Warp w owns q rows q0 + 16 w .. + 15.  In the mma fragments, thread
 // (g = lane / 4, t = lane % 4) holds rows g and g + 8 of the warp's 16, and
@@ -172,8 +193,12 @@ __global__ void __launch_bounds__(kMmaThreads)
                       Strides vs, Strides os, int group, int sq, int sk,
                       float scale_log2, int causal, int window) {
   constexpr int kS = D + 8;  // padded shared row: conflict-free fragments
-  __shared__ __align__(16) __nv_bfloat16 sk_tile[kBk * kS];
-  __shared__ __align__(16) __nv_bfloat16 sv_tile[kBk * kS];
+  constexpr int kBk = FlashShape<D>::kBk;
+  constexpr bool kQShared = FlashShape<D>::kQShared;
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  __nv_bfloat16* sk_tile = reinterpret_cast<__nv_bfloat16*>(flash_smem);
+  __nv_bfloat16* sv_tile = sk_tile + kBk * kS;
+  __nv_bfloat16* sq_tile = sv_tile + kBk * kS;  // kQShared only
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -188,21 +213,26 @@ __global__ void __launch_bounds__(kMmaThreads)
   const __nv_bfloat16* kb = k + b * ks.b + (h / group) * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + (h / group) * vs.h;
 
-  // Q as A fragments, kept in registers for the whole KV loop.
-  uint32_t qa[D / 16][4];
+  // Q as A fragments, kept in registers for the whole KV loop (D <= 128)
+  // or loaded from shared memory at each use (D = 256).
+  uint32_t qa[kQShared ? 1 : D / 16][4];
+  if constexpr (kQShared) {
+    load_tile_bf16<D, kBq>(sq_tile, qb, qs.s, q0, sq);
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {  // row0, row0 + 8
-      const int r = row0 + 8 * half;
+      for (int half = 0; half < 2; ++half) {  // row0, row0 + 8
+        const int r = row0 + 8 * half;
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {  // columns 2t.., 8 + 2t..
-        uint32_t val = 0u;
-        if (r < sq) {
-          val = *reinterpret_cast<const uint32_t*>(qb + r * qs.s + kk * 16 +
-                                                   8 * c + 2 * t);
+        for (int c = 0; c < 2; ++c) {  // columns 2t.., 8 + 2t..
+          uint32_t val = 0u;
+          if (r < sq) {
+            val = *reinterpret_cast<const uint32_t*>(qb + r * qs.s + kk * 16 +
+                                                     8 * c + 2 * t);
+          }
+          qa[kk][half + 2 * c] = val;
         }
-        qa[kk][half + 2 * c] = val;
       }
     }
   }
@@ -220,8 +250,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int tile = lo; tile < hi; ++tile) {
     const int k0 = tile * kBk;
     __syncthreads();  // the previous tile's readers are done
-    load_tile_bf16<D>(sk_tile, kb, ks.s, k0, sk);
-    load_tile_bf16<D>(sv_tile, vb, vs.s, k0, sk);
+    load_tile_bf16<D, kBk>(sk_tile, kb, ks.s, k0, sk);
+    load_tile_bf16<D, kBk>(sv_tile, vb, vs.s, k0, sk);
     __syncthreads();
 
     float s[kBk / 8][4];
@@ -231,10 +261,18 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      if constexpr (kQShared) {  // the register layout, from shared memory
+        const __nv_bfloat16* qr = sq_tile + (warp * 16 + g) * kS + kk * 16 + 2 * t;
+        qa[0][0] = *reinterpret_cast<const uint32_t*>(qr);
+        qa[0][1] = *reinterpret_cast<const uint32_t*>(qr + 8 * kS);
+        qa[0][2] = *reinterpret_cast<const uint32_t*>(qr + 8);
+        qa[0][3] = *reinterpret_cast<const uint32_t*>(qr + 8 * kS + 8);
+      }
+      const auto& a_frag = qa[kQShared ? 0 : kk];
 #pragma unroll
       for (int n = 0; n < kBk / 8; ++n) {
         const __nv_bfloat16* kr = sk_tile + (n * 8 + g) * kS + kk * 16 + 2 * t;
-        mma_16816(s[n], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
+        mma_16816(s[n], a_frag, *reinterpret_cast<const uint32_t*>(kr),
                   *reinterpret_cast<const uint32_t*>(kr + 8));
       }
     }
@@ -333,9 +371,15 @@ constexpr int kF32Bq = 16;  // q rows per block, 4 per warp (smem < 48 KB)
 constexpr int kF32Bk = 32;  // keys per KV tile, one per lane
 constexpr int kF32Threads = 128;
 
-// grid (ceil(sq / kF32Bq), hq, batch); block kF32Threads.  Lane j scores
-// key j of the tile against the warp's 4 rows; the probabilities are then
-// broadcast by shuffles and lane j accumulates output columns j + 32 c.
+template <int D>
+constexpr size_t flash_f32_smem_bytes() {
+  return sizeof(float) * (kF32Bq * D + kF32Bk * (D + 1) + kF32Bk * D);
+}
+
+// grid (ceil(sq / kF32Bq), hq, batch); block kF32Threads; dynamic shared
+// memory flash_f32_smem_bytes<D>().  Lane j scores key j of the tile
+// against the warp's 4 rows; the probabilities are then broadcast by
+// shuffles and lane j accumulates output columns j + 32 c.
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -344,9 +388,12 @@ __global__ void __launch_bounds__(kF32Threads)
                      int sq, int sk, float scale_log2, int causal, int window) {
   constexpr int kRows = kF32Bq / 4;
   constexpr int kCols = (D + 31) / 32;
-  __shared__ float sq_tile[kF32Bq][D];
-  __shared__ float sk_tile[kF32Bk][D + 1];  // +1: lanes hit distinct banks
-  __shared__ float sv_tile[kF32Bk][D];
+  extern __shared__ float flash_f32_smem[];
+  auto sq_tile = reinterpret_cast<float(*)[D]>(flash_f32_smem);
+  auto sk_tile = reinterpret_cast<float(*)[D + 1]>(  // +1: lanes hit distinct banks
+      flash_f32_smem + kF32Bq * D);
+  auto sv_tile = reinterpret_cast<float(*)[D]>(flash_f32_smem + kF32Bq * D +
+                                               kF32Bk * (D + 1));
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -457,8 +504,12 @@ __global__ void __launch_bounds__(kF32Threads)
 
 constexpr int kDecThreads = 128;
 constexpr int kDecWarps = kDecThreads / 32;
-constexpr int kMaxGroup = 8;  // q heads per kv head
-constexpr int kUnroll = 4;    // K/V rows each warp loads before using them
+constexpr int kMaxGroup = 8;  // q heads per block
+
+// K/V rows each warp loads before using them: fewer at head dim 256, where
+// each row takes 8 registers a lane.
+template <int D>
+constexpr int kDecUnroll = D > 128 ? 2 : 4;
 
 template <int E, typename T>
 __device__ __forceinline__ void load_row(float (&dst)[E], const T* src) {
@@ -466,28 +517,36 @@ __device__ __forceinline__ void load_row(float (&dst)[E], const T* src) {
   for (int e = 0; e < E; ++e) dst[e] = to_float(src[e]);
 }
 
-// grid (n_split, hkv, batch); block kDecThreads.  The block scores keys
-// [split * chunk, min((split + 1) * chunk, seq_lens[b])) against the group's
-// q heads.  Lane l holds elements [l E, l E + E) of each row (E = D / 32);
-// warp w takes keys w, w + 4, ... of the split, kUnroll at a time, and
-// keeps its own running (max, sum, output) per q head; the four warps are
-// combined in order at the end and written as this split's partial.
+// grid (n_split, hkv * n_gc, batch); block kDecThreads.  The block scores
+// keys [split * chunk, min((split + 1) * chunk, seq_lens[b])) of kv head
+// blockIdx.y / n_gc against its q heads [g0, g0 + kMaxGroup) of the group,
+// g0 = (blockIdx.y % n_gc) * kMaxGroup; with slot_pos, key j also needs
+// slot_pos[j] > slot_lo (the host passes slot_lo >= -1, so an empty slot,
+// -1, never counts).  Lane l holds elements [l E, l E + E) of each row
+// (E = D / 32); warp w takes keys w U, w U + 1, ... of the split, U at a
+// time, and keeps its own running (max, sum, output) per q head; the four
+// warps are combined in order at the end and written as this split's
+// partial.
 template <int D, typename T>
 __global__ void __launch_bounds__(kDecThreads)
     decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ seq_lens,
+                        const int* __restrict__ slot_pos, int slot_lo,
                         float* __restrict__ part_m, float* __restrict__ part_l,
                         float* __restrict__ part_acc, Strides qs, Strides ks,
-                        Strides vs, int hq, int group, int s_cap, int chunk,
-                        float scale_log2) {
+                        Strides vs, int hq, int group, int n_gc, int s_cap,
+                        int chunk, float scale_log2) {
   constexpr int E = D / 32;
+  constexpr int U = kDecUnroll<D>;
   __shared__ float sh_m[kDecWarps][kMaxGroup];
   __shared__ float sh_l[kDecWarps][kMaxGroup];
   __shared__ float sh_acc[kDecWarps][kMaxGroup][D];
 
   const int split = blockIdx.x;
-  const int hk = blockIdx.y;
+  const int hk = blockIdx.y / n_gc;
+  const int g0 = (blockIdx.y % n_gc) * kMaxGroup;
+  const int ng = min(kMaxGroup, group - g0);
   const int b = blockIdx.z;
   const int n_split = gridDim.x;
   const int warp = threadIdx.x >> 5;
@@ -509,32 +568,34 @@ __global__ void __launch_bounds__(kDecThreads)
       acc[gq][e] = 0.0f;
       qr[gq][e] = 0.0f;
     }
-    if (gq < group) {
-      load_row<E>(qr[gq], q + b * qs.b + (hk * group + gq) * qs.h + lane * E);
+    if (gq < ng) {
+      load_row<E>(qr[gq], q + b * qs.b + (hk * group + g0 + gq) * qs.h + lane * E);
     }
   }
   const T* kb = k + b * ks.b + hk * ks.h + lane * E;
   const T* vb = v + b * vs.b + hk * vs.h + lane * E;
 
-  for (int j = j0 + warp * kUnroll; j < j1; j += kDecWarps * kUnroll) {
-    float kr[kUnroll][E];
-    float vr[kUnroll][E];
+  for (int j = j0 + warp * U; j < j1; j += kDecWarps * U) {
+    bool ok[U];  // the same for every lane of the warp
+    float kr[U][E];
+    float vr[U][E];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (j + u < j1) {
+    for (int u = 0; u < U; ++u) {
+      ok[u] = j + u < j1 && (slot_pos == nullptr || slot_pos[j + u] > slot_lo);
+      if (ok[u]) {
         load_row<E>(kr[u], kb + (j + u) * ks.s);
         load_row<E>(vr[u], vb + (j + u) * vs.s);
       }
     }
 #pragma unroll
     for (int gq = 0; gq < kMaxGroup; ++gq) {
-      if (gq >= group) break;
-      float x[kUnroll];
+      if (gq >= ng) break;
+      float x[U];
       float mx = -INFINITY;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < U; ++u) {
         float dot = 0.0f;
-        if (j + u < j1) {
+        if (ok[u]) {
 #pragma unroll
           for (int e = 0; e < E; ++e) dot = fmaf(qr[gq][e], kr[u][e], dot);
         }
@@ -542,7 +603,7 @@ __global__ void __launch_bounds__(kDecThreads)
         for (int off = 16; off > 0; off >>= 1) {
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
         }
-        x[u] = j + u < j1 ? dot * scale_log2 : -INFINITY;
+        x[u] = ok[u] ? dot * scale_log2 : -INFINITY;
         mx = fmaxf(mx, x[u]);
       }
       const float m_new = fmaxf(m_run[gq], mx);
@@ -553,10 +614,10 @@ __global__ void __launch_bounds__(kDecThreads)
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[gq][e] *= corr;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < U; ++u) {
         const float p = exp2f(x[u] - base);
         sum += p;
-        if (j + u < j1) {
+        if (ok[u]) {
 #pragma unroll
           for (int e = 0; e < E; ++e) acc[gq][e] = fmaf(p, vr[u][e], acc[gq][e]);
         }
@@ -567,7 +628,7 @@ __global__ void __launch_bounds__(kDecThreads)
 
 #pragma unroll
   for (int gq = 0; gq < kMaxGroup; ++gq) {
-    if (gq >= group) break;
+    if (gq >= ng) break;
     if (lane == 0) {
       sh_m[warp][gq] = m_run[gq];
       sh_l[warp][gq] = l_run[gq];
@@ -576,7 +637,7 @@ __global__ void __launch_bounds__(kDecThreads)
     for (int e = 0; e < E; ++e) sh_acc[warp][gq][lane * E + e] = acc[gq][e];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < group * D; i += kDecThreads) {
+  for (int i = threadIdx.x; i < ng * D; i += kDecThreads) {
     const int gq = i / D;
     const int d = i % D;
     float mx = -INFINITY;
@@ -590,7 +651,7 @@ __global__ void __launch_bounds__(kDecThreads)
       a += sh_acc[w][gq][d] * wt;
     }
     const long long row =
-        (static_cast<long long>(b) * hq + hk * group + gq) * n_split + split;
+        (static_cast<long long>(b) * hq + hk * group + g0 + gq) * n_split + split;
     part_acc[row * D + d] = a;
     if (d == 0) {
       part_m[row] = mx;
@@ -629,44 +690,63 @@ Strides strides_at(const long long* s, int i) {
 }
 
 template <int D>
-void launch_flash(const void* q, const void* k, const void* v, void* o,
-                  int is_bf16, int b, int hq, int group, int sq, int sk,
-                  const long long* st, float scale_log2, int causal, int window,
-                  cudaStream_t stream) {
+int launch_flash(const void* q, const void* k, const void* v, void* o,
+                 int is_bf16, int b, int hq, int group, int sq, int sk,
+                 const long long* st, float scale_log2, int causal, int window,
+                 cudaStream_t stream) {
   if (is_bf16) {
+    constexpr size_t smem = FlashShape<D>::kSmemBytes;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     const dim3 grid((sq + kBq - 1) / kBq, hq, b);
-    flash_bf16_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
+    flash_bf16_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
         strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
         strides_at(st, 3), group, sq, sk, scale_log2, causal, window);
   } else {
+    constexpr size_t smem = flash_f32_smem_bytes<D>();
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     const dim3 grid((sq + kF32Bq - 1) / kF32Bq, hq, b);
-    flash_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(
+    flash_f32_kernel<D><<<grid, kF32Threads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o),
         strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
         strides_at(st, 3), group, sq, sk, scale_log2, causal, window);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, typename T>
-void launch_decode(const void* q, const void* k, const void* v,
-                   const int* seq_lens, void* o, float* part_m, float* part_l,
-                   float* part_acc, int b, int hq, int hkv, int s_cap,
-                   int n_split, int chunk, const long long* st,
-                   float scale_log2, cudaStream_t stream) {
-  const dim3 grid(n_split, hkv, b);
+int launch_decode(const void* q, const void* k, const void* v,
+                  const int* seq_lens, const int* slot_pos, int slot_lo,
+                  void* o, float* part_m, float* part_l, float* part_acc,
+                  int b, int hq, int hkv, int s_cap, int n_split, int chunk,
+                  const long long* st, float scale_log2, cudaStream_t stream) {
+  const int group = hq / hkv;
+  const int n_gc = (group + kMaxGroup - 1) / kMaxGroup;
+  const dim3 grid(n_split, hkv * n_gc, b);
   decode_split_kernel<D, T><<<grid, kDecThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seq_lens, part_m, part_l, part_acc,
-      strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), hq, hq / hkv,
-      s_cap, chunk, scale_log2);
-  if (cudaPeekAtLastError() != cudaSuccess) return;
+      static_cast<const T*>(v), seq_lens, slot_pos, slot_lo, part_m, part_l,
+      part_acc, strides_at(st, 0), strides_at(st, 1), strides_at(st, 2), hq,
+      group, n_gc, s_cap, chunk, scale_log2);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   decode_combine_kernel<T><<<dim3(hq, b), D, 0, stream>>>(
       part_m, part_l, part_acc, static_cast<T*>(o), strides_at(st, 3), hq,
       n_split, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -685,48 +765,53 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const float sl2 = sm_scale * kLog2e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: launch_flash<16>(q, k, v, o, is_bf16, b, hq, group, sq, sk, strides, sl2, causal, window, st); break;
-    case 32: launch_flash<32>(q, k, v, o, is_bf16, b, hq, group, sq, sk, strides, sl2, causal, window, st); break;
-    case 64: launch_flash<64>(q, k, v, o, is_bf16, b, hq, group, sq, sk, strides, sl2, causal, window, st); break;
-    case 128: launch_flash<128>(q, k, v, o, is_bf16, b, hq, group, sq, sk, strides, sl2, causal, window, st); break;
+    case 16: return launch_flash<16>(q, k, v, o, is_bf16, b, hq, group, sq, sk, strides, sl2, causal, window, st);
+    case 32: return launch_flash<32>(q, k, v, o, is_bf16, b, hq, group, sq, sk, strides, sl2, causal, window, st);
+    case 64: return launch_flash<64>(q, k, v, o, is_bf16, b, hq, group, sq, sk, strides, sl2, causal, window, st);
+    case 128: return launch_flash<128>(q, k, v, o, is_bf16, b, hq, group, sq, sk, strides, sl2, causal, window, st);
+    case 256: return launch_flash<256>(q, k, v, o, is_bf16, b, hq, group, sq, sk, strides, sl2, causal, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // strides: 12 int64, (batch, head, row) element strides of q, k, v, o (the
-// row strides of q and o are unused).  part_m / part_l: f32[b, hq, n_split],
-// part_acc: f32[b, hq, n_split, d].
+// row strides of q and o are unused).  slot_pos: null, or int32[s_cap]
+// shared by the batch, with slot_lo >= -1.  part_m / part_l:
+// f32[b, hq, n_split], part_acc: f32[b, hq, n_split, d].
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* seq_lens,
+                                       const void* slot_pos, int slot_lo,
                                        void* o, void* part_m, void* part_l,
                                        void* part_acc, int is_bf16, int b,
                                        int hq, int hkv, int s_cap, int d,
                                        int n_split, int chunk,
                                        const long long* strides,
                                        float sm_scale, void* stream) {
-  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || hq / hkv > kMaxGroup ||
-      n_split <= 0 || chunk <= 0) {
+  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || n_split <= 0 || chunk <= 0 ||
+      slot_lo < -1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float sl2 = sm_scale * kLog2e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sl = static_cast<const int*>(seq_lens);
+  const int* sp = static_cast<const int*>(slot_pos);
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
-#define REPRO_DECODE(D)                                                      \
-  (is_bf16 ? launch_decode<D, __nv_bfloat16>(q, k, v, sl, o, pm, pl, pa, b,  \
-                                             hq, hkv, s_cap, n_split, chunk, \
-                                             strides, sl2, st)               \
-           : launch_decode<D, float>(q, k, v, sl, o, pm, pl, pa, b, hq, hkv, \
-                                     s_cap, n_split, chunk, strides, sl2, st))
+#define REPRO_DECODE(D)                                                       \
+  return is_bf16 ? launch_decode<D, __nv_bfloat16>(q, k, v, sl, sp, slot_lo, \
+                                                   o, pm, pl, pa, b, hq, hkv, \
+                                                   s_cap, n_split, chunk,     \
+                                                   strides, sl2, st)          \
+                 : launch_decode<D, float>(q, k, v, sl, sp, slot_lo, o, pm,  \
+                                           pl, pa, b, hq, hkv, s_cap,         \
+                                           n_split, chunk, strides, sl2, st)
   switch (d) {
-    case 32: REPRO_DECODE(32); break;
-    case 64: REPRO_DECODE(64); break;
-    case 128: REPRO_DECODE(128); break;
+    case 32: REPRO_DECODE(32);
+    case 64: REPRO_DECODE(64);
+    case 128: REPRO_DECODE(128);
+    case 256: REPRO_DECODE(256);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_DECODE
-  return static_cast<int>(cudaGetLastError());
 }

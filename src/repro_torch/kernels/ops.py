@@ -3,7 +3,8 @@
 The tensor's device decides — there is no policy flag: a CPU tensor
 takes the plain PyTorch version (:mod:`repro_torch.kernels.ref`), a CUDA
 tensor takes the hand-written kernel (:mod:`repro_torch.kernels.spike_accum`,
-:mod:`repro_torch.kernels.attention`) or raises.  There is no fallback from
+:mod:`repro_torch.kernels.attention`, :mod:`repro_torch.kernels.scan`) or
+raises.  There is no fallback from
 the kernel to the plain version.  The signatures and layouts are those of
 ``repro/kernels/ops.py``.
 """
@@ -13,9 +14,12 @@ import torch
 
 from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import scan as _scan
 from repro_torch.kernels import spike_accum as _cuda
 
-__all__ = ["attention", "decode_attention", "spike_currents", "spike_currents_blocks"]
+__all__ = [
+    "attention", "decode_attention", "ssd", "rglru", "spike_currents", "spike_currents_blocks",
+]
 
 
 def attention(
@@ -41,12 +45,36 @@ def decode_attention(
     *,
     seq_lens: torch.Tensor | None = None,
     sm_scale: float | None = None,
+    slot_pos: torch.Tensor | None = None,
+    slot_lo: int = -1,
 ) -> torch.Tensor:
     """One-token attention against a KV cache (decode).  q ``[B, Hq, D]``,
-    k/v ``[B, Hkv, S, D]``, ``seq_lens`` optional ``int[B]``."""
+    k/v ``[B, Hkv, S, D]``, ``seq_lens`` optional ``int[B]``; ``slot_pos``
+    optional ``int[S]`` (row ``w`` valid only when ``slot_pos[w] >= 0`` and
+    ``slot_pos[w] > slot_lo``: the windowed ring buffer's rule)."""
     if q.device.type == "cpu":
-        return _ref.decode_attention_ref(q, k, v, seq_lens=seq_lens, sm_scale=sm_scale)
-    return _attn.decode_attention(q, k, v, seq_lens=seq_lens, sm_scale=sm_scale)
+        return _ref.decode_attention_ref(q, k, v, seq_lens=seq_lens, sm_scale=sm_scale,
+                                         slot_pos=slot_pos, slot_lo=slot_lo)
+    return _attn.decode_attention(q, k, v, seq_lens=seq_lens, sm_scale=sm_scale,
+                                  slot_pos=slot_pos, slot_lo=slot_lo)
+
+
+def ssd(
+    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128
+) -> torch.Tensor:
+    """Mamba-2 chunked SSD scan (prefill).  x ``[B, S, H, P]``, a
+    ``[B, S, H]``, b/c ``[B, S, G, N]``; ``min(chunk, S)`` must divide S."""
+    if x.device.type == "cpu":
+        return _ref.ssd_chunked(x, a, b, c, chunk=chunk)
+    return _scan.ssd_scan(x, a, b, c, chunk=chunk)
+
+
+def rglru(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """RG-LRU diagonal recurrence (prefill).  a, b ``[B, S, D]`` → the h
+    trace."""
+    if a.device.type == "cpu":
+        return _ref.rglru_ref(a, b)
+    return _scan.rglru_scan(a, b)
 
 
 def spike_currents(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -2,12 +2,15 @@
 oracle each CUDA kernel is held against on the card.
 
 The same einsums / matmul as ``repro/kernels/ref.py``: dense masked
-attention (:22, :56) and the spike accumulations (:140-153), in the JAX
-functions' layouts.  The spike versions take the per-rank signature of the
-JAX functions; the block version also takes rank-stacked inputs (a leading
-rank dimension on all three arguments).  They compute in float32, or in
-float64 when given float64 inputs (the yardstick the kernels are held to at
-large sizes).  The attention versions compute in float32 and return the
+attention (:22, :56), the SSD and RG-LRU recurrences (:86, :117) and the
+spike accumulations (:140-153), in the JAX functions' layouts; and
+:func:`ssd_chunked`, the chunked SSD of ``repro/kernels/ops.py:
+_ssd_chunked_jnp`` (:136), which the reference's model calls.  The spike
+versions take the per-rank signature of the JAX functions; the block
+version also takes rank-stacked inputs (a leading rank dimension on all
+three arguments).  The spike and scan versions compute in float32, or in
+float64 when given float64 inputs (the yardstick the kernels are held to
+at large sizes).  The attention versions compute in float32 and return the
 query's dtype.
 """
 from __future__ import annotations
@@ -19,6 +22,9 @@ import torch
 __all__ = [
     "attention_ref",
     "decode_attention_ref",
+    "ssd_ref",
+    "ssd_chunked",
+    "rglru_ref",
     "spike_accum_ref",
     "spike_accum_blocks_ref",
 ]
@@ -64,10 +70,16 @@ def decode_attention_ref(
     *,
     seq_lens: torch.Tensor | None = None,
     sm_scale: float | None = None,
+    slot_pos: torch.Tensor | None = None,
+    slot_lo: int = -1,
 ) -> torch.Tensor:
     """Single-token attention vs a KV cache.
 
     q: [B,Hq,D]; k/v: [B,Hkv,S,D]; seq_lens: optional int[B] valid lengths.
+    slot_pos: optional int[S], the position each cache row holds (shared by
+    the batch); row ``w`` then also needs ``slot_pos[w] >= 0`` and
+    ``slot_pos[w] > slot_lo`` — the windowed decode's rule
+    (``repro/models/layers.py:260-262``, ``slot_lo = pos - window``).
     """
     _, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -80,6 +92,9 @@ def decode_attention_ref(
     if seq_lens is not None:
         valid = torch.arange(s, device=q.device)[None, None, :] < seq_lens[:, None, None]
         logits = torch.where(valid, logits, _MASK)
+    if slot_pos is not None:
+        valid = (slot_pos >= 0) & (slot_pos > slot_lo)
+        logits = torch.where(valid[None, None, :], logits, _MASK)
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhk,bhkd->bhd", p, vv).to(q.dtype)
 
@@ -90,6 +105,84 @@ def _float(*xs: torch.Tensor) -> list[torch.Tensor]:
     for x in xs:
         dtype = torch.promote_types(dtype, x.dtype)
     return [x.to(dtype) for x in xs]
+
+
+def ssd_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Mamba-2 SSD by direct recurrence.
+
+    x: [B,S,H,P]; a: [B,S,H] decay in (0,1]; b,c: [B,S,G,N] with H % G == 0.
+    h_t = a_t·h_{t-1} + b_t ⊗ x_t;  y_t = cᵗ_t·h_t.
+    """
+    bs, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    xf, af, bf, cf = _float(x, a, b, c)
+    bb = bf.repeat_interleave(h // g, dim=2)  # [B,S,H,N]
+    cc = cf.repeat_interleave(h // g, dim=2)
+    state = torch.zeros((bs, h, n, p), dtype=xf.dtype, device=x.device)
+    ys = []
+    for t in range(s):
+        state = af[:, t, :, None, None] * state + bb[:, t, :, :, None] * xf[:, t, :, None, :]
+        ys.append(torch.einsum("bhn,bhnp->bhp", cc[:, t], state))
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_chunked(
+    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128
+) -> torch.Tensor:
+    """The chunked SSD of ``_ssd_chunked_jnp``: ``chunk = min(chunk, S)``
+    must divide S (the reference's reshape fails otherwise; here
+    ``ValueError``).  Within a chunk ``((C Bᵀ) ⊙ causal decay) X``; across
+    chunks the ``[N, P]`` state, carried in order.  The ``[B, nc, L, L]``
+    decay matrix is built one head at a time, as in the reference."""
+    bs, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep = h // g
+    chunk = min(chunk, s)
+    if chunk <= 0 or s % chunk:
+        raise ValueError(f"S={s} is not a multiple of chunk={chunk}")
+    nc = s // chunk
+    xf, af, bf, cf = _float(x, a, b, c)
+    xc = xf.reshape(bs, nc, chunk, h, p)
+    ac = af.reshape(bs, nc, chunk, h)
+    bc = bf.reshape(bs, nc, chunk, g, n)
+    cc = cf.reshape(bs, nc, chunk, g, n)
+    tpos = torch.arange(chunk, device=x.device)
+    causal = tpos[:, None] >= tpos[None, :]  # [L, L]
+    y = torch.empty_like(xc)
+    for gi in range(g):
+        b_g, c_g = bc[:, :, :, gi], cc[:, :, :, gi]  # [B,nc,L,N]
+        cb_g = torch.einsum("bktn,bksn->bkts", c_g, b_g)  # [B,nc,L,L]
+        for hi in range(gi * rep, (gi + 1) * rep):
+            x_h, a_h = xc[:, :, :, hi], ac[:, :, :, hi]  # [B,nc,L,P], [B,nc,L]
+            cum = torch.cumsum(torch.log(a_h), dim=2)
+            # mask before exp: above the diagonal cum_t - cum_s > 0 overflows
+            diff = torch.where(causal, cum[..., :, None] - cum[..., None, :], -torch.inf)
+            y_intra = torch.einsum("bkts,bksp->bktp", cb_g * torch.exp(diff), x_h)
+            decay_end = torch.exp(cum[:, :, -1:] - cum)  # [B,nc,L]
+            states = torch.einsum("bktn,bkt,bktp->bknp", b_g, decay_end, x_h)
+            chunk_decay = torch.exp(cum[:, :, -1])  # [B,nc]
+            h_prev = torch.zeros((bs, nc, n, p), dtype=xf.dtype, device=x.device)
+            carry = torch.zeros((bs, n, p), dtype=xf.dtype, device=x.device)
+            for k in range(nc):
+                h_prev[:, k] = carry
+                carry = chunk_decay[:, k, None, None] * carry + states[:, k]
+            y_inter = torch.einsum("bktn,bknp,bkt->bktp", c_g, h_prev, torch.exp(cum))
+            y[:, :, :, hi] = y_intra + y_inter
+    return y.reshape(bs, s, h, p).to(x.dtype)
+
+
+def rglru_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Diagonal linear recurrence h_t = a_t ⊙ h_{t-1} + b_t.
+
+    a, b: [B, S, D]; returns the h trace [B, S, D] in a's dtype.
+    """
+    af, bf = _float(a, b)
+    h = torch.zeros((a.shape[0], a.shape[2]), dtype=af.dtype, device=a.device)
+    out = torch.empty_like(af)
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        out[:, t] = h
+    return out.to(a.dtype)
 
 
 def spike_accum_ref(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,9 @@ device (``repro/launch/serve.py:27``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
         --prompts "1,2,3" "4,5" --max-new 16 [--device cpu]
+
+``--arch`` takes every text architecture without experts: the dense ones,
+``mamba2-1.3b`` and ``recurrentgemma-9b``.
 """
 from __future__ import annotations
 

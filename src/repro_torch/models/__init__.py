@@ -1,5 +1,6 @@
-"""Model zoo of the port: dense, attention-only text LMs (the serving
-path), assembled by :mod:`repro_torch.models.lm`."""
+"""Model zoo of the port: text LMs without experts — dense attention
+(full or windowed), Mamba-2 (ssm) and RG-LRU + local-attention hybrids —
+for the serving path, assembled by :mod:`repro_torch.models.lm`."""
 from repro_torch.models.lm import (
     PDef,
     check_supported,

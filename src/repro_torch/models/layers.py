@@ -1,14 +1,20 @@
 """Model building blocks of the port: norms, RoPE, GQA attention (prefill
-and decode) and the SwiGLU MLP — functions over parameter dicts,
-parameterized by :class:`repro_torch.configs.ArchConfig`.
+and decode, full or windowed), the SwiGLU MLP, and the recurrent mixers —
+Mamba-2 (SSD) and RG-LRU blocks with their causal depthwise convs —
+functions over parameter dicts, parameterized by
+:class:`repro_torch.configs.ArchConfig`.
 
-Port of ``repro/models/layers.py`` for dense, attention-only text models.
-Attention goes through :mod:`repro_torch.kernels.ops`: on the card the
-hand-written kernels (``flash_attention`` for prefill, ``decode_attention``
-for decode), on the CPU their plain versions.  Matmuls run in
-:data:`COMPUTE_DTYPE` (bf16), read at call time as in the reference;
-softmax and normalizers in fp32.  There is no sharding on one card.
-MoE, Mamba-2 and RG-LRU blocks wait for their own slices (ROADMAP.md §1).
+Port of ``repro/models/layers.py`` for text models without experts.  The
+hot spots go through :mod:`repro_torch.kernels.ops`: on the card the
+hand-written kernels (``flash_attention`` and ``decode_attention`` for
+attention, ``ssd_scan`` for the Mamba-2 prefill, ``rglru_scan`` for the
+RG-LRU prefill), on the CPU their plain versions.  A decode step of the
+recurrent mixers is one recurrence step in PyTorch ops, as in the
+reference.  Matmuls run in :data:`COMPUTE_DTYPE` (bf16), read at call time
+as in the reference; softmax, normalizers, gates and recurrent state in
+fp32.  Decode updates the caches in place (they are views into the model's
+stacked caches; the reference returns new ones).  There is no sharding on
+one card.  MoE waits for its own slice (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -24,6 +30,12 @@ __all__ = [
     "attention_block",
     "attention_decode",
     "swiglu_mlp",
+    "causal_conv1d",
+    "conv1d_step",
+    "mamba2_block",
+    "mamba2_decode",
+    "rglru_block",
+    "rglru_decode",
 ]
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -118,35 +130,45 @@ def attention_decode(
     cfg: ArchConfig,
     mixer: str,
 ):
-    """One-token attention against the cache, for ``full`` mixers.
+    """One-token attention against the cache.
 
-    x: [B, 1, D]; cache: {"k","v": [B, W, Hkv, hd], "slot_pos": i32[W]},
-    slot = pos.  The new K/V row and its ``slot_pos`` are written IN PLACE
-    (the cache is views into the model's stacked cache; the reference
-    returns a new one); a write past the cache (``pos >= W``) is a no-op,
-    as in the reference.  ``slot_pos`` of a full mixer is always the prefix
-    ``[0, n)``, so the attention reads the first ``n = min(pos + 1, W)``
-    slots, counted on the device: ``decode_attention``'s ``seq_lens``,
-    over ``[B, Hkv, W, hd]`` views of the cache.  Returns (out, cache).
+    x: [B, 1, D]; cache: {"k","v": [B, W, Hkv, hd], "slot_pos": i32[W]}.
+    The new K/V row and its ``slot_pos`` are written IN PLACE (the cache is
+    views into the model's stacked cache; the reference returns a new one),
+    and the attention reads ``[B, Hkv, W, hd]`` views of the cache.
+
+    * ``full``: slot = pos; a write past the cache (``pos >= W``) is a
+      no-op, as in the reference.  ``slot_pos`` is then always the prefix
+      ``[0, n)``, so the attention reads the first ``n = min(pos + 1, W)``
+      slots, counted on the device: ``decode_attention``'s ``seq_lens``.
+    * ``swa`` / ``local``: a ring buffer, slot = ``pos % W``.  A slot is
+      valid when ``slot_pos >= 0`` and ``slot_pos > pos - window``
+      (``repro/models/layers.py:260-262``); after a prefill whose length
+      is not a multiple of the window the valid slots are not a prefix, so
+      the kernel is handed ``slot_pos`` and applies the rule per slot.
+
+    Returns (out, cache).
     """
-    if mixer != "full":
-        raise NotImplementedError(
-            f"{mixer!r} decode (ring-buffer cache) waits for the recurrentgemma "
-            "slice (ROADMAP.md §1)"
-        )
     b = x.shape[0]
     hq, hd = cfg.n_heads, cfg.head_dim
     q, k, v = _qkv(_bf(x[:, 0]), p, cfg)
     q = rope(q[:, None], pos, cfg.rope_theta)[:, 0]
     k = rope(k[:, None], pos, cfg.rope_theta)[:, 0]
     k_cache, v_cache, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
-    if pos < k_cache.shape[1]:
-        k_cache[:, pos] = k.to(k_cache.dtype)
-        v_cache[:, pos] = v.to(v_cache.dtype)
-        slot_pos[pos] = pos
-    seq_lens = (slot_pos >= 0).sum(dtype=torch.int32).expand(b)
-    o = ops.decode_attention(q, k_cache.transpose(1, 2), v_cache.transpose(1, 2),
-                             seq_lens=seq_lens)
+    w_len = k_cache.shape[1]
+    windowed = mixer in ("swa", "local")
+    slot = pos % w_len if windowed else pos
+    if slot < w_len:
+        k_cache[:, slot] = k.to(k_cache.dtype)
+        v_cache[:, slot] = v.to(v_cache.dtype)
+        slot_pos[slot] = pos
+    kv = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
+    if windowed:
+        window = cfg.window or cfg.local_window or w_len
+        o = ops.decode_attention(q, *kv, slot_pos=slot_pos, slot_lo=pos - window)
+    else:
+        seq_lens = (slot_pos >= 0).sum(dtype=torch.int32).expand(b)
+        o = ops.decode_attention(q, *kv, seq_lens=seq_lens)
     out = _bf(o.reshape(b, 1, hq * hd)) @ _bf(p["wo"])
     return out, cache
 
@@ -158,3 +180,180 @@ def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
     h = xb @ _bf(p["wi"])
     a = F.silu(g.float()).to(COMPUTE_DTYPE) * h
     return a @ _bf(p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (mamba2 / rglru branches)
+# ---------------------------------------------------------------------------
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv.  x: [B, S, C]; w: [K, C].  The taps are
+    summed in float32 in order ``i = 0..K-1``, then cast to x's dtype."""
+    k, s = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(k):
+        out = out + pad[:, i : i + s].float() * w[i].float()
+    return out.to(x.dtype)
+
+
+def conv1d_step(
+    x_t: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step.  x_t: [B, C]; conv_state: [B, K-1, C] (history).
+    Returns (y [B, C] in x_t's dtype, the new history [B, K-1, C])."""
+    window = torch.cat([conv_state, x_t[:, None]], dim=1)  # [B, K, C]
+    y = torch.zeros(x_t.shape, dtype=torch.float32, device=x_t.device)
+    for i in range(w.shape[0]):
+        y = y + window[:, i].float() * w[i].float()
+    return y.to(x_t.dtype), window[:, 1:]
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD) block
+# ---------------------------------------------------------------------------
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    # F.softplus returns x itself above 20 where JAX computes logaddexp(x, 0);
+    # they differ by log1p(exp(-x)) < 2.1e-9 there, below the float32
+    # resolution of a value >= 20 (1.9e-6).
+    return F.softplus(x)
+
+
+def _ssm_gates(dt_raw: torch.Tensor, p: dict):
+    """Δ = softplus(dt + bias); a = exp(−Δ·exp(A_log)).  dt_raw: [..., H]."""
+    delta = _softplus(dt_raw.float() + p["dt_bias"].float())
+    a = torch.exp(-delta * torch.exp(p["A_log"].float()))
+    return delta, a
+
+
+def _final_ssd_state(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor, rep: int):
+    """h_S = Σ_s (Π_{u>s} a_u) b_s ⊗ x_s over the whole sequence (the
+    reference's closed form, one float32 cumsum)."""
+    cum = torch.cumsum(torch.log(a.float()), dim=1)  # [B, S, H]
+    decay_to_end = torch.exp(cum[:, -1:] - cum)
+    bb = bmat.float().repeat_interleave(rep, dim=2) * decay_to_end[..., None]  # [B,S,H,N]
+    return torch.einsum("bshn,bshp->bhnp", bb, xh.float())
+
+
+def mamba2_block(
+    x: torch.Tensor, p: dict, cfg: ArchConfig, *, ssd_chunk: int = 128, return_state: bool = False
+):
+    """Mamba-2 mixer (prefill).  x: [B, S, D].  The SSD scan is
+    :func:`repro_torch.kernels.ops.ssd` with ``chunk = min(ssd_chunk, S)``,
+    which must divide S (the reference's quirk: S above 128 and not a
+    multiple of it raises).  With ``return_state``, also the decode state
+    {"ssm": [B, H, N, P] f32, "conv": {x, b, c: [B, K-1, ·]}}."""
+    b, s, _ = x.shape
+    di, nh, hp = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    xb = _bf(x)
+    z = xb @ _bf(p["wz"])  # [B, S, di]
+    x_raw = xb @ _bf(p["wx"])
+    b_raw = xb @ _bf(p["wb"])  # [B, S, G*N]
+    c_raw = xb @ _bf(p["wc"])
+    dt = xb @ _bf(p["wdt"])  # [B, S, H]
+    xr = F.silu(causal_conv1d(x_raw, p["conv_x"]).float())
+    bc = F.silu(causal_conv1d(b_raw, p["conv_b"]).float())
+    cc = F.silu(causal_conv1d(c_raw, p["conv_c"]).float())
+    delta, a = _ssm_gates(dt, p)  # [B, S, H]
+    xh = xr.view(b, s, nh, hp) * delta[..., None]  # Δ-scaled input
+    bmat, cmat = bc.view(b, s, g, n), cc.view(b, s, g, n)
+    y = ops.ssd(xh, a, bmat, cmat, chunk=min(ssd_chunk, s))
+    y = y + xr.view(b, s, nh, hp) * p["d_skip"].float()[:, None]
+    y = y.reshape(b, s, di)
+    # gated RMSNorm then output projection
+    y = rms_norm(y.to(COMPUTE_DTYPE), p["norm"]) * F.silu(z.float()).to(COMPUTE_DTYPE)
+    out = _bf(y) @ _bf(p["wo"])
+    if not return_state:
+        return out
+    k = cfg.conv_kernel
+    state = _final_ssd_state(xh, a, bmat, nh // g)
+    conv = {"x": x_raw[:, -(k - 1):], "b": b_raw[:, -(k - 1):], "c": c_raw[:, -(k - 1):]}
+    return out, {"ssm": state, "conv": conv}
+
+
+def mamba2_decode(x: torch.Tensor, p: dict, cache: dict, cfg: ArchConfig):
+    """One-token Mamba-2 step.  x: [B, 1, D]; cache: {"ssm": [B, H, N, P],
+    "conv": {x, b, c: [B, K-1, ·]}}, updated in place.  Returns (out,
+    cache)."""
+    b = x.shape[0]
+    di, nh, hp = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    xb = _bf(x[:, 0])
+    z = xb @ _bf(p["wz"])
+    conv = cache["conv"]
+    xr, cx = conv1d_step(xb @ _bf(p["wx"]), conv["x"], p["conv_x"])
+    bc, cb = conv1d_step(xb @ _bf(p["wb"]), conv["b"], p["conv_b"])
+    cc, ccs = conv1d_step(xb @ _bf(p["wc"]), conv["c"], p["conv_c"])
+    dt = xb @ _bf(p["wdt"])
+    xr, bc, cc = F.silu(xr.float()), F.silu(bc.float()), F.silu(cc.float())
+    delta, a = _ssm_gates(dt, p)  # [B, H]
+    xh = xr.view(b, nh, hp) * delta[..., None]
+    bmat = bc.view(b, g, n).repeat_interleave(nh // g, dim=1)  # [B, H, N]
+    cmat = cc.view(b, g, n).repeat_interleave(nh // g, dim=1)
+    h = a[..., None, None] * cache["ssm"] + bmat[..., :, None] * xh[..., None, :]
+    y = torch.einsum("bhn,bhnp->bhp", cmat, h)
+    y = y + xr.view(b, nh, hp) * p["d_skip"].float()[:, None]
+    y = y.reshape(b, di)
+    y = rms_norm(y.to(COMPUTE_DTYPE), p["norm"]) * F.silu(z.float()).to(COMPUTE_DTYPE)
+    out = (_bf(y) @ _bf(p["wo"]))[:, None]
+    cache["ssm"].copy_(h)
+    conv["x"].copy_(cx)
+    conv["b"].copy_(cb)
+    conv["c"].copy_(ccs)
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma) block
+# ---------------------------------------------------------------------------
+
+_LRU_C = 8.0
+
+
+def _rglru_gates(u: torch.Tensor, p: dict):
+    """Input gate i_t = σ(u·W_i); recurrence gate r_t = σ(u·W_r);
+    a_t = exp(−c·softplus(Λ)·r_t);  b_t = √(1−a²)·i_t·u."""
+    ub = _bf(u)
+    gate_i = torch.sigmoid((ub @ _bf(p["w_gate_i"])).float())
+    gate_r = torch.sigmoid((ub @ _bf(p["w_gate_r"])).float())
+    a = torch.exp(-_LRU_C * _softplus(p["lam"].float()) * gate_r)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gate_i * u.float()
+    return a, b
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def rglru_block(x: torch.Tensor, p: dict, cfg: ArchConfig, *, return_state: bool = False):
+    """Griffin recurrent block: W_out(GeLU(W_g x) ⊙ RGLRU(conv(W_x x))).
+    x: [B, S, D].  The recurrence is :func:`repro_torch.kernels.ops.rglru`.
+    With ``return_state``, also the decode state {"h": [B, W] f32, "conv":
+    [B, K-1, W]}."""
+    xb = _bf(x)
+    gate_branch = _gelu((xb @ _bf(p["wg"])).float())
+    u_raw = xb @ _bf(p["wx"])
+    a, bb = _rglru_gates(causal_conv1d(u_raw, p["conv"]), p)
+    h = ops.rglru(a, bb)  # [B, S, W] f32 trace
+    out = _bf(h * gate_branch) @ _bf(p["wo"])
+    if not return_state:
+        return out
+    return out, {"h": h[:, -1].float(), "conv": u_raw[:, -(cfg.conv_kernel - 1):]}
+
+
+def rglru_decode(x: torch.Tensor, p: dict, cache: dict, cfg: ArchConfig):
+    """One-token RG-LRU step.  cache: {"h": [B, W], "conv": [B, K-1, W]},
+    updated in place.  Returns (out, cache)."""
+    xb = _bf(x[:, 0])
+    gate_branch = _gelu((xb @ _bf(p["wg"])).float())
+    u, conv_state = conv1d_step(xb @ _bf(p["wx"]), cache["conv"], p["conv"])
+    a, bb = _rglru_gates(u, p)
+    h = a * cache["h"] + bb
+    out = (_bf(h * gate_branch) @ _bf(p["wo"]))[:, None]
+    cache["h"].copy_(h)
+    cache["conv"].copy_(conv_state)
+    return out, cache

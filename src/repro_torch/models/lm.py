@@ -1,13 +1,14 @@
 """LM assembly of the port: the layer stack as segments of repeated units,
 parameter construction, forward, prefill and decode steps.
 
-Port of ``repro/models/lm.py`` for dense, attention-only text models (every
-layer ``full``, no experts).  The parameter tree is the reference's —
-``embed/tok``, ``final_norm``, ``seg{i}/ln1_{j}``, ``seg{i}/m{j}/wq`` ...,
-each leaf stacked over the segment's repeats — so a converted checkpoint
-maps one to one (:func:`repro_torch.convert.lm_params`).  A Python loop
-over layers takes the place of ``lax.scan``; there is no sharding on one
-card.  Other mixers, experts and other modalities raise
+Port of ``repro/models/lm.py`` for text models without experts: every
+mixer (``full``, ``swa``, ``local``, ``ssm``, ``rglru``), so dense
+attention models, mamba2-1.3b and recurrentgemma-9b.  The parameter tree is
+the reference's — ``embed/tok``, ``final_norm``, ``seg{i}/ln1_{j}``,
+``seg{i}/m{j}/wq`` ..., each leaf stacked over the segment's repeats — so a
+converted checkpoint maps one to one (:func:`repro_torch.convert.lm_params`).
+A Python loop over layers takes the place of ``lax.scan``; there is no
+sharding on one card.  Experts and other modalities raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -38,6 +39,7 @@ __all__ = [
 ]
 
 VOCAB_PAD = 2048
+ATTENTION = ("full", "swa", "local")
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -45,19 +47,14 @@ def padded_vocab(cfg: ArchConfig) -> int:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice of the port does
-    not serve: other modalities, MoE, and any mixer but ``full``."""
+    """Raise ``NotImplementedError`` for what the port does not serve yet:
+    other modalities and MoE."""
     if cfg.modality != "text":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.modality} models wait for their slice (ROADMAP.md §1, M8)")
     if cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.name}: MoE (moe_block) waits for its slice (ROADMAP.md §1, M8)")
-    other = sorted(set(cfg.layer_pattern) - {"full"})
-    if other:
-        raise NotImplementedError(
-            f"{cfg.name}: mixers {other} wait for their slices (ROADMAP.md §1: "
-            "ssm with K5, rglru/local with K6, swa with the ring-buffer decode)")
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +97,7 @@ def segments(cfg: ArchConfig) -> list[tuple[tuple[str, ...], int]]:
 @dataclasses.dataclass(frozen=True)
 class PDef:
     shape: tuple[int, ...]
-    init: str = "normal"  # normal | zeros
+    init: str = "normal"  # normal | zeros | ssm_a | ssm_dt | lru_lam
     scale: float = 0.02
 
     @property
@@ -134,6 +131,40 @@ def _attn_defs(cfg: ArchConfig, r: int) -> dict[str, PDef]:
     return out
 
 
+def _ssm_defs(cfg: ArchConfig, r: int) -> dict[str, PDef]:
+    d, di = cfg.d_model, cfg.d_inner
+    g, n, nh, k = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.conv_kernel
+    return {
+        "wz": PDef((r, d, di)),
+        "wx": PDef((r, d, di)),
+        "wb": PDef((r, d, g * n)),
+        "wc": PDef((r, d, g * n)),
+        "wdt": PDef((r, d, nh)),
+        "conv_x": PDef((r, k, di), scale=1.0 / math.sqrt(k)),
+        "conv_b": PDef((r, k, g * n), scale=1.0 / math.sqrt(k)),
+        "conv_c": PDef((r, k, g * n), scale=1.0 / math.sqrt(k)),
+        "A_log": PDef((r, nh), init="ssm_a"),
+        "dt_bias": PDef((r, nh), init="ssm_dt"),
+        "d_skip": PDef((r, nh), init="zeros"),
+        "norm": PDef((r, di), init="zeros"),
+        "wo": PDef((r, di, d), scale=0.02 / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def _rglru_defs(cfg: ArchConfig, r: int) -> dict[str, PDef]:
+    d, k = cfg.d_model, cfg.conv_kernel
+    w = cfg.lru_width or d
+    return {
+        "wg": PDef((r, d, w)),
+        "wx": PDef((r, d, w)),
+        "conv": PDef((r, k, w), scale=1.0 / math.sqrt(k)),
+        "w_gate_i": PDef((r, w, w), scale=1.0 / math.sqrt(w)),
+        "w_gate_r": PDef((r, w, w), scale=1.0 / math.sqrt(w)),
+        "lam": PDef((r, w), init="lru_lam"),
+        "wo": PDef((r, w, d), scale=0.02 / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
 def _mlp_defs(cfg: ArchConfig, r: int) -> dict[str, PDef]:
     d, f = cfg.d_model, cfg.d_ff
     return {
@@ -159,9 +190,16 @@ def param_defs(cfg: ArchConfig) -> dict[str, Any]:
         defs["unembed"] = PDef((d, padded_vocab(cfg)))
     for i, (unit, r) in enumerate(segments(cfg)):
         seg: dict[str, Any] = {}
-        for j, _mixer in enumerate(unit):
+        for j, mixer in enumerate(unit):
             seg[f"ln1_{j}"] = PDef((r, d), init="zeros")
-            seg[f"m{j}"] = _attn_defs(cfg, r)
+            if mixer in ATTENTION:
+                seg[f"m{j}"] = _attn_defs(cfg, r)
+            elif mixer == "ssm":
+                seg[f"m{j}"] = _ssm_defs(cfg, r)
+            elif mixer == "rglru":
+                seg[f"m{j}"] = _rglru_defs(cfg, r)
+            else:
+                raise ValueError(mixer)
             if _has_mlp(cfg):
                 seg[f"ln2_{j}"] = PDef((r, d), init="zeros")
                 seg[f"mlp{j}"] = _mlp_defs(cfg, r)
@@ -179,10 +217,21 @@ def init_params(
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
+    def uniform(node, lo, hi):
+        return torch.empty(node.shape, dtype=node.dtype, device=dev).uniform_(lo, hi, generator=gen)
+
     def build(node):
         if isinstance(node, PDef):
             if node.init == "zeros":
                 return torch.zeros(node.shape, dtype=node.dtype, device=dev)
+            if node.init == "ssm_a":  # A ∈ [1, 16] → A_log
+                return torch.log(uniform(node, 1.0, 16.0))
+            if node.init == "ssm_dt":  # softplus(dt_bias) ∈ [1e-3, 0.1]
+                dt = torch.exp(uniform(node, math.log(1e-3), math.log(0.1)))
+                return dt + torch.log(-torch.expm1(-dt))  # inverse softplus
+            if node.init == "lru_lam":  # a^c ∈ [0.9, 0.999] at σ(r) = 0.5ish
+                target = -torch.log(uniform(node, 0.9, 0.999)) * 2.0 / L._LRU_C
+                return torch.log(torch.expm1(torch.clamp(target, min=1e-6)))
             out = torch.empty(node.shape, dtype=node.dtype, device=dev)
             return out.normal_(0.0, node.scale, generator=gen)
         return {k: build(node[k]) for k in sorted(node)}
@@ -210,6 +259,16 @@ def _mlp_apply(h: torch.Tensor, lp: dict, j: int) -> torch.Tensor:
     return L.swiglu_mlp(L.rms_norm(h, lp[f"ln2_{j}"]), lp[f"mlp{j}"])
 
 
+def _mixer_apply(y: torch.Tensor, p: dict, mixer: str, cfg: ArchConfig) -> torch.Tensor:
+    if mixer in ATTENTION:
+        return L.attention_block(y, p, cfg, mixer)
+    if mixer == "ssm":
+        return L.mamba2_block(y, p, cfg)
+    if mixer == "rglru":
+        return L.rglru_block(y, p, cfg)
+    raise ValueError(mixer)
+
+
 def forward(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Residual stream through all layers.  x: [B, S, D] → [B, S, D]."""
     check_supported(cfg)
@@ -217,7 +276,7 @@ def forward(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         for li in range(r):
             lp = _layer(params[f"seg{i}"], li)
             for j, mixer in enumerate(unit):
-                x = x + L.attention_block(L.rms_norm(x, lp[f"ln1_{j}"]), lp[f"m{j}"], cfg, mixer)
+                x = x + _mixer_apply(L.rms_norm(x, lp[f"ln1_{j}"]), lp[f"m{j}"], mixer, cfg)
                 if _has_mlp(cfg):
                     x = x + _mlp_apply(x, lp, j)
     return L.rms_norm(x, params["final_norm"])
@@ -237,25 +296,63 @@ def lm_logits(params: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _empty_cache(cfg: ArchConfig, r: int, batch: int, w: int, device) -> dict:
-    shape = (r, batch, w, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=L.COMPUTE_DTYPE, device=device),
-        "v": torch.zeros(shape, dtype=L.COMPUTE_DTYPE, device=device),
-        "slot_pos": torch.full((r, w), -1, dtype=torch.int32, device=device),
-    }
+def _cache_len(cfg: ArchConfig, mixer: str, max_len: int) -> int:
+    if mixer == "swa":
+        return min(cfg.window or max_len, max_len)
+    if mixer == "local":
+        return min(cfg.local_window or max_len, max_len)
+    return max_len
+
+
+def _empty_cache(cfg: ArchConfig, mixer: str, r: int, batch: int, max_len: int,
+                 device) -> dict:
+    """Zero / empty decode cache of one unit position, stacked over r."""
+    dt = L.COMPUTE_DTYPE
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    k1 = cfg.conv_kernel - 1
+    if mixer in ATTENTION:
+        w = _cache_len(cfg, mixer, max_len)
+        return {"k": zeros(r, batch, w, cfg.n_kv_heads, cfg.head_dim),
+                "v": zeros(r, batch, w, cfg.n_kv_heads, cfg.head_dim),
+                "slot_pos": torch.full((r, w), -1, dtype=torch.int32, device=device)}
+    if mixer == "ssm":
+        gn = cfg.ssm_groups * cfg.ssm_state
+        return {"ssm": zeros(r, batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim,
+                             dtype=torch.float32),
+                "conv": {"x": zeros(r, batch, k1, cfg.d_inner), "b": zeros(r, batch, k1, gn),
+                         "c": zeros(r, batch, k1, gn)}}
+    if mixer == "rglru":
+        w = cfg.lru_width or cfg.d_model
+        return {"h": zeros(r, batch, w, dtype=torch.float32), "conv": zeros(r, batch, k1, w)}
+    raise ValueError(mixer)
 
 
 def init_cache(
     cfg: ArchConfig, batch: int, max_len: int, *, device: str | torch.device | None = None
 ) -> list[dict]:
-    """Zero/empty decode caches, one entry per segment."""
+    """Zero/empty decode caches, one entry per segment: for attention K/V
+    ``[R, B, W, Hkv, hd]`` (W = max_len, or the window for swa / local) and
+    ``slot_pos`` ``[R, W]`` (-1 = empty); for ssm the ``[R, B, H, N, P]``
+    state and the conv histories; for rglru ``h`` ``[R, B, W]`` and the
+    conv history."""
     check_supported(cfg)
     dev = resolve_device(device)
     return [
-        {str(j): _empty_cache(cfg, r, batch, max_len, dev) for j in range(len(unit))}
+        {str(j): _empty_cache(cfg, mixer, r, batch, max_len, dev) for j, mixer in enumerate(unit)}
         for unit, r in segments(cfg)
     ]
+
+
+def _put(dst, src) -> None:
+    """Copy a layer's state (nested dicts of tensors) into its cache slots."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _put(dst[k], src[k])
+    else:
+        dst.copy_(src)
 
 
 def decode_step(
@@ -263,18 +360,22 @@ def decode_step(
 ):
     """One decode step at position ``pos`` (an int).  batch["tokens"]: [B, 1].
 
-    Each layer writes its new K/V row into ``caches`` in place (see
-    :func:`repro_torch.models.layers.attention_decode`).  Returns
-    (logits [B, Vp], caches)."""
+    Each layer updates its cache in place (see
+    :mod:`repro_torch.models.layers`).  Returns (logits [B, Vp], caches)."""
     check_supported(cfg)
     x = embed_inputs(params, batch, cfg)  # [B, 1, D]
     for i, (unit, r) in enumerate(segments(cfg)):
         for li in range(r):
             lp = _layer(params[f"seg{i}"], li)
             for j, mixer in enumerate(unit):
-                cache_l = {k: c[li] for k, c in caches[i][str(j)].items()}
-                y, _ = L.attention_decode(L.rms_norm(x, lp[f"ln1_{j}"]), lp[f"m{j}"],
-                                          cache_l, pos, cfg, mixer)
+                cache_l = _layer(caches[i][str(j)], li)
+                y = L.rms_norm(x, lp[f"ln1_{j}"])
+                if mixer in ATTENTION:
+                    y, _ = L.attention_decode(y, lp[f"m{j}"], cache_l, pos, cfg, mixer)
+                elif mixer == "ssm":
+                    y, _ = L.mamba2_decode(y, lp[f"m{j}"], cache_l, cfg)
+                elif mixer == "rglru":
+                    y, _ = L.rglru_decode(y, lp[f"m{j}"], cache_l, cfg)
                 x = x + y
                 if _has_mlp(cfg):
                     x = x + _mlp_apply(x, lp, j)
@@ -285,27 +386,42 @@ def decode_step(
 def prefill(params: dict, batch: dict, cfg: ArchConfig, *, max_len: int | None = None):
     """Full-sequence forward returning last-position logits + caches.
 
-    ``max_len`` sizes the KV caches for continued decode (≥ S; default S):
-    slots ``[S, max_len)`` start empty (``slot_pos`` -1, K/V zero).
-    Returns (logits [B, Vp], caches)."""
+    ``max_len`` sizes the full-attention KV caches for continued decode
+    (≥ S; default S): slots ``[S, max_len)`` start empty (``slot_pos`` -1,
+    K/V zero).  A windowed (swa / local) cache holds ``w = min(window,
+    max_len)`` slots: when ``w <= S`` the last ``w`` rows, slot ``i``
+    holding position ``S - w + i`` (ring-aligned only when S is a multiple
+    of w — the reference's rule, kept); otherwise all S rows and headroom.
+    ssm and rglru layers hand over their final recurrent state and conv
+    history.  Returns (logits [B, Vp], caches)."""
     check_supported(cfg)
     x = embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     if max_len is not None and max_len < s:
         raise ValueError(f"max_len {max_len} < sequence {s}")
-    w = max_len or s
     caches = []
     for i, (unit, r) in enumerate(segments(cfg)):
-        seg_c = {str(j): _empty_cache(cfg, r, b, w, x.device) for j in range(len(unit))}
-        for c in seg_c.values():
-            c["slot_pos"][:, :s] = torch.arange(s, dtype=torch.int32, device=x.device)
+        seg_c = {str(j): _empty_cache(cfg, mixer, r, b, max_len or s, x.device)
+                 for j, mixer in enumerate(unit)}
         for li in range(r):
             lp = _layer(params[f"seg{i}"], li)
             for j, mixer in enumerate(unit):
-                y, (k, v) = L.attention_block(L.rms_norm(x, lp[f"ln1_{j}"]), lp[f"m{j}"],
-                                              cfg, mixer, return_kv=True)
-                seg_c[str(j)]["k"][li, :, :s] = k
-                seg_c[str(j)]["v"][li, :, :s] = v
+                y = L.rms_norm(x, lp[f"ln1_{j}"])
+                c = _layer(seg_c[str(j)], li)
+                if mixer in ATTENTION:
+                    y, (k, v) = L.attention_block(y, lp[f"m{j}"], cfg, mixer, return_kv=True)
+                    w = c["k"].shape[1]
+                    n = min(w, s)  # rows kept: the last w, or all S with headroom
+                    c["k"][:, :n] = k[:, s - n:]
+                    c["v"][:, :n] = v[:, s - n:]
+                    c["slot_pos"][:n] = torch.arange(s - n, s, dtype=torch.int32,
+                                                     device=x.device)
+                elif mixer == "ssm":
+                    y, st = L.mamba2_block(y, lp[f"m{j}"], cfg, return_state=True)
+                    _put(c, st)
+                elif mixer == "rglru":
+                    y, st = L.rglru_block(y, lp[f"m{j}"], cfg, return_state=True)
+                    _put(c, st)
                 x = x + y
                 if _has_mlp(cfg):
                     x = x + _mlp_apply(x, lp, j)

@@ -11,13 +11,17 @@ Port of ``repro/serve/engine.py``, with its two schedulers:
   at the freed slot.
 
 Both run :func:`repro_torch.models.lm.prefill` / ``decode_step`` eagerly
-under ``torch.inference_mode()``.  The schedules, and the reference's
+under ``torch.inference_mode()``, for every architecture the LM serves
+(attention K/V caches, Mamba-2 and RG-LRU states: ``_tile_cache`` and
+``_splice_cache`` walk the nested cache and treat every ``[R, B, ...]``
+leaf alike, as the reference's do).  The schedules, and the reference's
 quirks, are kept as they are: the initial fill of ``generate_continuous``
 leaves every slot with the last prefilled request's cache (``_splice_cache``
 into a batch-1 cache replaces it), a newcomer attends to the zero K/V its
 prefill left in slots ``[plen, pos)`` because ``slot_pos`` is shared by the
-batch and not spliced, and both schedulers run one decode step past the
-last token they keep.  Greedy decoding matches the reference;
+batch and not spliced, left-padding tokens (0) enter the SSM and RG-LRU
+states, and both schedulers run one decode step past the last token they
+keep.  Greedy decoding matches the reference;
 ``temperature > 0`` samples with a ``torch.Generator`` seeded from
 ``ServeConfig.seed``, whose streams differ from ``jax.random``'s.
 """

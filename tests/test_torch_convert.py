@@ -121,11 +121,14 @@ def test_state_carried_across(model):
     np.testing.assert_allclose(ts.u.numpy(), np.asarray(js.u), atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-7b", "phi4-mini-3.8b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "phi4-mini-3.8b", "mamba2-1.3b",
+                                  "recurrentgemma-9b"])
 def test_lm_params_carry_the_reference_tree_bitwise(arch):
     """``lm_params`` of the JAX ``init_params`` tree (leaves handed over as
     float32: bf16 → f32 → bf16 is exact) holds the same values in the same
-    dtypes, leaf for leaf; a tree with a missing or misshapen leaf raises."""
+    dtypes, leaf for leaf — the recurrent mixers' float32 leaves (``A_log``,
+    ``dt_bias``, ``d_skip``, ``norm``, ``lam``) and bf16 ``conv*`` leaves
+    too; a tree with a missing or misshapen leaf raises."""
     from repro.configs import ARCHS as JAX_ARCHS
     from repro.models import lm as jlm
     from repro_torch.configs import ARCHS
@@ -146,6 +149,6 @@ def test_lm_params_carry_the_reference_tree_bitwise(arch):
     del tree["seg0"]["ln1_0"]
     with pytest.raises(ValueError, match="keys"):
         convert.lm_params(tree, pc, CPU)
-    tree["seg0"]["ln1_0"] = np.zeros((1, pc.d_model), np.float32)
+    tree["seg0"]["ln1_0"] = np.zeros((1, pc.d_model + 1), np.float32)
     with pytest.raises(ValueError, match="shape"):
         convert.lm_params(tree, pc, CPU)

@@ -156,6 +156,18 @@ def test_distributed_engine_on_the_card(dev, exchange):
 ATTN_TOL = {torch.float32: dict(rtol=3e-3, atol=3e-3), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
 
+def _assert_bf16_step(out, want):
+    """Head-256 bf16 outputs average many keys and are small, so beside
+    the reference's 2e-2 they are held to one bf16 step of the reference
+    value plus two steps of the rms of its row (K3 rounds P to bf16 before
+    P V, as the TPU kernel does, and that error scales with the row)."""
+    out, want = out.float(), want.float()
+    row = want.double().pow(2).mean(-1, keepdim=True).sqrt().float()
+    row = row.clamp_min(torch.finfo(torch.float32).tiny)
+    excess = float(((out - want).abs() - 2**-7 * want.abs()).div(row).max()) - 2**-6
+    assert excess <= 0, excess
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "b,hq,hkv,sq,sk,d,causal,window",
@@ -167,6 +179,8 @@ ATTN_TOL = {torch.float32: dict(rtol=3e-3, atol=3e-3), torch.bfloat16: dict(rtol
         (1, 2, 2, 384, 384, 16, True, 128),  # non-pow2 seq
         (2, 6, 2, 200, 200, 128, True, None),  # ragged tiles, group 3, head 128
         (1, 2, 1, 8, 4, 32, False, 2),  # rows 5-7 see no key -> 0
+        (2, 16, 1, 200, 200, 256, True, 96),  # recurrentgemma's MQA, head 256, window
+        (1, 4, 2, 130, 130, 256, False, None),  # head 256, bidirectional, ragged tiles
     ],
 )
 def test_flash_attention_matches_plain(dev, dtype, b, hq, hkv, sq, sk, d, causal, window):
@@ -187,13 +201,17 @@ def test_flash_attention_matches_plain(dev, dtype, b, hq, hkv, sq, sk, d, causal
     assert torch.equal(out, again) and out.stride() == q.stride() and out.dtype == dtype
     want = attention_ref(q, kk, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), want.float(), **ATTN_TOL[dtype])
+    if dtype == torch.bfloat16 and d == 256:
+        _assert_bf16_step(out, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "b,hq,hkv,s,d,ragged",
     [(2, 4, 2, 1024, 64, False), (3, 8, 2, 512, 32, True), (1, 2, 1, 2048, 128, True),
-     (4, 24, 8, 1088, 128, True)],  # phi4-mini's decode shape
+     (4, 24, 8, 1088, 128, True),  # phi4-mini's decode shape
+     (2, 16, 1, 640, 256, True),  # recurrentgemma's MQA: 16 q heads, two blocks per kv head
+     (1, 12, 1, 300, 64, False)],  # a group of 12 at head 64
 )
 def test_decode_attention_matches_plain(dev, dtype, b, hq, hkv, s, d, ragged):
     """The reference's sweep (``tests/test_kernels.py:47-61``) on
@@ -212,12 +230,128 @@ def test_decode_attention_matches_plain(dev, dtype, b, hq, hkv, s, d, ragged):
                                                seq_lens=sl))
     want = decode_attention_ref(q, kc.transpose(1, 2), vc.transpose(1, 2), seq_lens=sl)
     torch.testing.assert_close(out.float(), want.float(), **ATTN_TOL[dtype])
+    if dtype == torch.bfloat16 and d == 256:
+        _assert_bf16_step(out, want)
     if ragged:
         n = int(sl.min())
         kc[:, n:] = float("nan")  # never read
         again = k.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
                                    seq_lens=torch.full_like(sl, n))
         assert torch.isfinite(again).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_slot_validity(dev, dtype):
+    """A ring buffer whose valid slots are not a prefix (window 64, a
+    prefill of 96 tokens, decode at position 96): slot 0 holds position 32,
+    outside the window, and slot 32 holds 96.  The kernel applies the
+    reference's rule per slot and never reads a rejected row."""
+    from repro_torch.kernels import attention as k
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    b, hq, hkv, w, d, pos = 2, 16, 1, 64, 256, 96
+    q = torch.randn((b, hq, d), generator=gen, device=dev).to(dtype)
+    kc, vc = (torch.randn((b, w, hkv, d), generator=gen, device=dev).to(dtype) for _ in "kv")
+    slot_pos = torch.arange(96 - w, 96, dtype=torch.int32, device=dev)
+    slot_pos[pos % w] = pos
+    slot_pos[40:44] = -1  # empty slots count for nothing either
+    lo = pos - w
+    args = (q, kc.transpose(1, 2), vc.transpose(1, 2))
+    out = k.decode_attention(*args, slot_pos=slot_pos, slot_lo=lo)
+    torch.cuda.synchronize()
+    assert torch.equal(out, k.decode_attention(*args, slot_pos=slot_pos, slot_lo=lo))
+    want = decode_attention_ref(*args, slot_pos=slot_pos, slot_lo=lo)
+    torch.testing.assert_close(out.float(), want.float(), **ATTN_TOL[dtype])
+    if dtype == torch.bfloat16:
+        _assert_bf16_step(out, want)
+    prefix = decode_attention_ref(*args, seq_lens=torch.full((b,), w, device=dev))
+    assert (want.float() - prefix.float()).abs().max() > 1e-2  # the rule matters here
+    invalid = (slot_pos < 0) | (slot_pos <= lo)
+    kc[:, invalid] = float("nan")
+    vc[:, invalid] = float("nan")
+    again = k.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2),
+                               slot_pos=slot_pos, slot_lo=lo)
+    assert torch.equal(again, out)
+
+
+# -- sequence scans (K5 ssd_scan, K6 rglru_scan) -----------------------------
+
+SCAN_TOL = dict(rtol=3e-3, atol=3e-3)  # tests/test_kernels.py:74-76, 101-103
+
+
+@pytest.mark.parametrize(
+    "bs,s,h,g,p,n,chunk",
+    [(2, 256, 4, 2, 32, 16, 64), (1, 128, 2, 1, 16, 8, 128), (1, 512, 8, 2, 64, 32, 128),
+     (1, 127, 4, 1, 64, 128, 128),  # chunk min(128, 127) = 127: not a power of two
+     (2, 288, 4, 2, 32, 16, 96),  # chunk 96
+     (1, 256, 2, 1, 64, 128, 128),  # mamba2-1.3b's head: P 64, N 128, L 128
+     (1, 64, 2, 1, 128, 16, 128)],  # head dim 128
+)
+def test_ssd_scan_matches_plain(dev, bs, s, h, g, p, n, chunk):
+    """The reference's sweep (``tests/test_kernels.py:64-76``) and chunks
+    that are not powers of two, against the plain chunked SSD and the
+    direct recurrence in float64; reruns are bit-identical."""
+    from repro_torch.kernels import scan as k
+    from repro_torch.kernels.ref import ssd_chunked, ssd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((bs, s, h, p), generator=gen, device=dev)
+    a = 0.85 + 0.149 * torch.rand((bs, s, h), generator=gen, device=dev)
+    b, c = (torch.randn((bs, s, g, n), generator=gen, device=dev) for _ in "bc")
+    before = k.LAUNCHES["ssd_scan"]
+    out, again = k.ssd_scan(x, a, b, c, chunk=chunk), k.ssd_scan(x, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["ssd_scan"] == before + 2
+    assert torch.equal(out, again) and out.dtype == torch.float32
+    x64, a64, b64, c64 = (t.double() for t in (x, a, b, c))
+    torch.testing.assert_close(out.double(), ssd_chunked(x64, a64, b64, c64, chunk=chunk),
+                               **SCAN_TOL)
+    torch.testing.assert_close(out.double(), ssd_ref(x64, a64, b64, c64), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("bs,s,d", [(2, 256, 128), (1, 128, 256), (3, 512, 64), (2, 37, 100)])
+def test_rglru_scan_matches_plain(dev, bs, s, d):
+    """The reference's sweep (``tests/test_kernels.py:94-103``) and a
+    ragged shape (S not a multiple of the kernel's 16-step unroll, D not
+    of its 128 threads), against the plain recurrence in float64."""
+    from repro_torch.kernels import scan as k
+    from repro_torch.kernels.ref import rglru_ref
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    a = 0.8 + 0.199 * torch.rand((bs, s, d), generator=gen, device=dev)
+    b = torch.randn((bs, s, d), generator=gen, device=dev)
+    before = k.LAUNCHES["rglru_scan"]
+    out, again = k.rglru_scan(a, b), k.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert k.LAUNCHES["rglru_scan"] == before + 2
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.double(), rglru_ref(a.double(), b.double()), **SCAN_TOL)
+
+
+def test_scan_wrappers_reject_bad_inputs(dev):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import scan as k
+
+    x = torch.zeros((1, 96, 2, 16), device=dev)
+    a = torch.full((1, 96, 2), 0.9, device=dev)
+    b = torch.zeros((1, 96, 1, 8), device=dev)
+    with pytest.raises(ValueError, match="bad shapes"):
+        k.ssd_scan(x, a[:, :, :1], b, b)
+    with pytest.raises(ValueError, match="S must divide chunk"):
+        k.ssd_scan(x, a, b, b, chunk=64)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k.ssd_scan(x, a.cpu(), b, b)
+    with pytest.raises(ValueError, match="float32"):
+        k.ssd_scan(x.double(), a, b, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        k.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), a, b, b)
+    with pytest.raises(ValueError, match="S=96 is not a multiple"):
+        ops.ssd(x.cpu(), a.cpu(), b.cpu(), b.cpu(), chunk=64)  # the plain path agrees
+    with pytest.raises(ValueError, match="!= b"):
+        k.rglru_scan(a, a[:, :5])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k.rglru_scan(a, a.cpu())
 
 
 def test_attention_wrappers_reject_bad_inputs(dev):
@@ -235,31 +369,38 @@ def test_attention_wrappers_reject_bad_inputs(dev):
         k.decode_attention(q[:, :, 0], q, q.bfloat16())
 
 
-def test_serve_engine_on_the_card(dev):
-    """A small ServeEngine run through both kernels: the card's greedy
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b"])
+def test_serve_engine_on_the_card(dev, arch):
+    """A small ServeEngine run through the kernels: the card's greedy
     tokens and logits agree with the CPU's plain path under float32
-    compute, and each layer launches one kernel per prefill / decode step."""
+    compute, and each layer launches its kernel once per prefill
+    (attention: ``flash_attention``, ssm: ``ssd_scan``, rglru:
+    ``rglru_scan``) and attention layers ``decode_attention`` once per
+    decode step; no scan runs in decode."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import LAUNCHES
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     from repro_torch.serve import ServeConfig, ServeEngine
 
-    cfg = ARCHS["phi4-mini-3.8b"].reduced()
+    cfg = ARCHS[arch].reduced()
     params = lm.init_params(cfg, 0, device="cpu")
 
     def to_card(tree):
         return {k: to_card(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
 
     on_card = to_card(params)
+    pat = cfg.layer_pattern
+    n_attn = sum(m in ("full", "swa", "local") for m in pat)
+    want = {"flash_attention": n_attn, "decode_attention": 6 * n_attn,
+            "ssd_scan": pat.count("ssm"), "rglru_scan": pat.count("rglru")}
     saved = L.COMPUTE_DTYPE
     L.COMPUTE_DTYPE = torch.float32
     try:
         prompts = [[1, 2, 3], [4, 5], [6, 7, 8, 9, 10]]
         before = dict(LAUNCHES)
         card = ServeEngine(cfg, on_card, ServeConfig(batch_slots=4), device=dev).generate(prompts, 6)
-        assert LAUNCHES["flash_attention"] - before["flash_attention"] == cfg.n_layers
-        assert LAUNCHES["decode_attention"] - before["decode_attention"] == 6 * cfg.n_layers
+        assert {k: LAUNCHES[k] - before[k] for k in want} == want
         cpu = ServeEngine(cfg, params, ServeConfig(batch_slots=4), device="cpu").generate(prompts, 6)
         assert card == cpu
     finally:

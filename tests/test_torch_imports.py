@@ -72,6 +72,9 @@ def test_entry_points_raise_without_cuda(no_cuda):
         init_state(4, LIFParams())
     with pytest.raises(RuntimeError, match="CUDA"):
         lm.init_params(cfg)
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            lm.init_cache(ARCHS[arch].reduced(), 1, 8)
     params = lm.init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(cfg, params)
@@ -88,7 +91,7 @@ def test_entry_points_raise_without_cuda(no_cuda):
 def test_cpu_tensor_takes_the_plain_version():
     from repro_torch.kernels import LAUNCHES, reset_launches, spike_currents_blocks
     from repro_torch.kernels import spike_currents
-    from repro_torch.kernels.ops import attention, decode_attention
+    from repro_torch.kernels.ops import attention, decode_attention, rglru, ssd
 
     reset_launches()
     out = spike_currents_blocks(torch.ones(2, 4), torch.tensor([0, 1]),
@@ -102,5 +105,14 @@ def test_cpu_tensor_takes_the_plain_version():
     out = decode_attention(torch.zeros(1, 2, 4), torch.zeros(1, 1, 3, 4), v,
                            seq_lens=torch.tensor([2], dtype=torch.int32))
     assert torch.equal(out[0, 0], v[0, 0, :2].mean(0))
+    out = decode_attention(torch.zeros(1, 2, 4), torch.zeros(1, 1, 3, 4), v,
+                           slot_pos=torch.tensor([5, -1, 3], dtype=torch.int32), slot_lo=2)
+    assert torch.equal(out[0, 0], v[0, 0, [0, 2]].mean(0))
+    h = rglru(torch.full((1, 3, 2), 0.5), torch.ones(1, 3, 2))
+    assert torch.equal(h[0, :, 0], torch.tensor([1.0, 1.5, 1.75]))
+    y = ssd(torch.ones(1, 2, 1, 1), torch.ones(1, 2, 1), torch.ones(1, 2, 1, 1),
+            torch.ones(1, 2, 1, 1))
+    assert torch.equal(y.flatten(), torch.tensor([1.0, 2.0]))
     assert LAUNCHES == {"spike_accum_blocks": 0, "spike_accum": 0,
-                        "flash_attention": 0, "decode_attention": 0}
+                        "flash_attention": 0, "decode_attention": 0,
+                        "ssd_scan": 0, "rglru_scan": 0}

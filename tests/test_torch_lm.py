@@ -2,8 +2,10 @@
 (``repro.models``) on the CPU, from the same parameters
 (``repro_torch.convert.lm_params`` of the JAX ``init_params`` tree) and the
 same numpy tokens: the layers one by one, prefill and several decode steps
-for ``deepseek-7b`` reduced (MHA) and ``phi4-mini-3.8b`` reduced with two
-kv heads (GQA, group 2).
+for ``deepseek-7b`` reduced (MHA), ``phi4-mini-3.8b`` reduced with two kv
+heads (GQA, group 2), ``mamba2-1.3b`` reduced (ssm) and
+``recurrentgemma-9b`` reduced (rglru + local attention, window 64, whose
+ring-buffer decode is checked on an aligned and a misaligned prefill).
 
 Tolerance.  Both packages compute in bfloat16 with float32 softmax and
 norms and round at the same places, but their matmuls sum in other orders,
@@ -33,7 +35,9 @@ from repro_torch.models import lm
 
 POL = ShardingPolicy()
 CPU = "cpu"
-MODELS = {"deepseek-7b": None, "phi4-mini-3.8b": 2}  # arch -> n_kv_heads override
+MODELS = {"deepseek-7b": None, "phi4-mini-3.8b": 2,  # arch -> n_kv_heads override
+          "mamba2-1.3b": None, "recurrentgemma-9b": None}
+RECURRENT = ["mamba2-1.3b", "recurrentgemma-9b"]
 
 
 def _cfgs(arch: str):
@@ -135,8 +139,15 @@ def test_attention_decode_matches(phi4):
     assert_bf16_close(tk, jnew["k"])
     assert_bf16_close(tv, jnew["v"])
     np.testing.assert_array_equal(tcache["slot_pos"].numpy(), np.asarray(jnew["slot_pos"]))
-    with pytest.raises(NotImplementedError, match="ring-buffer"):
-        L.attention_decode(tx, lm._layer(tp["seg0"], 0)["m0"], tcache, n, pc, "swa")
+    # swa on the same cache: a ring buffer, slot pos % W, validity per slot
+    jc, pc = (dataclasses.replace(c, window=6) for c in (jc, pc))
+    jcache = {k: jnp.asarray(v) for k, v in jnew.items()}
+    for pos in (n + 1, w + 3):  # the second wraps to slot 3
+        jout, jcache = JL.attention_decode(jnp.asarray(x, jnp.bfloat16), _layer0(jp)["m0"], jcache,
+                                           jnp.int32(pos), jc, "swa", POL)
+        tout, _ = L.attention_decode(tx, lm._layer(tp["seg0"], 0)["m0"], tcache, pos, pc, "swa")
+        assert_bf16_close(tout, jout)
+        np.testing.assert_array_equal(tcache["slot_pos"].numpy(), np.asarray(jcache["slot_pos"]))
 
 
 @pytest.mark.parametrize("arch", sorted(MODELS))
@@ -160,12 +171,31 @@ def test_prefill_and_decode_match(arch):
         tl, tcache = lm.decode_step(tp, tcache, {"tokens": torch.from_numpy(toks[:, s + i : s + i + 1])},
                                     s + i, pc)
         assert_bf16_close(tl, jl, jc.vocab_size, f"{arch} decode {i}")
-    for key in ("k", "v"):
-        assert_bf16_close(tcache[0]["0"][key], jcache[0]["0"][key], msg=key)
-    np.testing.assert_array_equal(tcache[0]["0"]["slot_pos"].numpy(),
-                                  np.asarray(jcache[0]["0"]["slot_pos"]))
+    for path, (t, j) in _cache_leaves(tcache, jcache):
+        if path.endswith("slot_pos"):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=path)
+        elif path.endswith(("/ssm", "/h")):
+            # float32 sums of bf16 terms: an input one bf16 step away moves a
+            # sum near zero by that step of its terms, not of the sum
+            j = _f32(j)
+            np.testing.assert_allclose(_f32(t), j, rtol=2**-6, atol=2**-6 * np.abs(j).max(),
+                                       err_msg=path)
+        else:
+            assert_bf16_close(t, j, msg=path)
     h = lm.forward(tp, lm.embed_inputs(tp, {"tokens": torch.from_numpy(toks)}, pc), pc)
     assert_bf16_close(tl, lm.lm_logits(tp, h[:, -1:], pc)[:, 0], pc.vocab_size, "forward")
+
+
+def _cache_leaves(tcache, jcache, path=""):
+    """(path, (port leaf, reference leaf)) over both caches' nested dicts."""
+    if isinstance(tcache, (list, dict)):
+        keys = range(len(tcache)) if isinstance(tcache, list) else sorted(tcache)
+        assert (sorted(jcache) if isinstance(jcache, dict) else range(len(jcache))) == keys
+        for k in keys:
+            yield from _cache_leaves(tcache[k], jcache[k], f"{path}/{k}")
+    else:
+        assert tuple(tcache.shape) == jcache.shape, path
+        yield path, (tcache, jcache)
 
 
 def test_float32_compute_matches(phi4, monkeypatch):
@@ -209,7 +239,8 @@ def test_slot_pos_prefix_and_seq_lens(phi4, monkeypatch):
     monkeypatch.setattr(L.ops, "decode_attention", spy)
     for pos in range(s, s + 4):  # pos 12, 13 fill the cache; 14, 15 fall past it
         t = toks[:, pos : pos + 1]
-        jl, jcache = jlm.decode_step(jp, jcache, {"tokens": jnp.asarray(t)}, jnp.int32(pos), jc, POL)
+        jl, jcache = jlm.decode_step(jp, jcache, {"tokens": jnp.asarray(t)}, jnp.int32(pos),
+                                     jc, POL)
         tl, tcache = lm.decode_step(tp, tcache, {"tokens": torch.from_numpy(t)}, pos, pc)
         assert_bf16_close(tl, jl, jc.vocab_size, f"pos {pos}")
         for seg in tcache:
@@ -232,18 +263,14 @@ def test_configs_are_the_references(arch):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "mamba2-1.3b", "recurrentgemma-9b",
-                                  "qwen3-moe-30b-a3b", "llava-next-mistral-7b",
-                                  "musicgen-large"])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-30b-a3b",
+                                  "llava-next-mistral-7b", "musicgen-large"])
 def test_unsupported_configs_raise(arch):
     cfg = ARCHS[arch].reduced()
     for call in (lambda: lm.param_defs(cfg), lambda: lm.init_params(cfg, device=CPU),
                  lambda: lm.init_cache(cfg, 1, 8, device=CPU)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
-    swa_only = dataclasses.replace(ARCHS["deepseek-7b"].reduced(), layer_pattern=("swa",) * 4)
-    with pytest.raises(NotImplementedError, match="swa"):
-        lm.param_defs(swa_only)
 
 
 def test_init_params_structure_and_seed():
@@ -267,3 +294,111 @@ def test_init_params_structure_and_seed():
     assert all(torch.equal(x, y) for (_, x), (_, y) in zip(walk(a), walk(b)))
     assert not torch.equal(a["embed"]["tok"], c["embed"]["tok"])
     assert 0.9 < a["embed"]["tok"].float().std().item() < 1.1
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_float32_compute_matches(arch, monkeypatch):
+    """mamba2 / recurrentgemma reduced with ``COMPUTE_DTYPE`` float32 in
+    both packages: prefill and 3 decode steps to ``1e-3`` of the largest
+    logit, every cache leaf to ``1e-3``."""
+    monkeypatch.setattr(JL, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
+    jc, pc = _cfgs(arch)
+    jp, tp = _params(jc, pc)
+    b, s = 2, 40
+    toks = np.random.default_rng(6).integers(0, jc.vocab_size, (b, s + 3)).astype(np.int32)
+    jl, jcache = jlm.prefill(jp, {"tokens": jnp.asarray(toks[:, :s])}, jc, POL, max_len=s + 3)
+    tl, tcache = lm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :s])}, pc, max_len=s + 3)
+
+    def close(t, j, msg):
+        j = np.asarray(j, np.float32)
+        np.testing.assert_allclose(t.float().numpy(), j, rtol=1e-3,
+                                   atol=1e-3 * float(np.abs(j).max()), err_msg=msg)
+
+    close(tl[:, : jc.vocab_size], jl[:, : jc.vocab_size], "prefill")
+    for i in range(3):
+        t = toks[:, s + i : s + i + 1]
+        jl, jcache = jlm.decode_step(jp, jcache, {"tokens": jnp.asarray(t)}, jnp.int32(s + i),
+                                     jc, POL)
+        tl, tcache = lm.decode_step(tp, tcache, {"tokens": torch.from_numpy(t)}, s + i, pc)
+        close(tl[:, : jc.vocab_size], jl[:, : jc.vocab_size], f"decode {i}")
+    for path, (t, j) in _cache_leaves(tcache, jcache):
+        assert t.dtype == (torch.int32 if path.endswith("slot_pos") else torch.float32), path
+        close(t, j, path)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_decode_matches_forward(arch):
+    """prefill(S) + decode(token S) == forward(S + 1)'s last logits within
+    0.05, as ``tests/test_models.py:88-117`` holds the reference (bf16)."""
+    cfg = ARCHS[arch].reduced()
+    params = lm.init_params(cfg, 0, device=CPU)
+    b, s = 2, 64
+    toks = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32))
+    h = lm.forward(params, lm.embed_inputs(params, {"tokens": toks}, cfg), cfg)
+    ref = lm.lm_logits(params, h[:, -1:], cfg)[:, 0]
+    _, caches = lm.prefill(params, {"tokens": toks[:, :s]}, cfg, max_len=s + 1)
+    out, _ = lm.decode_step(params, caches, {"tokens": toks[:, s:]}, s, cfg)
+    err = (out - ref)[:, : cfg.vocab_size].abs().max().item()
+    assert err < 0.05, f"{arch}: {err}"
+
+
+@pytest.mark.parametrize("s,steps", [(128, 8), (96, 4)])
+def test_local_ring_buffer_matches(monkeypatch, s, steps):
+    """recurrentgemma reduced (``local_window`` 64) under float32 compute:
+    an aligned prefill (S = 128, two windows) whose decode overwrites a slot
+    every step, and a misaligned one (S = 96): slot 0 then holds position
+    32, outside the window at position 96, and slot 32 takes 96 while 64
+    is still inside it, so the valid slots are not a prefix.  Logits and
+    ``slot_pos`` equal the reference's at every step.  Both packages run the
+    same float32 arithmetic summed in other orders (3e-7 of the largest
+    logit apart), so the bound is 1e-5 of it: attending to the first 63
+    slots instead (a prefix) moves the logits by 1e-3 of it."""
+    monkeypatch.setattr(JL, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
+    jc, pc = _cfgs("recurrentgemma-9b")
+    assert pc.local_window == 64 and pc.layer_pattern[2] == "local"
+    jp, tp = _params(jc, pc)
+    toks = np.random.default_rng(s).integers(0, jc.vocab_size, (2, s + steps)).astype(np.int32)
+    jl, jcache = jlm.prefill(jp, {"tokens": jnp.asarray(toks[:, :s])}, jc, POL, max_len=s + steps)
+    tl, tcache = lm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :s])}, pc, max_len=s + steps)
+    prefix_seen = []
+    for i in range(steps):
+        pos, t = s + i, toks[:, s + i : s + i + 1]
+        jl, jcache = jlm.decode_step(jp, jcache, {"tokens": jnp.asarray(t)}, jnp.int32(pos),
+                                     jc, POL)
+        tl, tcache = lm.decode_step(tp, tcache, {"tokens": torch.from_numpy(t)}, pos, pc)
+        ref = np.asarray(jl)[:, : jc.vocab_size]
+        np.testing.assert_allclose(tl.numpy()[:, : jc.vocab_size], ref, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(ref).max()), err_msg=f"pos {pos}")
+        sp = tcache[0]["2"]["slot_pos"][0]
+        np.testing.assert_array_equal(sp.numpy(), np.asarray(jcache[0]["2"]["slot_pos"][0]))
+        valid = ((sp >= 0) & (sp > pos - 64)).int()
+        prefix_seen.append(bool((valid.cummin(0).values == valid).all()))
+    assert prefix_seen == [s % 64 == 0] * steps  # the misaligned ring is never a prefix
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_init_params(arch):
+    """The parameter tree of the new mixers equals the reference's in keys,
+    shapes and dtypes, and the special inits land in their ranges: A in
+    [1, 16], softplus(dt_bias) in [1e-3, 0.1], a^c = exp(-c softplus(lam) / 2)
+    in [0.9, 0.999] (``repro/models/lm.py:233-252``)."""
+    cfg = ARCHS[arch].reduced()
+    params = lm.init_params(cfg, 5, device=CPU)
+    ref = jlm.init_params(JAX_ARCHS[arch].reduced(), jax.random.PRNGKey(0))
+    tree = convert.lm_params(jax.tree.map(lambda x: np.asarray(x, np.float32), ref), cfg, CPU)
+    assert [(p, tuple(t[0].shape), t[0].dtype) for p, t in _cache_leaves(params, tree)] == \
+           [(p, tuple(t[1].shape), t[1].dtype) for p, t in _cache_leaves(params, tree)]
+    m = params["seg0"]["m0"]
+    if arch == "mamba2-1.3b":
+        a = torch.exp(m["A_log"])
+        assert a.min() >= 1.0 - 1e-5 and a.max() <= 16.0 + 1e-4
+        dt = torch.nn.functional.softplus(m["dt_bias"])
+        assert dt.min() >= 1e-3 * (1 - 1e-4) and dt.max() <= 0.1 * (1 + 1e-4)
+    else:
+        ac = torch.exp(-L._LRU_C * torch.nn.functional.softplus(m["lam"]) / 2.0)
+        assert ac.min() >= 0.9 - 1e-5 and ac.max() <= 0.999 + 1e-5
+        assert m["conv"].dtype == torch.bfloat16 and m["lam"].dtype == torch.float32
+    assert not torch.equal(m["wx"], lm.init_params(cfg, 6, device=CPU)["seg0"]["m0"]["wx"])

@@ -51,7 +51,8 @@ def _models(arch: str, kv: int | None = None):
     return jc, pc, jp, tp
 
 
-@pytest.mark.parametrize("arch,kv", [("deepseek-7b", None), ("phi4-mini-3.8b", 2)])
+@pytest.mark.parametrize("arch,kv", [("deepseek-7b", None), ("phi4-mini-3.8b", 2),
+                                     ("mamba2-1.3b", None), ("recurrentgemma-9b", None)])
 def test_greedy_tokens_equal_the_reference(float32_compute, arch, kv):
     """Both schedulers, 5 prompts on 2 slots (three waves; two refills),
     6 new tokens: the same greedy tokens as ``repro.serve.ServeEngine``."""
@@ -141,18 +142,53 @@ def test_cache_tile_and_splice():
 def test_engine_rejects_what_the_slice_does_not_serve(deepseek):
     cfg, params = deepseek
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(ARCHS["mamba2-1.3b"].reduced(), params, device=CPU)
+        ServeEngine(ARCHS["mixtral-8x22b"].reduced(), params, device=CPU)
     with pytest.raises(NotImplementedError, match="audio models"):
         ServeEngine(ARCHS["musicgen-large"].reduced(), params, device=CPU)
     with pytest.raises(ValueError, match="lie on"):
         ServeEngine(cfg, {"embed": {"tok": torch.zeros(1, device="meta")}}, device=CPU)
 
 
-def test_launcher_prints_prompt_lines(capsys):
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b"])
+def test_launcher_prints_prompt_lines(capsys, arch):
     from repro_torch.launch import serve
 
-    outs = serve.main(["--arch", "phi4-mini-3.8b", "--prompts", "1,2,3", "4,5",
+    outs = serve.main(["--arch", arch, "--prompts", "1,2,3", "4,5",
                        "--max-new", "4", "--device", "cpu"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines == [f"[1, 2, 3] -> {outs[0]}", f"[4, 5] -> {outs[1]}"]
     assert all(len(o) == 4 for o in outs)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_recurrent_cache_tile_and_splice(arch):
+    """The recurrent caches' leaves (``[R, B, ...]`` states, the nested
+    ``conv`` dict of ssm layers) tile and splice as the reference's
+    ``_tile_cache`` / ``_splice_cache`` do: every batch-1 leaf is tiled, a
+    spliced slot takes the newcomer's state, the other slots keep theirs,
+    and ``slot_pos`` (no batch dim) stays as it was."""
+    from repro.serve.engine import _splice_cache as jax_splice
+    from repro.serve.engine import _tile_cache as jax_tile
+
+    cfg = ARCHS[arch].reduced()
+    params = lm.init_params(cfg, 0, device=CPU)
+    t1, t2 = (torch.tensor([toks], dtype=torch.int32) for toks in ([1, 2, 3, 4] * 4, [5, 6] * 8))
+    _, c1 = lm.prefill(params, {"tokens": t1}, cfg, max_len=20)
+    _, c2 = lm.prefill(params, {"tokens": t2}, cfg, max_len=20)
+    as_jax = lambda c: jax.tree.map(lambda x: jnp.asarray(x.float().numpy()), c)  # noqa: E731
+    tiled = _tile_cache(c1, 3)
+    out = _splice_cache(tiled, c2, 1)
+    want = jax_splice(jax_tile(as_jax(c1), 3), as_jax(c2), 1)
+    got = jax.tree.leaves(jax.tree.map(lambda x: x.float().numpy(), out))
+    ref = jax.tree.leaves(want)
+    assert len(got) == len(ref) and len(got) == len(jax.tree.leaves(as_jax(c1)))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, np.asarray(r))
+    conv = out[0]["0"]["conv"]
+    if arch == "mamba2-1.3b":
+        assert conv["x"].shape[1] == 3 and out[0]["0"]["ssm"].shape[1] == 3
+        assert torch.equal(out[0]["0"]["ssm"][:, 1], c2[0]["0"]["ssm"][:, 0])
+        assert torch.equal(out[0]["0"]["ssm"][:, 2], c1[0]["0"]["ssm"][:, 0])
+    else:
+        assert torch.equal(out[0]["2"]["slot_pos"], c1[0]["2"]["slot_pos"])
+        assert torch.equal(out[0]["0"]["h"][:, 1], c2[0]["0"]["h"][:, 0])
