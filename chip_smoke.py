@@ -63,8 +63,9 @@ line; any failed check raises, so the script exits nonzero.
    launches and device busy share of decode steps, peak memory; (c) the
    serving launcher ``python -m repro_torch.launch.serve`` at its
    defaults.
-6. A ``kernels`` line (all six kernels), the card's name and power limit,
-   and the last line, ``{"ok": true, "device": {...}}``.
+6. A ``kernels`` line (all six kernels; K3 and K4 at phi4-mini-3.8b's and
+   at recurrentgemma-9b's shapes), the card's name and power limit, and the
+   last line, ``{"ok": true, "device": {...}}``.
 
 Each main path (phases 3-4, and each model of phase 5) runs with the
 launch counts set to 0 just before it and read just after, and must have
@@ -294,10 +295,12 @@ ATTN_TOL = {"float32": dict(rtol=3e-3, atol=3e-3),  # tests/test_kernels.py:19-2
 # recurrentgemma's bf16 cases average 400-4,000 keys, so their outputs are
 # a few hundredths and 2e-2 would let a lost 32-key tile through.  They
 # are also held to one bf16 step of the reference value plus two steps of
-# the rms of its row (the head dim of one query): K3 rounds P to bf16
-# before P V, as the TPU kernel does (flash_attention.py:97), and that
-# error scales with the row, not with the whole output.  A planted fault
-# (the values of one 32-key tile zeroed) must fail the same bound.
+# the rms of its row (the head dim of one query): K3 and K4 round P to
+# bf16 before P V, as the TPU kernels do (flash_attention.py:97,
+# decode_attention.py:76), and that error scales with the row, not with
+# the whole output.  ``bf16_row_bound_used`` is the share of the row's
+# allowance the worst element takes.  A planted fault (the values of one
+# 32-key tile zeroed) must fail the same bound.
 BF16_REL, BF16_ROW = 2**-7, 2**-6
 
 
@@ -397,7 +400,8 @@ def phase_attention(dev, rate: float) -> dict:
             excess, fault = _bf16_row_excess(out, want), _bf16_row_excess(planted(), want)
             check(excess <= 0, f"{key}: {excess} rms of its row over the bf16 bound")
             check(fault > 0, f"{key}: a zeroed 32-key tile passes the bf16 bound")
-            extra = {"bf16_row_excess": excess, "planted_fault_row_excess": fault}
+            extra = {"bf16_row_excess": excess, "planted_fault_row_excess": fault,
+                     "bf16_row_bound_used": 1.0 + excess / BF16_ROW}
         bound_ms, bound_by = _bound(nbytes, flops, rate,
                                     BF16_PEAK if dtype == "bfloat16" else F32_PEAK)
         table[key] = {"max_abs_err": err, "bit_identical_rerun": True, **extra,
@@ -1119,7 +1123,10 @@ def main() -> int:
         ("spike_accum_blocks", "spike_accum.cu", "spike_accum.py:133", "rate_1pct"),
         ("spike_accum", "spike_accum.cu", "spike_accum.py:62", "rate_1pct"),
         ("flash_attention", "attention.cu", "flash_attention.py:116", "phi4_prefill/bfloat16"),
+        ("flash_attention", "attention.cu", "flash_attention.py:116", "rg_prefill/bfloat16"),
         ("decode_attention", "attention.cu", "decode_attention.py:94", "phi4_decode/bfloat16"),
+        ("decode_attention", "attention.cu", "decode_attention.py:94",
+         "rg_ring_misaligned/bfloat16"),
         ("ssd_scan", "scan.cu", "ssd_scan.py:81", "mamba2_prefill"),
         ("rglru_scan", "scan.cu", "rglru_scan.py:53", "rg_prefill"),
     ):

@@ -7,11 +7,13 @@ library with a plain C interface and loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/repro_torch_kernels/<name>-<hash>.so <src>
 
-The library lands in ``build/repro_torch_kernels/`` at the repository root
-(listed in ``.gitignore``) under a name carrying the hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is loaded
-as it is.  Nothing here runs at
-import time: the CPU tests import every module without ``nvcc``.
+Sources include the shared headers ``csrc/*.cuh`` (``hopper.cuh``: the
+mbarrier, TMA and ``wgmma`` helpers).  The library lands in
+``build/repro_torch_kernels/`` at the repository root (listed in
+``.gitignore``) under a name carrying the hash of the source, of every
+header and of the flags (:func:`library_stem`), so an edited source or
+header is rebuilt and an unchanged one is loaded as it is.  Nothing here
+runs at import time: the CPU tests import every module without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import time
 from pathlib import Path
 
 __all__ = [
-    "NVCC_FLAGS", "build_dir", "build_library", "load_library", "BUILD_SECONDS",
+    "NVCC_FLAGS", "build_dir", "library_stem", "build_library", "load_library", "BUILD_SECONDS",
     "LAUNCHES", "reset_launches", "raise_on",
 ]
 
@@ -69,13 +71,23 @@ def _nvcc() -> str:
     )
 
 
+def library_stem(name: str, csrc: Path = CSRC) -> str:
+    """``<name>-<hash>``, the hash over what a build of ``<name>.cu`` reads:
+    the source, every header ``*.cuh`` beside it (any may be included) and
+    the flags."""
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return f"{name}-{digest.hexdigest()[:16]}"
+
+
 def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source and
-    these flags exists; returns the library's path."""
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source,
+    these headers and these flags exists; returns the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     out_dir = build_dir()
-    out = out_dir / f"{name}-{digest.hexdigest()[:16]}.so"
+    out = out_dir / f"{library_stem(name)}.so"
     if out.exists():
         BUILD_SECONDS.setdefault(name, 0.0)
         return out

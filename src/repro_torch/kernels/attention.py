@@ -14,7 +14,10 @@ dimension is contiguous, so the model passes transposed views of its
 ``[B, S, H, D]`` tensors and of its cache and nothing is copied.  Prefill
 is bound by the tensor cores (bf16) at the serving shapes and decode by the
 bytes of the valid cache rows; the source says what each design does about
-it.
+it.  In bf16, prefill at head dims 64-256 reads its tiles by TMA through
+tensor maps that the library builds from the strides passed here (hence
+the 16-byte alignment of base and strides), and decode serves up to
+:data:`TC_GROUP` q heads of a kv head per block on the tensor cores.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 strides, allocate outputs and scratch with ``torch.empty``, launch on the
@@ -36,7 +39,8 @@ __all__ = ["flash_attention", "decode_attention", "decode_splits"]
 
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
 DECODE_HEAD_DIMS = (32, 64, 128, 256)
-MAX_GROUP = 8  # q heads one decode block serves from one read of the rows
+MAX_GROUP = 8  # q heads one float32 decode block serves from one read of the rows
+TC_GROUP = 32  # the same for bfloat16 (tensor cores, two 16-head tiles)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -140,12 +144,13 @@ def flash_attention(
     return out
 
 
-def decode_splits(b: int, hkv: int, s: int, n_sm: int, group: int = 1) -> tuple[int, int]:
+def decode_splits(b: int, hkv: int, s: int, n_sm: int, group: int = 1,
+                  heads_per_block: int = MAX_GROUP) -> tuple[int, int]:
     """``(n_split, chunk)``: enough cache splits for about two blocks per
-    SM (a kv head with more than ``MAX_GROUP`` q heads takes one block per
-    ``MAX_GROUP`` of them), each split at least 64 rows,
+    SM (a kv head with more than ``heads_per_block`` q heads takes one
+    block per ``heads_per_block`` of them), each split at least 64 rows,
     ``n_split * chunk >= s``."""
-    blocks = b * hkv * -(-group // MAX_GROUP)
+    blocks = b * hkv * -(-group // heads_per_block)
     n_split = max(1, min(-(-2 * n_sm // blocks), -(-s // 64)))
     return n_split, max(1, -(-s // n_split))
 
@@ -163,12 +168,12 @@ def decode_attention(
     """One-token attention against a KV cache on the card.
 
     q ``[B, Hq, D]``, k/v ``[B, Hkv, S, D]`` (``Hq % Hkv == 0``),
-    ``seq_lens`` optional ``int[B]`` valid lengths (default ``S``; rows past
-    it are not read).  ``slot_pos`` optional ``int32[S]`` shared by the
-    batch: row ``w`` then also needs ``slot_pos[w] >= 0`` and
-    ``slot_pos[w] > slot_lo`` (the kernel reads it; rows that fail are not
-    read).  Returns ``[B, Hq, D]`` in q's dtype; a row with no valid key
-    is 0.
+    ``seq_lens`` optional ``int[B]`` valid lengths (default ``S``, with no
+    tensor made for it; rows past it are not read).  ``slot_pos`` optional
+    ``int32[S]`` shared by the batch: row ``w`` then also needs
+    ``slot_pos[w] >= 0`` and ``slot_pos[w] > slot_lo`` (the kernel reads
+    it; rows that fail are not read).  Returns ``[B, Hq, D]`` in q's
+    dtype; a row with no valid key is 0.
     """
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
@@ -177,13 +182,12 @@ def decode_attention(
     if k.shape[0] != b or hq % hkv:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)}")
     dev = _check("decode_attention", {"q": q, "k": k, "v": v}, DECODE_HEAD_DIMS)
-    if seq_lens is None:
-        seq_lens = torch.full((b,), s, dtype=torch.int32, device=dev)
-    if tuple(seq_lens.shape) != (b,) or seq_lens.device != dev:
-        raise ValueError(f"seq_lens must be int[{b}] on {dev}")
-    if seq_lens.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"seq_lens must be int32 (or int64), got {seq_lens.dtype}")
-    seq_lens = seq_lens.to(torch.int32).contiguous()
+    if seq_lens is not None:
+        if tuple(seq_lens.shape) != (b,) or seq_lens.device != dev:
+            raise ValueError(f"seq_lens must be int[{b}] on {dev}")
+        if seq_lens.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"seq_lens must be int32 (or int64), got {seq_lens.dtype}")
+        seq_lens = seq_lens.to(torch.int32).contiguous()
     if slot_pos is not None and (
         tuple(slot_pos.shape) != (s,) or slot_pos.device != dev
         or slot_pos.dtype != torch.int32 or not slot_pos.is_contiguous()
@@ -192,14 +196,16 @@ def decode_attention(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     n_split, chunk = decode_splits(
-        b, hkv, s, torch.cuda.get_device_properties(dev).multi_processor_count, hq // hkv)
+        b, hkv, s, torch.cuda.get_device_properties(dev).multi_processor_count, hq // hkv,
+        TC_GROUP if q.dtype == torch.bfloat16 else MAX_GROUP)
     part_m = torch.empty((b, hq, n_split), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, hq, n_split, d), dtype=torch.float32, device=dev)
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
     with torch.cuda.device(dev):
         err = _lib().decode_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seq_lens.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if seq_lens is None else seq_lens.data_ptr(),
             None if slot_pos is None else slot_pos.data_ptr(), max(int(slot_lo), -1),
             out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), int(q.dtype == torch.bfloat16), b, hq, hkv,

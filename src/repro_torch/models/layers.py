@@ -138,9 +138,9 @@ def attention_decode(
     and the attention reads ``[B, Hkv, W, hd]`` views of the cache.
 
     * ``full``: slot = pos; a write past the cache (``pos >= W``) is a
-      no-op, as in the reference.  ``slot_pos`` is then always the prefix
-      ``[0, n)``, so the attention reads the first ``n = min(pos + 1, W)``
-      slots, counted on the device: ``decode_attention``'s ``seq_lens``.
+      no-op, as in the reference.  A slot is valid when ``slot_pos >= 0``
+      (``slot_lo = -1``): the kernel reads ``slot_pos`` itself, so no
+      length is computed per layer and step.
     * ``swa`` / ``local``: a ring buffer, slot = ``pos % W``.  A slot is
       valid when ``slot_pos >= 0`` and ``slot_pos > pos - window``
       (``repro/models/layers.py:260-262``); after a prefill whose length
@@ -163,12 +163,8 @@ def attention_decode(
         v_cache[:, slot] = v.to(v_cache.dtype)
         slot_pos[slot] = pos
     kv = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
-    if windowed:
-        window = cfg.window or cfg.local_window or w_len
-        o = ops.decode_attention(q, *kv, slot_pos=slot_pos, slot_lo=pos - window)
-    else:
-        seq_lens = (slot_pos >= 0).sum(dtype=torch.int32).expand(b)
-        o = ops.decode_attention(q, *kv, seq_lens=seq_lens)
+    slot_lo = pos - (cfg.window or cfg.local_window or w_len) if windowed else -1
+    o = ops.decode_attention(q, *kv, slot_pos=slot_pos, slot_lo=slot_lo)
     out = _bf(o.reshape(b, 1, hq * hd)) @ _bf(p["wo"])
     return out, cache
 

@@ -123,3 +123,22 @@ def test_ops_take_strided_views():
     again = ops.decode_attention(q[:, 0], k2.transpose(1, 2), v.transpose(1, 2), seq_lens=sl)
     torch.testing.assert_close(again, views, rtol=0, atol=0)
     assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("n", [1, 37, 96])
+def test_decode_validity_paths_agree(n, dtype):
+    """One validity path into K4: a full mixer hands it ``slot_pos`` with
+    ``slot_lo = -1``.  On a prefix-valid cache (slots ``[0, n)`` hold
+    positions, the rest -1) that equals ``seq_lens = n``, whatever the
+    empty rows hold."""
+    rng = np.random.default_rng(n)
+    b, hq, hkv, s, d = 2, 6, 2, 96, 32
+    _, (q, k, v) = _inputs(rng, dtype, (b, hq, d), (b, hkv, s, d), (b, hkv, s, d))
+    k[:, :, n:] = 1e4  # empty slots: never attended
+    slot_pos = torch.where(torch.arange(s) < n, torch.arange(s), -1).to(torch.int32)
+    by_len = decode_attention_ref(q, k, v, seq_lens=torch.full((b,), n, dtype=torch.int32))
+    by_slot = decode_attention_ref(q, k, v, slot_pos=slot_pos, slot_lo=-1)
+    torch.testing.assert_close(by_slot, by_len, rtol=0, atol=0)
+    assert torch.equal(ops.decode_attention(q, k, v, slot_pos=slot_pos), by_len)
+

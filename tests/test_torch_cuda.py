@@ -181,6 +181,26 @@ def _assert_bf16_step(out, want):
         (1, 2, 1, 8, 4, 32, False, 2),  # rows 5-7 see no key -> 0
         (2, 16, 1, 200, 200, 256, True, 96),  # recurrentgemma's MQA, head 256, window
         (1, 4, 2, 130, 130, 256, False, None),  # head 256, bidirectional, ragged tiles
+        # the wgmma kernel's edges: head dims 64 / 128 / 256 with groups 1, 3
+        # and 16; sq not a multiple of its 128-row q tile, and below it;
+        # 4,096 keys under a 2,048 window (interior and boundary tiles, the
+        # ring wrapping many times); rows that see no key
+        (1, 3, 3, 200, 200, 64, True, None),
+        (2, 6, 2, 130, 130, 64, True, 48),
+        (1, 16, 1, 100, 100, 64, False, None),
+        (1, 2, 2, 300, 300, 128, False, None),
+        (1, 16, 1, 130, 130, 128, True, 64),
+        (1, 6, 2, 1000, 1000, 128, True, None),
+        (1, 2, 2, 64, 64, 256, True, None),
+        (1, 6, 2, 257, 257, 256, True, None),
+        (1, 16, 1, 4096, 4096, 256, True, 2048),
+        (1, 4, 1, 4096, 4096, 64, True, 2048),
+        (1, 2, 1, 8, 4, 64, False, 2),  # rows 5-7 see no key -> 0
+        (1, 2, 1, 200, 100, 128, False, 40),  # rows past 139 see no key
+        # more items than SMs, so each persistent block runs several; q tiles
+        # from row 384 on need no KV tile at all (window 10 starts past the
+        # 100 keys) and must leave the K/V ring's bookkeeping as it was
+        (1, 64, 8, 600, 100, 64, False, 10),
     ],
 )
 def test_flash_attention_matches_plain(dev, dtype, b, hq, hkv, sq, sk, d, causal, window):
@@ -210,8 +230,14 @@ def test_flash_attention_matches_plain(dev, dtype, b, hq, hkv, sq, sk, d, causal
     "b,hq,hkv,s,d,ragged",
     [(2, 4, 2, 1024, 64, False), (3, 8, 2, 512, 32, True), (1, 2, 1, 2048, 128, True),
      (4, 24, 8, 1088, 128, True),  # phi4-mini's decode shape
-     (2, 16, 1, 640, 256, True),  # recurrentgemma's MQA: 16 q heads, two blocks per kv head
-     (1, 12, 1, 300, 64, False)],  # a group of 12 at head 64
+     (2, 16, 1, 640, 256, True),  # recurrentgemma's MQA: 16 q heads on one kv head
+     (1, 12, 1, 300, 64, False),  # a group of 12 at head 64
+     # bf16 serves a kv head's group from one block (up to 32 q heads):
+     # groups 3, 12, 16 and 32 at head dims 128 and 256, one past 32, a
+     # single valid row ("one")
+     (2, 6, 2, 700, 128, True), (1, 12, 1, 513, 128, True), (1, 32, 2, 777, 128, True),
+     (2, 32, 1, 300, 128, True), (1, 9, 3, 300, 256, False), (3, 36, 3, 400, 256, True),
+     (1, 32, 1, 900, 256, True), (1, 48, 1, 300, 128, True), (2, 16, 1, 640, 256, "one")],
 )
 def test_decode_attention_matches_plain(dev, dtype, b, hq, hkv, s, d, ragged):
     """The reference's sweep (``tests/test_kernels.py:47-61``) on
@@ -222,7 +248,8 @@ def test_decode_attention_matches_plain(dev, dtype, b, hq, hkv, s, d, ragged):
     gen = torch.Generator(device=dev).manual_seed(6)
     q = torch.randn((b, hq, d), generator=gen, device=dev).to(dtype)
     kc, vc = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype) for _ in "kv")
-    sl = (torch.randint(1, s + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    sl = (torch.ones((b,), device=dev, dtype=torch.int32) if ragged == "one" else
+          torch.randint(1, s + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
           if ragged else None)
     out = k.decode_attention(q, kc.transpose(1, 2), vc.transpose(1, 2), seq_lens=sl)
     torch.cuda.synchronize()
@@ -241,7 +268,8 @@ def test_decode_attention_matches_plain(dev, dtype, b, hq, hkv, s, d, ragged):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_attention_slot_validity(dev, dtype):
+@pytest.mark.parametrize("hq,hkv,d", [(16, 1, 256), (6, 2, 128), (32, 1, 128)])
+def test_decode_attention_slot_validity(dev, dtype, hq, hkv, d):
     """A ring buffer whose valid slots are not a prefix (window 64, a
     prefill of 96 tokens, decode at position 96): slot 0 holds position 32,
     outside the window, and slot 32 holds 96.  The kernel applies the
@@ -250,7 +278,7 @@ def test_decode_attention_slot_validity(dev, dtype):
     from repro_torch.kernels.ref import decode_attention_ref
 
     gen = torch.Generator(device=dev).manual_seed(9)
-    b, hq, hkv, w, d, pos = 2, 16, 1, 64, 256, 96
+    b, w, pos = 2, 64, 96
     q = torch.randn((b, hq, d), generator=gen, device=dev).to(dtype)
     kc, vc = (torch.randn((b, w, hkv, d), generator=gen, device=dev).to(dtype) for _ in "kv")
     slot_pos = torch.arange(96 - w, 96, dtype=torch.int32, device=dev)

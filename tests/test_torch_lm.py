@@ -221,9 +221,11 @@ def test_float32_compute_matches(phi4, monkeypatch):
 
 
 def test_slot_pos_prefix_and_seq_lens(phi4, monkeypatch):
-    """``slot_pos`` stays the prefix ``[0, n)``; each decode step attends to
-    ``seq_lens = min(pos + 1, W)`` slots, counted on the device; writes past
-    the cache (``pos >= W``) are no-ops, as in the reference."""
+    """``slot_pos`` stays the prefix ``[0, n)``; each decode step hands the
+    kernel ``slot_pos`` with ``slot_lo = -1`` (the windowed layers' rule,
+    one validity path), under which it attends to ``min(pos + 1, W)``
+    slots; writes past the cache (``pos >= W``) are no-ops, as in the
+    reference."""
     jc, pc, jp, tp = phi4
     b, s, w = 2, 12, 14
     toks = np.random.default_rng(5).integers(0, jc.vocab_size, (b, s + 4)).astype(np.int32)
@@ -232,9 +234,10 @@ def test_slot_pos_prefix_and_seq_lens(phi4, monkeypatch):
     seen = []
     real = L.ops.decode_attention
 
-    def spy(q, k, v, *, seq_lens=None, sm_scale=None):
-        seen.append(seq_lens.tolist())
-        return real(q, k, v, seq_lens=seq_lens, sm_scale=sm_scale)
+    def spy(q, k, v, *, seq_lens=None, sm_scale=None, slot_pos=None, slot_lo=-1):
+        assert seq_lens is None and slot_lo == -1
+        seen.append([int(((slot_pos >= 0) & (slot_pos > slot_lo)).sum())] * q.shape[0])
+        return real(q, k, v, sm_scale=sm_scale, slot_pos=slot_pos, slot_lo=slot_lo)
 
     monkeypatch.setattr(L.ops, "decode_attention", spy)
     for pos in range(s, s + 4):  # pos 12, 13 fill the cache; 14, 15 fall past it
