@@ -23,10 +23,12 @@ line; any failed check raises, so the script exits nonzero.
    dim 256, window 2,048; decode with ``slot_pos``, also a misaligned ring
    whose valid slots are not a prefix).  The scans against their plain
    versions on float64 copies at the reference's ``3e-3``: ``ssd_scan`` at
-   the reference's sweep, chunks of 127 and 96, and mamba2-1.3b's prefill;
-   ``rglru_scan`` at the sweep and recurrentgemma-9b's prefill.  Kernel,
-   plain, library-yardstick (none for the scans) and bound times; at the
-   main paths' shapes also their device times (``torch.profiler``).
+   the reference's sweep, chunks of 127 and 96, and mamba2-1.3b's prefill,
+   its final state too; ``rglru_scan`` at the sweep and recurrentgemma-9b's
+   prefill.  Kernel, plain, library-yardstick (none for the scans) and
+   bound times (``ssd_scan``'s 3xTF32 products at the TF32 peak); at the
+   main paths' shapes also their device times (``torch.profiler``), and
+   for every spike-accumulation case the kernel's.
 3. The launcher (``repro_torch.launch.run_brainsim.main``) for each of the
    four exchanges, at its defaults and with channel noise (``--noise 2``,
    which spreads the firing over the run so the rasters depend on the
@@ -59,7 +61,8 @@ line; any failed check raises, so the script exits nonzero.
    under float32 compute, its last request's (the only one the reference's
    initial fill of ``generate_continuous`` leaves with its own state);
    prefill(S) + decode(S) against prefill(S + 1) within 0.05 under float32
-   compute (S = 861, 127, 4,096); prefill / decode times, tokens/s,
+   compute (S = 861, 127, 4,096); no ssm layer recomputing its final state
+   with the CPU path's closed form; prefill / decode times, tokens/s,
    launches and device busy share of decode steps, peak memory; (c) the
    serving launcher ``python -m repro_torch.launch.serve`` at its
    defaults.
@@ -91,6 +94,7 @@ REAL_STEPS = 200
 DRIVE = (3.0, 8.0)  # per-neuron external drive at real size, uniform
 TOL = dict(rtol=1e-5, atol=1e-4)
 F32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores (data sheet)
+TF32_PEAK = 494.7e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
 
 
 def emit(obj: dict) -> None:
@@ -134,24 +138,28 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timings(kern, plain, lib, main: bool) -> dict:
+def timings(kern, plain, lib, main: bool, device: bool = False) -> dict:
     """Times of a kernel, its plain version and the library call (None
     where no single PyTorch call computes the function).  ``ms`` keys: CUDA
     events around back-to-back calls, which include the host's dispatch
     where the host is the slower side.  For a case of the main path
     (``main``) also ``device_ms`` keys: the device time of the kernels each
-    call launches, from ``torch.profiler``."""
+    call launches, from ``torch.profiler``; with ``device`` only the
+    kernel's.  ``device_kernels``: the kernel's time per CUDA kernel."""
     out = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 5),
            "library_ms": None if lib is None else cuda_ms(lib, 5)}
-    if main:
+    if main or device:
         reps = 10
-        for key, fn in (("device_ms", kern), ("plain_device_ms", plain),
-                        ("library_device_ms", lib)):
+        for key, fn in (("device_ms", kern), ("plain_device_ms", plain if main else None),
+                        ("library_device_ms", lib if main else None)):
             if fn is None:
                 out[key] = None
                 continue
             prof = _device_profile(lambda n, fn=fn: [fn() for _ in range(n)], reps)
             out[key] = prof["device_busy_s"] * 1e3 / reps
+            if key == "device_ms":
+                out["device_kernels"] = [{**k, "device_ms": k["device_ms"] / reps}
+                                         for k in prof["kernels"]]
     return out
 
 
@@ -279,7 +287,7 @@ def phase_kernels(dev, rate: float) -> dict:
             cases[case] = {
                 "fired_rows": fired, "max_abs_err": err, "bit_identical_rerun": True,
                 "max_abs_diff_vs_plain_f32": float((out - want).abs().max()),
-                **timings(kern, plain, lib, case == "rate_1pct"),
+                **timings(kern, plain, lib, case == "rate_1pct", device=True),
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
             worst = max(worst, err)
@@ -492,12 +500,19 @@ RGLRU_CASES = [
 
 def phase_scans(dev, rate: float) -> dict:
     """K5 / K6 against their plain versions on float64 copies (the
-    reference's tolerance), two runs bit-identical.  No single PyTorch call
-    computes either function, so there is no library time.  K5's
-    operations are those the function needs: per (batch, head, chunk)
-    2 T N + 2 T P + 4 L N P, where T = L (L + 1) / 2 are the (t, s <= t)
-    pairs the causal mask keeps (the kernel computes only those), as
-    ``_valid_pairs`` counts them for K3."""
+    reference's tolerance), two runs bit-identical; K5 also returns its
+    final state, held to the plain version's carried state.  No single
+    PyTorch call computes either function, so there is no library time.
+
+    K5's bound counts the work its design needs: per (batch, group, chunk)
+    C Bᵀ, 2 T N, and per (batch, head, chunk) 2 T P + 4 L N P, where T =
+    L (L + 1) / 2 are the (t, s <= t) pairs the causal mask keeps, as
+    ``_valid_pairs`` counts them for K3; each product three times (3xTF32)
+    at the TF32 tensor-core peak; bytes x, a, B, C and y once and the final
+    state.  ``bound_ms_bytes`` is the byte term alone (what a single TF32
+    pass would leave as the bound); ``bound_ms_f32`` keeps the float32
+    CUDA-core bound of the kernel before it (C Bᵀ per head, no state), for
+    comparison."""
     import torch
 
     from repro_torch.kernels import scan as k
@@ -506,32 +521,50 @@ def phase_scans(dev, rate: float) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     result = {"ssd_scan": {}, "rglru_scan": {}}
 
-    def record(table, name, kern, plain, exact, nbytes, flops, main):
+    def record(table, name, kern, plain, exact, nbytes, flops, main, peak=F32_PEAK):
         out, again = kern(), kern()
         torch.cuda.synchronize()
+        out, again = (o[0] if isinstance(o, tuple) else o for o in (out, again))
         check(torch.equal(out, again), f"{name}: reruns differ")
         err = float((out.double() - exact).abs().max())
         check(torch.allclose(out.double(), exact, **SCAN_TOL), f"{name}: max err {err}")
-        bound_ms, bound_by = _bound(nbytes, flops, rate)
+        bound_ms, bound_by = _bound(nbytes, flops, rate, peak)
+        want = plain()
+        want = want[0] if isinstance(want, tuple) else want
         table[name] = {"max_abs_err": err, "bit_identical_rerun": True,
-                       "max_abs_diff_vs_plain_f32": float((out - plain()).abs().max()),
+                       "max_abs_diff_vs_plain_f32": float((out - want).abs().max()),
                        **timings(kern, plain, None, main),
                        "bound_ms": bound_ms, "bound_by": bound_by}
+        return table[name]
 
     for name, b, s, h, g, p, n, chunk in SSD_CASES:
         x = torch.randn((b, s, h, p), generator=gen, device=dev)
         a = 0.85 + 0.149 * torch.rand((b, s, h), generator=gen, device=dev)
         bm, cm = (torch.randn((b, s, g, n), generator=gen, device=dev) for _ in "bc")
         ell = min(chunk, s)
-        exact = ssd_chunked(x.double(), a.double(), bm.double(), cm.double(), chunk=chunk)
+        exact, exact_state = ssd_chunked(x.double(), a.double(), bm.double(), cm.double(),
+                                         chunk=chunk, return_state=True)
         pairs = _valid_pairs(ell, ell, True, None)
-        flops = b * h * (s // ell) * (2 * pairs * n + 2 * pairs * p + 4 * ell * n * p)
-        nbytes = (2 * x.numel() + a.numel() + 2 * bm.numel()) * 4
-        record(result["ssd_scan"], name,
-               lambda: k.ssd_scan(x, a, bm, cm, chunk=chunk),
-               lambda: ssd_chunked(x, a, bm, cm, chunk=chunk),
-               exact, nbytes, flops, name.startswith("mamba2"))
-        del exact
+        nc = s // ell
+        flops = 3 * (b * g * nc * 2 * pairs * n + b * h * nc * (2 * pairs * p + 4 * ell * n * p))
+        nbytes = (2 * x.numel() + a.numel() + 2 * bm.numel() + b * h * n * p) * 4
+        # prefill asks for the final state (models/layers.mamba2_block)
+        row = record(result["ssd_scan"], name,
+                     lambda: k.ssd_scan(x, a, bm, cm, chunk=chunk, return_state=True),
+                     lambda: ssd_chunked(x, a, bm, cm, chunk=chunk, return_state=True),
+                     exact, nbytes, flops, name.startswith("mamba2"), TF32_PEAK)
+        (_, state), (_, again) = (k.ssd_scan(x, a, bm, cm, chunk=chunk, return_state=True)
+                                  for _ in range(2))
+        torch.cuda.synchronize()
+        check(torch.equal(state, again), f"{name}: final states of two runs differ")
+        err = float((state.double() - exact_state).abs().max())
+        check(torch.allclose(state.double(), exact_state, **SCAN_TOL),
+              f"{name}: final state max err {err}")
+        old_flops = b * h * nc * (2 * pairs * n + 2 * pairs * p + 4 * ell * n * p)
+        row.update(state_max_abs_err=err, tf32_products=3, bound_ms_bytes=nbytes / rate * 1e3,
+                   bound_ms_f32=_bound(nbytes - b * h * n * p * 4, old_flops, rate)[0],
+                   plan=k.ssd_plan(b, s, h, g, p, n, chunk))
+        del exact, exact_state
     for name, b, s, d in RGLRU_CASES:
         a = 0.8 + 0.199 * torch.rand((b, s, d), generator=gen, device=dev)
         bb = torch.randn((b, s, d), generator=gen, device=dev)
@@ -540,6 +573,8 @@ def phase_scans(dev, rate: float) -> dict:
                3 * a.numel() * 4, 2 * a.numel(), name.startswith("rg"))
     for table in result.values():
         table["max_abs_err"] = max(c["max_abs_err"] for c in table.values())
+    result["ssd_scan"]["state_max_abs_err"] = max(
+        c["state_max_abs_err"] for c in result["ssd_scan"].values() if isinstance(c, dict))
     torch.cuda.empty_cache()
     return result
 
@@ -1137,7 +1172,8 @@ def main() -> int:
                      "max_abs_err": table["max_abs_err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-                     "device_ms": c["device_ms"], "case": case})
+                     "device_ms": c["device_ms"], "case": case,
+                     **{key: c[key] for key in ("bound_ms_bytes",) if key in c}})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

@@ -29,7 +29,7 @@ from pathlib import Path
 
 __all__ = [
     "NVCC_FLAGS", "build_dir", "library_stem", "build_library", "load_library", "BUILD_SECONDS",
-    "LAUNCHES", "reset_launches", "raise_on",
+    "LAUNCHES", "reset_launches", "raise_on", "SMS", "SMEM_LIMIT", "blocks_per_sm",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -48,6 +48,12 @@ LAUNCHES: dict[str, int] = {
     "flash_attention": 0, "decode_attention": 0,
     "ssd_scan": 0, "rglru_scan": 0,
 }
+
+# an H100 SXM, for the wrappers' launch geometry (NVIDIA's H100 specifications)
+SMS = 132  # streaming multiprocessors
+SMEM_LIMIT = 232_448  # shared memory one block may opt into
+SMEM_PER_SM = 233_472  # shared memory of one SM (228 KB)
+SMEM_PER_BLOCK_RESERVED = 1_024  # what the card keeps per resident block
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -132,3 +138,10 @@ def raise_on(err: int, name: str) -> None:
     """Raise when a launcher returned a nonzero CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def blocks_per_sm(smem_bytes: int, threads: int) -> int:
+    """Blocks of ``threads`` threads using ``smem_bytes`` of shared memory
+    that one SM holds at once: by shared memory, by threads (2,048) and
+    by blocks (32); registers are not counted."""
+    return min(SMEM_PER_SM // (smem_bytes + SMEM_PER_BLOCK_RESERVED), 2048 // threads, 32)

@@ -186,21 +186,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// 16 bytes global -> shared, asynchronously; `bytes` 0 fills zeros and
-// reads nothing.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   hopper::smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using hopper::cp_async_16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 
 // ---------------------------------------------------------------------------
 // K3, bf16, head dims 64-256: TMA ring + wgmma, warp-specialised

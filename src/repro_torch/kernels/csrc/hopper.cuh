@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks for the port's kernels, in inline PTX:
-// mbarriers, TMA tensor loads and stores and their tensor maps, wgmma
+// mbarriers, TMA tensor loads and stores and their tensor maps, cp.async, wgmma
 // descriptors and products, and register reallocation between warpgroups.
 //
 // Shared-memory tiles fed to wgmma use the 128-byte swizzle that TMA writes
@@ -93,6 +93,29 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
 // Waits until the issued stores have read their shared memory.
 __device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// -- cp.async -----------------------------------------------------------------
+
+// 16 bytes global -> shared, asynchronously; `bytes` below 16 fills the rest
+// with zeros (0 reads nothing).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+// 4 bytes global -> shared, asynchronously (for addresses not 16-byte aligned).
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Makes this thread's shared-memory writes visible to the async proxy

@@ -60,13 +60,16 @@ def decode_attention(
 
 
 def ssd(
-    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128
-) -> torch.Tensor:
+    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
+    return_state: bool = False,
+):
     """Mamba-2 chunked SSD scan (prefill).  x ``[B, S, H, P]``, a
-    ``[B, S, H]``, b/c ``[B, S, G, N]``; ``min(chunk, S)`` must divide S."""
+    ``[B, S, H]``, b/c ``[B, S, G, N]``; ``min(chunk, S)`` must divide S.
+    With ``return_state`` returns ``(y, h_S)``, the final state
+    ``[B, H, N, P]``."""
     if x.device.type == "cpu":
-        return _ref.ssd_chunked(x, a, b, c, chunk=chunk)
-    return _scan.ssd_scan(x, a, b, c, chunk=chunk)
+        return _ref.ssd_chunked(x, a, b, c, chunk=chunk, return_state=return_state)
+    return _scan.ssd_scan(x, a, b, c, chunk=chunk, return_state=return_state)
 
 
 def rglru(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

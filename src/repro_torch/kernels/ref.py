@@ -127,13 +127,16 @@ def ssd_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) 
 
 
 def ssd_chunked(
-    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128
-) -> torch.Tensor:
+    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
+    return_state: bool = False,
+):
     """The chunked SSD of ``_ssd_chunked_jnp``: ``chunk = min(chunk, S)``
     must divide S (the reference's reshape fails otherwise; here
     ``ValueError``).  Within a chunk ``((C Bᵀ) ⊙ causal decay) X``; across
     chunks the ``[N, P]`` state, carried in order.  The ``[B, nc, L, L]``
-    decay matrix is built one head at a time, as in the reference."""
+    decay matrix is built one head at a time, as in the reference.  With
+    ``return_state`` also the carried state after the last chunk,
+    ``[B, H, N, P]`` in the computing dtype."""
     bs, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     rep = h // g
@@ -149,6 +152,7 @@ def ssd_chunked(
     tpos = torch.arange(chunk, device=x.device)
     causal = tpos[:, None] >= tpos[None, :]  # [L, L]
     y = torch.empty_like(xc)
+    final = torch.empty((bs, h, n, p), dtype=xf.dtype, device=x.device)
     for gi in range(g):
         b_g, c_g = bc[:, :, :, gi], cc[:, :, :, gi]  # [B,nc,L,N]
         cb_g = torch.einsum("bktn,bksn->bkts", c_g, b_g)  # [B,nc,L,L]
@@ -168,7 +172,9 @@ def ssd_chunked(
                 carry = chunk_decay[:, k, None, None] * carry + states[:, k]
             y_inter = torch.einsum("bktn,bknp,bkt->bktp", c_g, h_prev, torch.exp(cum))
             y[:, :, :, hi] = y_intra + y_inter
-    return y.reshape(bs, s, h, p).to(x.dtype)
+            final[:, hi] = carry
+    y = y.reshape(bs, s, h, p).to(x.dtype)
+    return (y, final) if return_state else y
 
 
 def rglru_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

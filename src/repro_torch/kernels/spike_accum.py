@@ -12,6 +12,9 @@ weight rows whose spike fired (plus spikes, indices and output) over the
 card's memory rate, 3.35 TB/s on an H100 SXM.  The kernels read only those
 rows — the TPU kernel reads every weight of a tile with any spike — with a
 fixed summation order and no atomics (see the source for the design).
+``spike_accum_blocks`` compacts each tile's fired rows once per call, then
+streams their weight segments through a ``cp.async`` ring; :func:`blocks_plan`
+gives its launch geometry.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
 contiguity, allocate the output with ``torch.empty``, launch on the
@@ -26,9 +29,15 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import LAUNCHES, load_library, raise_on, reset_launches
+from repro_torch.kernels._build import (
+    LAUNCHES, SMEM_LIMIT, blocks_per_sm, load_library, raise_on, reset_launches,
+)
 
-__all__ = ["LAUNCHES", "reset_launches", "spike_accum", "spike_accum_blocks"]
+__all__ = ["LAUNCHES", "reset_launches", "spike_accum", "spike_accum_blocks", "blocks_plan"]
+
+# csrc/spike_accum.cu's ring kernel: columns per block, stages, fired rows
+# per stage and rows listed in shared memory at once
+COL_TILE, RING_STAGES, RING_ROWS, LIST_CAP = 128, 3, 64, 2048
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,10 +48,10 @@ def _lib():
     global _bound
     if _bound is None:
         lib = load_library("spike_accum")
-        lib.spike_accum_blocks_launch.argtypes = [
-            _P, _P, _P, _P, _I, _I, _I, _I, _I, _P
-        ]
+        lib.spike_accum_blocks_launch.argtypes = [_P] * 7 + [_I] * 6 + [_P]
         lib.spike_accum_blocks_launch.restype = _I
+        lib.spike_accum_blocks_smem_bytes.argtypes = [_I]
+        lib.spike_accum_blocks_smem_bytes.restype = ctypes.c_longlong
         lib.spike_accum_launch.argtypes = [_P, _P, _P, _I, _I, _P]
         lib.spike_accum_launch.restype = _I
         _bound = lib
@@ -60,6 +69,23 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     return dev
+
+
+def blocks_plan(n_dev: int, k_tiles: int, bj: int) -> dict:
+    """Launch geometry of :func:`spike_accum_blocks` (``csrc/spike_accum.cu``).
+
+    One thread per output column, 128 columns per block.  Returns the
+    grids of the compaction and ring kernels, the ring kernel's shared
+    memory (the source owns this size: the wrapper checks the library's
+    count before launch), how many of its blocks one SM holds and the
+    weight bytes each block keeps in flight (all stages but the one being
+    summed).
+    """
+    smem = 4 * RING_STAGES * RING_ROWS * COL_TILE + 8 * LIST_CAP + 4 * (k_tiles + 1)
+    return {"threads": COL_TILE, "compact_grid": (k_tiles, n_dev),
+            "grid": (-(-bj // COL_TILE), n_dev),
+            "smem": smem, "blocks_per_sm": blocks_per_sm(smem, COL_TILE),
+            "bytes_in_flight": 4 * (RING_STAGES - 1) * RING_ROWS * COL_TILE}
 
 
 def spike_accum_blocks(
@@ -97,11 +123,22 @@ def spike_accum_blocks(
     if k == 0:  # no tiles → no currents
         out = torch.zeros((n_dev, bj), dtype=torch.float32, device=dev)
         return out if stacked else out[0]
+    smem = _lib().spike_accum_blocks_smem_bytes(k)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"spike_accum_blocks: {k} tiles need {smem} B of shared memory")
     out = torch.empty((n_dev, bj), dtype=torch.float32, device=dev)
+    # one workspace (one allocation a step): the fired rows' indices
+    # [n_dev, K, B] int32, their values [n_dev, K, B] float32, the counts
+    # [n_dev, K] int32
+    lists = n_dev * k * b
+    work = torch.empty(2 * lists + n_dev * k, dtype=torch.int32, device=dev)
+    ws = work.data_ptr()
+    vec = int(bj % 4 == 0 and blocks.data_ptr() % 16 == 0)  # 16-byte row segments
     with torch.cuda.device(dev):
         err = _lib().spike_accum_blocks_launch(
-            s_blocks.data_ptr(), src_ids.data_ptr(), blocks.data_ptr(),
-            out.data_ptr(), n_dev, n_blocks, b, k, bj,
+            s_blocks.data_ptr(), src_ids.data_ptr(), blocks.data_ptr(), out.data_ptr(),
+            ws, ws + 4 * lists, ws + 8 * lists,
+            n_dev, n_blocks, b, k, bj, vec,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     raise_on(err, "spike_accum_blocks")

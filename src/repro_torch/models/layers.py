@@ -225,15 +225,6 @@ def _ssm_gates(dt_raw: torch.Tensor, p: dict):
     return delta, a
 
 
-def _final_ssd_state(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor, rep: int):
-    """h_S = Σ_s (Π_{u>s} a_u) b_s ⊗ x_s over the whole sequence (the
-    reference's closed form, one float32 cumsum)."""
-    cum = torch.cumsum(torch.log(a.float()), dim=1)  # [B, S, H]
-    decay_to_end = torch.exp(cum[:, -1:] - cum)
-    bb = bmat.float().repeat_interleave(rep, dim=2) * decay_to_end[..., None]  # [B,S,H,N]
-    return torch.einsum("bshn,bshp->bhnp", bb, xh.float())
-
-
 def mamba2_block(
     x: torch.Tensor, p: dict, cfg: ArchConfig, *, ssd_chunk: int = 128, return_state: bool = False
 ):
@@ -241,7 +232,8 @@ def mamba2_block(
     :func:`repro_torch.kernels.ops.ssd` with ``chunk = min(ssd_chunk, S)``,
     which must divide S (the reference's quirk: S above 128 and not a
     multiple of it raises).  With ``return_state``, also the decode state
-    {"ssm": [B, H, N, P] f32, "conv": {x, b, c: [B, K-1, ·]}}."""
+    {"ssm": [B, H, N, P] f32, "conv": {x, b, c: [B, K-1, ·]}}, the SSD
+    scan's final state."""
     b, s, _ = x.shape
     di, nh, hp = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     g, n = cfg.ssm_groups, cfg.ssm_state
@@ -257,7 +249,8 @@ def mamba2_block(
     delta, a = _ssm_gates(dt, p)  # [B, S, H]
     xh = xr.view(b, s, nh, hp) * delta[..., None]  # Δ-scaled input
     bmat, cmat = bc.view(b, s, g, n), cc.view(b, s, g, n)
-    y = ops.ssd(xh, a, bmat, cmat, chunk=min(ssd_chunk, s))
+    y = ops.ssd(xh, a, bmat, cmat, chunk=min(ssd_chunk, s), return_state=return_state)
+    y, state = y if return_state else (y, None)
     y = y + xr.view(b, s, nh, hp) * p["d_skip"].float()[:, None]
     y = y.reshape(b, s, di)
     # gated RMSNorm then output projection
@@ -266,7 +259,6 @@ def mamba2_block(
     if not return_state:
         return out
     k = cfg.conv_kernel
-    state = _final_ssd_state(xh, a, bmat, nh // g)
     conv = {"x": x_raw[:, -(k - 1):], "b": b_raw[:, -(k - 1):], "c": c_raw[:, -(k - 1):]}
     return out, {"ssm": state, "conv": conv}
 

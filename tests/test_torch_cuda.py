@@ -74,6 +74,29 @@ def test_blocks_kernel_edge_cases(dev):
                        torch.zeros(24, device=dev))
 
 
+@pytest.mark.parametrize("bj,offset", [(30, 0), (384, 1)])
+def test_blocks_kernel_copies_unaligned_rows(dev, bj, offset):
+    """Row segments that are not 16-byte aligned (a width not a multiple of
+    4 floats, or tiles starting one float into their storage) are copied 4
+    bytes a column; the sums equal the plain version's and, tile by tile in
+    source order, the dense kernel's bit for bit."""
+    from repro_torch.kernels import spike_accum as k
+    from repro_torch.kernels.ref import spike_accum_blocks_ref
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    n_dev, n_blocks, b = 2, 3, 200
+    sb = _spikes(0.2, (n_dev, n_blocks, b), gen, dev)
+    src = torch.arange(n_blocks, dtype=torch.int32, device=dev).repeat(n_dev, 1)
+    store = torch.randn(n_dev * n_blocks * b * bj + offset, generator=gen, device=dev)
+    blk = store[offset:].view(n_dev, n_blocks, b, bj)
+    assert (blk.data_ptr() % 16 != 0) == bool(offset)
+    out = k.spike_accum_blocks(sb, src, blk)
+    torch.testing.assert_close(out, spike_accum_blocks_ref(sb, src, blk), **TOL)
+    for d in range(n_dev):
+        dense = k.spike_accum(sb[d].reshape(-1), blk[d].reshape(n_blocks * b, bj))
+        assert torch.equal(out[d], dense)
+
+
 @pytest.mark.parametrize("kind", [0.0, 0.01, 0.3, "weighted"])
 @pytest.mark.parametrize("m,n", [(4096, 512), (1000, 200)])
 def test_dense_kernel_matches_plain(dev, kind, m, n):
@@ -106,6 +129,34 @@ def test_kernels_agree_bit_for_bit(dev):
                                       src, blk)
     dense_out = k.spike_accum(s, torch.from_numpy(syn.to_dense()).to(dev))
     assert torch.equal(blocks_out.reshape(-1), dense_out)
+
+
+@pytest.mark.parametrize("case", ["one_active_block", "weighted", "all_fire"])
+def test_kernels_agree_bit_for_bit_at_full_tiles(dev, case):
+    """chip_smoke.py phase 2's spike patterns on its 4,096-row tiles (two
+    ranks of 8 tiles, each rank's tiles in source order): the block kernel
+    equals the dense kernel on the rank's [32,768, 4,096] synapses bit for
+    bit."""
+    from repro_torch.kernels import spike_accum as k
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n_dev, n_blocks, b = 2, 8, 4096
+    blocks = torch.randn((n_dev, n_blocks, b, b), generator=gen, device=dev)
+    blocks[:, :, :, ::7] = 0.0  # zero weights are skipped by both
+    src = torch.arange(n_blocks, dtype=torch.int32, device=dev).repeat(n_dev, 1)
+    shape = (n_dev, n_blocks, b)
+    if case == "one_active_block":
+        s = torch.zeros(shape, device=dev)
+        s[0, 3] = 1.0
+    elif case == "weighted":
+        u = torch.rand(shape, generator=gen, device=dev)
+        s = u * (torch.rand(shape, generator=gen, device=dev) < 0.05)
+    else:
+        s = torch.ones(shape, device=dev)
+    out = k.spike_accum_blocks(s, src, blocks)
+    for d in range(n_dev):
+        dense = k.spike_accum(s[d].reshape(-1), blocks[d].reshape(n_blocks * b, b))
+        assert torch.equal(out[d], dense)
 
 
 @pytest.mark.parametrize("exchange", ["sparse", "ragged"])
@@ -336,6 +387,88 @@ def test_ssd_scan_matches_plain(dev, bs, s, h, g, p, n, chunk):
     torch.testing.assert_close(out.double(), ssd_chunked(x64, a64, b64, c64, chunk=chunk),
                                **SCAN_TOL)
     torch.testing.assert_close(out.double(), ssd_ref(x64, a64, b64, c64), **SCAN_TOL)
+
+
+# chip_smoke.py's SSD_CASES: the reference's sweep, chunks of 127 and 96,
+# mamba2-1.3b's prefill wave
+SSD_CASES = [(2, 256, 4, 2, 32, 16, 64), (1, 128, 2, 1, 16, 8, 128), (1, 512, 8, 2, 64, 32, 128),
+             (1, 127, 64, 1, 64, 128, 128), (2, 384, 8, 2, 32, 16, 96),
+             (4, 1024, 64, 1, 64, 128, 128)]
+
+
+@pytest.mark.parametrize("bs,s,h,g,p,n,chunk", SSD_CASES)
+def test_ssd_scan_final_state_matches_plain(dev, bs, s, h, g, p, n, chunk):
+    """The kernel's final state against the plain chunked SSD's carried
+    state in float64; asking for it leaves y bit for bit as it was, and
+    reruns agree bit for bit."""
+    from repro_torch.kernels import scan as k
+    from repro_torch.kernels.ref import ssd_chunked
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((bs, s, h, p), generator=gen, device=dev)
+    a = 0.85 + 0.149 * torch.rand((bs, s, h), generator=gen, device=dev)
+    b, c = (torch.randn((bs, s, g, n), generator=gen, device=dev) for _ in "bc")
+    y, state = k.ssd_scan(x, a, b, c, chunk=chunk, return_state=True)
+    y2, state2 = k.ssd_scan(x, a, b, c, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert state.shape == (bs, h, n, p) and state.dtype == torch.float32
+    assert torch.equal(state, state2) and torch.equal(y, y2)
+    assert torch.equal(y, k.ssd_scan(x, a, b, c, chunk=chunk))
+    y64, want = ssd_chunked(*(t.double() for t in (x, a, b, c)), chunk=chunk, return_state=True)
+    torch.testing.assert_close(state.double(), want, **SCAN_TOL)
+    torch.testing.assert_close(y.double(), y64, **SCAN_TOL)
+
+
+@pytest.mark.parametrize("which", ["x", "b", "c"])
+def test_ssd_scan_rejects_unaligned_inputs(dev, which):
+    """x, B and C are copied 16 bytes at a time: an input starting one float
+    into its storage raises before launch, and the card stays usable (the
+    same values, aligned, match the plain version)."""
+    from repro_torch.kernels import scan as k
+    from repro_torch.kernels.ref import ssd_ref
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    shapes = {"x": (1, 64, 2, 16), "b": (1, 64, 1, 32), "c": (1, 64, 1, 32)}
+    ins = {key: 0.3 * torch.randn(shape, generator=gen, device=dev)
+           for key, shape in shapes.items()}
+    a = 0.8 + 0.19 * torch.rand((1, 64, 2), generator=gen, device=dev)
+    store = torch.empty(ins[which].numel() + 1, device=dev)
+    shifted = store[1:].view(shapes[which])
+    shifted.copy_(ins[which])
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        k.ssd_scan(**{**ins, which: shifted}, a=a, chunk=32)
+    y = k.ssd_scan(**ins, a=a, chunk=32)
+    want = ssd_ref(*(t.double() for t in (ins["x"], a, ins["b"], ins["c"])))
+    torch.testing.assert_close(y.double(), want, **SCAN_TOL)
+
+
+def test_ssd_scan_rejects_state_sizes(dev):
+    """The tensor-core design takes N a multiple of 8 up to 128 and raises
+    before launch otherwise."""
+    from repro_torch.kernels import scan as k
+
+    x = torch.zeros((1, 64, 2, 16), device=dev)
+    a = torch.full((1, 64, 2), 0.9, device=dev)
+    for n in (12, 136):
+        b = torch.zeros((1, 64, 1, n), device=dev)
+        with pytest.raises(ValueError, match="state size"):
+            k.ssd_scan(x, a, b, b)
+
+
+def test_launch_geometry_matches_the_sources(dev):
+    """The wrappers' shared-memory counts equal the CUDA sources' own."""
+    from repro_torch.kernels import scan, spike_accum
+
+    lib = scan._lib()
+    for p in scan.SSD_HEAD_DIMS:
+        smem = scan.ssd_plan(1, 128, 2, 1, p, 128, 128)["smem"]
+        assert [lib.ssd_scan_smem_bytes(w, p) for w in range(3)] == \
+            [smem["cb"], smem["state"], smem["scan"]]
+    lib = spike_accum._lib()
+    for n_dev, k_tiles, bj in ((8, 8, 4096), (1, 3, 24), (4, 64, 384)):
+        plan = spike_accum.blocks_plan(n_dev, k_tiles, bj)
+        assert lib.spike_accum_blocks_smem_bytes(k_tiles) == plan["smem"]
 
 
 @pytest.mark.parametrize("bs,s,d", [(2, 256, 128), (1, 128, 256), (3, 512, 64), (2, 37, 100)])

@@ -90,6 +90,38 @@ def test_ssd_chunk_rule():
         _ssd_chunked_jnp(*map(jnp.asarray, (b.numpy() for b in bad)), chunk=128)
 
 
+# the sweeps, then chunks that are not powers of two: 127 = min(128, S) at
+# S = 127, and 96
+STATE_CASES = SSD_CASES + [(1, 127, 4, 1, 64, 32, 128), (2, 288, 4, 2, 32, 16, 96)]
+
+
+def _closed_form_state(xh: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor, rep: int):
+    """h_S = Σ_s (Π_{u>s} a_u) b_s ⊗ x_s over the whole sequence: the
+    reference's closed form, in PyTorch (one float32 cumsum)."""
+    cum = torch.cumsum(torch.log(a.float()), dim=1)  # [B, S, H]
+    decay_to_end = torch.exp(cum[:, -1:] - cum)
+    bb = bmat.float().repeat_interleave(rep, dim=2) * decay_to_end[..., None]  # [B,S,H,N]
+    return torch.einsum("bshn,bshp->bhnp", bb, xh.float())
+
+
+@pytest.mark.parametrize("bs,s,h,g,p,n,chunk", STATE_CASES)
+def test_ssd_final_state_matches_closed_form(bs, s, h, g, p, n, chunk):
+    """The state ``ssd_chunked`` carries out of its last chunk equals the
+    reference's closed form ``repro.models.layers._final_ssd_state`` (JAX)
+    and a PyTorch copy of it, and asking for it leaves y as it was."""
+    arrs = _ssd_inputs(s + n, bs, s, h, g, p, n)
+    x, a, b, c = _t(*arrs)
+    y, state = ssd_chunked(x, a, b, c, chunk=chunk, return_state=True)
+    assert state.dtype == torch.float32 and state.shape == (bs, h, n, p)
+    torch.testing.assert_close(y, ssd_chunked(x, a, b, c, chunk=chunk), rtol=0, atol=0)
+    want = JL._final_ssd_state(*(jnp.asarray(v) for v in (arrs[0], arrs[1], arrs[2])), h // g)
+    np.testing.assert_allclose(state.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(state.numpy(), _closed_form_state(x, a, b, h // g).numpy(), **TOL)
+    got_y, got = ops.ssd(x, a, b, c, chunk=chunk, return_state=True)  # the CPU dispatch
+    torch.testing.assert_close(got, state, rtol=0, atol=0)
+    torch.testing.assert_close(got_y, y, rtol=0, atol=0)
+
+
 def test_ssd_float64_plain_versions_agree():
     """Given float64 inputs the plain versions compute in float64 (the
     yardstick on the card): chunked and direct recurrence agree to 1e-10."""
