@@ -13,9 +13,11 @@ line; any failed check raises, so the script exits nonzero.
    all started together); TF32 off.
 2. Kernels: each hand-written kernel against its plain PyTorch version
    at the main paths' shapes, two runs bit-identical.  Spike accumulation
-   (firing 0 %, 1 %, one fully active block, every row, weighted spikes)
-   against the plain versions on float64 copies with ``rtol=1e-5,
-   atol=1e-4`` (the kernels sum in another order than the einsum).
+   (firing 0 %, 1 %, one fully active block, every row, weighted spikes;
+   ``spike_accum`` also at the single-device oracle's W f32[32768, 32768]
+   at 2 % firing) against the plain versions on float64 copies with
+   ``rtol=1e-5, atol=1e-4`` (the kernels sum in another order than the
+   einsum).
    Attention on transposed views as the model passes them, float32 and
    bfloat16 at the reference's tolerances: the reference's sweep (MQA,
    bidirectional, window 96, 384 tokens, ragged ``seq_lens``),
@@ -42,7 +44,9 @@ line; any failed check raises, so the script exits nonzero.
    (identical rasters, executed bytes == ``exchange_volume``).  Every
    step's synaptic current equals the dense ``s @ W`` in float64; the
    raster equals the single-device engine's with the ``spike_accum``
-   kernel as its current hook; a lost ragged payload changes the raster.
+   kernel as its current hook, whose device time per step under the
+   raster's own spikes is profiled in a second, uncounted run; a lost
+   ragged payload changes the raster.
 5. Serving (``repro_torch.serve``) of phi4-mini-3.8b (attention: prefill
    runs ``flash_attention``, decode ``decode_attention``), mamba2-1.3b (48
    ssm layers: prefill runs ``ssd_scan``, decode plain recurrence steps)
@@ -66,8 +70,9 @@ line; any failed check raises, so the script exits nonzero.
    launches and device busy share of decode steps, peak memory; (c) the
    serving launcher ``python -m repro_torch.launch.serve`` at its
    defaults.
-6. A ``kernels`` line (all six kernels; K3 and K4 at phi4-mini-3.8b's and
-   at recurrentgemma-9b's shapes), the card's name and power limit, and the
+6. A ``kernels`` line (all six kernels; K2 at 1 % firing on W f32[32768,
+   4096] and at the oracle's shape, K3 and K4 at phi4-mini-3.8b's and at
+   recurrentgemma-9b's shapes), the card's name and power limit, and the
    last line, ``{"ok": true, "device": {...}}``.
 
 Each main path (phases 3-4, and each model of phase 5) runs with the
@@ -218,7 +223,10 @@ def _bound(nbytes: float, flops: float, rate: float, peak: float = F32_PEAK) -> 
 
 
 def phase_kernels(dev, rate: float) -> dict:
-    """K1 / K2 against their plain versions at the main path's shapes."""
+    """K1 / K2 against their plain versions at the main path's shapes: K1
+    on 8 ranks of 8 tiles of 4,096 x 4,096, K2 on one rank's W f32[32768,
+    4096] and, as ``oracle_2pct``, on the single-device oracle's W
+    f32[32768, 32768] (the same storage viewed whole) at 2 % firing."""
     import torch
 
     from repro_torch.kernels import spike_accum as k
@@ -233,12 +241,14 @@ def phase_kernels(dev, rate: float) -> dict:
     blocks.mul_(1.0 - 2.0 * inhib.float())
     src = torch.arange(n_blocks, dtype=torch.int32, device=dev).repeat(n_dev, 1)
     w2 = blocks[0].reshape(n_blocks * b, b)  # K2: W f32[32768, 4096]
+    w_oracle = blocks.view(n_blocks * b, n_dev * b)  # K2: W f32[32768, 32768]
     rank = torch.arange(n_dev, device=dev)[:, None]
     # the plain versions on float64 copies are the yardstick of correctness:
     # at 32,768 fired rows a float32 sum in any order drifts by about
     # sqrt(n) roundings, near the tolerance itself
     blocks64 = blocks.double()
     w2_64 = blocks64[0].reshape(n_blocks * b, b)
+    w_oracle64 = blocks64.view(n_blocks * b, n_dev * b)
 
     def spikes(case: str, shape) -> torch.Tensor:
         u = torch.rand(shape, generator=gen, device=dev)
@@ -246,6 +256,8 @@ def phase_kernels(dev, rate: float) -> dict:
             return torch.zeros(shape, device=dev)
         if case == "rate_1pct":
             return (u < 0.01).float()
+        if case == "oracle_2pct":  # the real-size network's firing (phase 4)
+            return (u < 0.02).float()
         if case == "all_fire":  # the densest step there can be
             return torch.ones(shape, device=dev)
         if case == "one_active_block":
@@ -255,9 +267,10 @@ def phase_kernels(dev, rate: float) -> dict:
         return u * (torch.rand(shape, generator=gen, device=dev) < 0.05)  # weighted
 
     result = {}
+    common = ("rate_0", "rate_1pct", "one_active_block", "all_fire", "weighted")
     for name in ("spike_accum_blocks", "spike_accum"):
         cases, worst = {}, 0.0
-        for case in ("rate_0", "rate_1pct", "one_active_block", "all_fire", "weighted"):
+        for case in common + (("oracle_2pct",) if name == "spike_accum" else ()):
             if name == "spike_accum_blocks":
                 s = spikes(case, (n_dev, n_blocks, b))
                 kern = lambda: k.spike_accum_blocks(s, src, blocks)  # noqa: E731
@@ -269,14 +282,16 @@ def phase_kernels(dev, rate: float) -> dict:
                 nbytes = fired * b * 4 + s.numel() * 4 + src.numel() * 4 + n_dev * b * 4
                 flops = 2 * fired * b
             else:
+                w, w64 = (w_oracle, w_oracle64) if case == "oracle_2pct" else (w2, w2_64)
                 s = spikes(case, (n_blocks * b,))
-                kern = lambda: k.spike_accum(s, w2)  # noqa: E731
-                plain = lambda: spike_accum_ref(s, w2)  # noqa: E731
-                lib = lambda: torch.mv(w2.t(), s)  # noqa: E731
-                exact = spike_accum_ref(s.double(), w2_64)
+                kern = lambda: k.spike_accum(s, w)  # noqa: E731
+                plain = lambda: spike_accum_ref(s, w)  # noqa: E731
+                lib = lambda: torch.mv(w.t(), s)  # noqa: E731
+                exact = spike_accum_ref(s.double(), w64)
                 fired = float((s != 0).sum())
-                nbytes = fired * b * 4 + s.numel() * 4 + b * 4
-                flops = 2 * fired * b
+                n_cols = w.shape[1]
+                nbytes = fired * n_cols * 4 + s.numel() * 4 + n_cols * 4
+                flops = 2 * fired * n_cols
             out, again, want = kern(), kern(), plain()
             torch.cuda.synchronize()
             check(torch.equal(out, again), f"{name}/{case}: reruns differ")
@@ -287,12 +302,12 @@ def phase_kernels(dev, rate: float) -> dict:
             cases[case] = {
                 "fired_rows": fired, "max_abs_err": err, "bit_identical_rerun": True,
                 "max_abs_diff_vs_plain_f32": float((out - want).abs().max()),
-                **timings(kern, plain, lib, case == "rate_1pct", device=True),
+                **timings(kern, plain, lib, case in ("rate_1pct", "oracle_2pct"), device=True),
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
             worst = max(worst, err)
         result[name] = {"cases": cases, "max_abs_err": worst}
-    del blocks, w2, blocks64, w2_64
+    del blocks, w2, w_oracle, blocks64, w2_64, w_oracle64
     torch.cuda.empty_cache()
     return result
 
@@ -624,10 +639,12 @@ def phase_launcher(device: str, argv: list[str] | None = None) -> dict:
 # -- phase 4 ---------------------------------------------------------------
 
 
-def _device_profile(run, steps: int) -> dict:
+def _device_profile(run, steps: int, match: tuple[str, ...] = ()) -> dict:
     """Where ``run(steps)``'s time goes: device time by kernel under
     ``torch.profiler`` and the device's busy share of the run's wall time
-    (the profiler's own cost is inside that wall time)."""
+    (the profiler's own cost is inside that wall time).  With ``match``,
+    also the device time and calls of every kernel whose name contains one
+    of its strings."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -649,10 +666,15 @@ def _device_profile(run, steps: int) -> dict:
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                   key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in rows) / 1e6
-    return {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
-            "kernels": [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3,
-                         "calls": e.count} for e in rows[:8]],
-            "kernel_launches": sum(e.count for e in rows)}
+    out = {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+           "kernels": [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3,
+                        "calls": e.count} for e in rows[:8]],
+           "kernel_launches": sum(e.count for e in rows)}
+    if match:
+        hit = [e for e in rows if any(s in e.key for s in match)]
+        out["matched"] = {"device_ms": sum(dev_us(e) for e in hit) / 1e3,
+                          "calls": sum(e.count for e in hit)}
+    return out
 
 
 
@@ -777,6 +799,21 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
     check(LAUNCHES["spike_accum"] - before == per_run, "oracle did not run the kernel")
     check(torch.equal(oracle, raster), "distributed != single-device oracle")
     out["oracle"] = {"ms_per_step": oracle_s / steps * 1e3, "equal": True}
+    if dev.type == "cuda":
+        # the spike_accum kernel's device time per step (one call a step)
+        # under the raster's own spikes: its two CUDA kernels, compaction
+        # and ring, averaged over the calls the profiler saw
+        from repro_torch.kernels.spike_accum import dense_plan
+        with uncounted():
+            eng = SNNEngine(w_syn=w, params=params, i_ext=drive, device=dev)
+            prof = _device_profile(lambda n: eng.run(n, current_fn=spike_currents), steps,
+                                   match=("compact_tiles_kernel", "spike_accum_ring_kernel"))
+        k2 = prof.pop("matched")
+        calls = k2["calls"] / 2  # the profiler may miss a launch of the window
+        out["oracle"].update(profile=prof, plan=dense_plan(m, m), spike_accum_calls_seen=calls,
+                             spike_accum_device_ms_per_step=k2["device_ms"] / calls if calls
+                             else None,
+                             fired_rows_per_step=float(raster.sum(1).mean()))
     if dev.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     del w, tiles
@@ -1133,10 +1170,13 @@ def main() -> int:
     # just after, and must have launched each of its kernels
     launches = dict.fromkeys(LAUNCHES, 0)
 
+    results = {}
+
     def path(kernels, *phases):
         reset_launches()
         for phase, fn in phases:
-            emit({"phase": phase, **fn()})
+            results[phase] = fn()
+            emit({"phase": phase, **results[phase]})
         got = dict(LAUNCHES)
         for kname in kernels:
             check(got[kname] > 0, f"{phases[0][0]}: main path never launched {kname}")
@@ -1157,6 +1197,7 @@ def main() -> int:
     for kname, source, replaces, case in (
         ("spike_accum_blocks", "spike_accum.cu", "spike_accum.py:133", "rate_1pct"),
         ("spike_accum", "spike_accum.cu", "spike_accum.py:62", "rate_1pct"),
+        ("spike_accum", "spike_accum.cu", "spike_accum.py:62", "oracle_2pct"),
         ("flash_attention", "attention.cu", "flash_attention.py:116", "phi4_prefill/bfloat16"),
         ("flash_attention", "attention.cu", "flash_attention.py:116", "rg_prefill/bfloat16"),
         ("decode_attention", "attention.cu", "decode_attention.py:94", "phi4_decode/bfloat16"),
@@ -1167,13 +1208,17 @@ def main() -> int:
     ):
         table = kern[kname]
         c = table["cases"][case] if "cases" in table else table[case]
+        if case == "oracle_2pct":  # the device time it took on the main path
+            c = {**c, "main_path_device_ms":
+                 results["real_size"]["oracle"]["spike_accum_device_ms_per_step"]}
         rows.append({"name": kname, "route": "cuda", "source": csrc + source,
                      "replaces": "src/repro/kernels/" + replaces, "launches": launches[kname],
                      "max_abs_err": table["max_abs_err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                      "device_ms": c["device_ms"], "case": case,
-                     **{key: c[key] for key in ("bound_ms_bytes",) if key in c}})
+                     **{key: c[key] for key in ("bound_ms_bytes", "main_path_device_ms")
+                        if key in c}})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

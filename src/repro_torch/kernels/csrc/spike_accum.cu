@@ -1,7 +1,7 @@
 // Spike -> current accumulation for Hopper (sm_90a): the brain
 // simulation's synaptic-integration hot spot.
 //
-// Two functions:
+// Two functions, one design:
 //
 //   spike_accum_blocks  I[d, j] = sum_k s_blocks[d, src_ids[d, k], :] @ blocks[d, k, :, j]
 //     Replaces the Pallas kernel repro/kernels/spike_accum.py:spike_accum_blocks
@@ -11,19 +11,25 @@
 //
 //   spike_accum         I[j] = sum_i s[i] * W[i, j]
 //     Replaces repro/kernels/spike_accum.py:spike_accum (:62, body _kernel
-//     :36): the single-device engine's current hook.
+//     :36): the single-device engine's current hook.  It is spike_accum_blocks
+//     with one rank and no copy: a contiguous W f32[M, N] is already the
+//     tile stack blocks[1, K, b, N] of K = ceil(M / b) row slabs (the last
+//     one may be short), s their spike slabs, and tile k's source slab k.
 //
 // Bound on the card.  Both are memory-bound gathers: per fired row the card
 // must read one weight row of Bj (or N) floats and does 2 flops per float
-// (5 with the compensation below), far below the ~20 flop/byte float32 ridge of an H100.  The least time is
-// (fired rows x row bytes + spike and index bytes + output bytes) divided by
-// the memory rate (3.35 TB/s on an H100 SXM).
+// (5 with the compensation below), far below the ~20 flop/byte float32
+// ridge of an H100.  The least time is (fired rows x row bytes + spike and
+// index bytes + output bytes) divided by the memory rate (3.35 TB/s on an
+// H100 SXM).  Where few rows fire (1 % of 32,768 rows against 4,096
+// columns: 5.4 MB, 1.6 us) the floor is latency instead: the compaction
+// below, then each column's chain of dependent sums over the fired rows.
 //
-// The TPU kernel is a block-masked dense matmul: it reads every K*B*Bj
-// weight of a tile whose spike block has any spike, because the TPU has no
-// cheap scatter.  Here only the weight rows whose spike fired are read.
+// The TPU kernel is a block-masked dense matmul: it reads every weight of
+// a tile whose spike block has a positive spike, because the TPU has no
+// cheap scatter.  Here only the weight rows whose spike is nonzero are read.
 //
-// spike_accum_blocks, two launches:
+// Two launches per call:
 //   compact_tiles_kernel  (tile k, rank d): the nonzero spikes of tile k's
 //     source block, in ascending row order, as (row, value) lists and a
 //     count, written once per call (warp ballots and a prefix sum); a
@@ -32,22 +38,27 @@
 //     output column: the block joins the rank's lists into one stream of
 //     fired rows in (k, row) order (2,048 at a time in shared memory) and
 //     streams each fired row's segment of 128 columns through a ring of 3
-//     stages of 64 rows, filled by 16-byte cp.async copies (2 stages,
-//     64 KB, in flight while the threads sum the oldest from shared
-//     memory; kernels/spike_accum.py: blocks_plan gives the geometry).
-// spike_accum, one launch: one block per 256 columns compacts the spike
-// vector 4,096 rows at a time and each thread loads its column of the
-// fired rows kBatch at a time (not redesigned yet).
+//     stages of 64 rows, filled by 16-byte cp.async copies (2 stages, 64 KB,
+//     in flight while the threads sum the oldest from shared memory;
+//     kernels/spike_accum.py: blocks_plan and dense_plan give the geometry).
+//     One tile width serves both functions.  At spike_accum's N = 4,096 the
+//     sums are bound by each column's chain over the fired rows, not by the
+//     blocks in flight, and a fired row costs the least with 4 warps a
+//     block: 32- and 64-column tiles, which give every SM a block, and
+//     256-column ones were slower at every firing rate, and at N = 32,768
+//     none was faster (development runs on an H100).
 //
 // Both sum each column in ascending (k, row) order with compensated
 // (Kahan) summation and no atomics: the result is the same bit for bit
 // from run to run, and its error stays near one rounding even when all
 // 32,768 rows of a network fire at once (a plain float32 sum drifts by
-// about sqrt(n) roundings there).  For the sparse engine, whose tiles of
-// one destination are sorted by source, the order is ascending global row
-// order, the order spike_accum uses; both skip zero weights, so the two
-// agree bit for bit on the same synapses.  Spikes are multiplied by their
-// value (weighted spikes allowed); zero padding tiles change nothing.
+// about sqrt(n) roundings there).  A column is one thread's chain, so the
+// rows are never split across blocks.  For the sparse engine, whose tiles
+// of one destination are sorted by source, the order is ascending global
+// row order, the order spike_accum uses; both skip zero weights, so the
+// two agree bit for bit on the same synapses.  Spikes are multiplied by
+// their value (weighted spikes allowed, of either sign); zero padding
+// tiles change nothing.
 //
 // Interface: plain C, pointers as void*, launched on the caller's stream;
 // each launcher returns the first nonzero cudaGetLastError() of its
@@ -65,14 +76,10 @@ using hopper::cp_async_4;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
 
-// Threads per block of spike_accum (= output columns per block) and of the
-// compaction kernel.  256 was fastest for spike_accum at every firing rate
-// from 0 to 100 % on an H100 (32-256 tried): more warps compact a spike
-// chunk sooner.
+// Threads per block of the compaction kernel: more warps compact a spike
+// block sooner.
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 4096;             // spike rows spike_accum compacts at once
-constexpr int kBatch = 16;               // weight rows loaded at once
 
 // Compacts the nonzero entries of s[0, rows) into (idx, val), shared or
 // global memory with room for them, in ascending row order and returns
@@ -90,7 +97,8 @@ __device__ __forceinline__ int compact_fired(const float* __restrict__ s,
   const int lo = warp * seg;
   const int hi = lo + seg;  // the same bound for every lane of the warp
   int count = 0;
-#pragma unroll 8
+  // a 4,096-row block: every load of the count pass in flight at once
+#pragma unroll 16
   for (int i = lo + lane; i < hi; i += 32) {
     const float v = (i < rows) ? __ldg(s + i) : 0.0f;
     count += __popc(__ballot_sync(0xffffffffu, v != 0.0f));
@@ -135,61 +143,26 @@ __device__ __forceinline__ void kahan_add(float& acc, float& comp, float s,
   comp = live ? c : comp;
 }
 
-// (acc, comp) += sum over the fired rows i of s[i] * w[i * ld], rows
-// ascending, for one spike vector s[0, rows) against a weight tile whose
-// column of this thread starts at w.  Compensated (Kahan) summation: comp
-// carries the low-order bits lost so far, so the error does not grow with
-// the number of fired rows.  A zero weight is skipped, so absent rows and
-// zero padding tiles leave (acc, comp) exactly as they were.  All threads
-// of the block must call it.
-__device__ __forceinline__ void accumulate_tile(
-    float& acc, float& comp, const float* __restrict__ s,
-    const float* __restrict__ w, int rows, size_t ld, bool active,
-    int* sh_idx, float* sh_val, int* sh_warp) {
-  for (int base = 0; base < rows; base += kChunk) {
-    const int n = min(kChunk, rows - base);
-    const int n_fired = compact_fired(s + base, n, sh_idx, sh_val, sh_warp);
-    if (active && n_fired > 0) {
-      const float* wb = w + static_cast<size_t>(base) * ld;
-      int f = 0;
-      // kBatch weight loads in flight before the dependent update chain
-      for (; f + kBatch <= n_fired; f += kBatch) {
-        float wv[kBatch];
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          wv[u] = __ldg(wb + static_cast<size_t>(sh_idx[f + u]) * ld);
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          kahan_add(acc, comp, sh_val[f + u], wv[u]);
-        }
-      }
-      for (; f < n_fired; ++f) {
-        kahan_add(acc, comp, sh_val[f],
-                  __ldg(wb + static_cast<size_t>(sh_idx[f]) * ld));
-      }
-    }
-    if (n_fired > 0) __syncthreads();  // the list is rewritten by the next chunk
-  }
-}
-
 // grid (k_tiles, n_dev); block kThreads.  The nonzero spikes of tile k's
 // source block s_blocks[d, src_ids[d, k]] as (fired_row, fired_val)[d, k, :]
 // in ascending row order, their count in fired_n[d, k] (0 for a source
-// outside [0, n_blocks)).
+// outside [0, n_blocks)).  src_ids null: tile k's source is block k.  Every
+// block holds b spikes but the last, which holds last_rows <= b.
 __global__ void __launch_bounds__(kThreads)
     compact_tiles_kernel(const float* __restrict__ s_blocks, const int* __restrict__ src_ids,
                          int* __restrict__ fired_row, float* __restrict__ fired_val,
-                         int* __restrict__ fired_n, int n_blocks, int b, int k_tiles) {
+                         int* __restrict__ fired_n, int n_blocks, int b, int last_rows,
+                         int k_tiles) {
   __shared__ int sh_warp[kWarps];
   const size_t slot = static_cast<size_t>(blockIdx.y) * k_tiles + blockIdx.x;
-  const int src = src_ids[slot];
+  const int src = src_ids ? src_ids[slot] : static_cast<int>(blockIdx.x);
   if (src < 0 || src >= n_blocks) {  // uniform across the block
     if (threadIdx.x == 0) fired_n[slot] = 0;
     return;
   }
   const float* s = s_blocks + (static_cast<size_t>(blockIdx.y) * n_blocks + src) * b;
-  const int total = compact_fired(s, b, fired_row + slot * b, fired_val + slot * b, sh_warp);
+  const int rows = src == n_blocks - 1 ? last_rows : b;
+  const int total = compact_fired(s, rows, fired_row + slot * b, fired_val + slot * b, sh_warp);
   if (threadIdx.x == 0) fired_n[slot] = total;
 }
 
@@ -199,8 +172,9 @@ constexpr int kRingRows = 64;   // fired rows per stage of the ring
 constexpr int kListCap = 2048;  // fired rows listed in shared memory at once
 
 // Shared memory of spike_accum_ring_kernel, the one owner of this size
-// (the wrapper reads it through spike_accum_blocks_smem_bytes; its plan,
-// kernels/spike_accum.py: blocks_plan, predicts it for the CPU tests).
+// (the wrappers read it through spike_accum_ring_smem_bytes; their plans,
+// kernels/spike_accum.py: blocks_plan and dense_plan, predict it for the
+// CPU tests).
 constexpr long long ring_smem_bytes(int k_tiles) {
   return 4LL * kRingStages * kRingRows * kColTile + 8LL * kListCap + 4LL * (k_tiles + 1);
 }
@@ -349,27 +323,23 @@ int launch_ring_as(const int* fired_row, const float* fired_val, const int* fire
   return static_cast<int>(cudaGetLastError());
 }
 
-// grid (ceil(N / kThreads)); block (kThreads).
-__global__ void spike_accum_kernel(const float* __restrict__ s,
-                                   const float* __restrict__ w,
-                                   float* __restrict__ out, int m, int n) {
-  __shared__ int sh_idx[kChunk];
-  __shared__ float sh_val[kChunk];
-  __shared__ int sh_warp[kWarps];
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = col < n;
-  float acc = 0.0f;
-  float comp = 0.0f;
-  accumulate_tile(acc, comp, s, w + (active ? col : 0), m, n, active, sh_idx,
-                  sh_val, sh_warp);
-  if (active) out[col] = acc;
+// The compaction of every (rank, tile), then the ring.
+int launch(const float* s_blocks, const int* src_ids, const float* blocks, float* out,
+           int* rows, float* vals, int* counts, int n_dev, int n_blocks, int b, int last_rows,
+           int k_tiles, int bj, bool vec, cudaStream_t st) {
+  compact_tiles_kernel<<<dim3(k_tiles, n_dev), kThreads, 0, st>>>(
+      s_blocks, src_ids, rows, vals, counts, n_blocks, b, last_rows, k_tiles);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  return vec ? launch_ring_as<true>(rows, vals, counts, blocks, out, n_dev, b, k_tiles, bj, st)
+             : launch_ring_as<false>(rows, vals, counts, blocks, out, n_dev, b, k_tiles, bj, st);
 }
 
 }  // namespace
 
-// Shared memory bytes of the ring kernel at k_tiles tiles (the wrapper
-// raises before launch where they exceed what a block may hold).
-extern "C" long long spike_accum_blocks_smem_bytes(int k_tiles) {
+// Shared memory bytes of the ring kernel at k_tiles tiles (the wrappers
+// raise before launch where they exceed what a block may hold).
+extern "C" long long spike_accum_ring_smem_bytes(int k_tiles) {
   return ring_smem_bytes(k_tiles);
 }
 
@@ -386,29 +356,27 @@ extern "C" int spike_accum_blocks_launch(const void* s_blocks, const void* src_i
   if (n_dev <= 0 || bj <= 0 || b < 0 || k_tiles <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* rows = static_cast<int*>(fired_row);
-  float* vals = static_cast<float*>(fired_val);
-  int* counts = static_cast<int*>(fired_n);
-  compact_tiles_kernel<<<dim3(k_tiles, n_dev), kThreads, 0, st>>>(
-      static_cast<const float*>(s_blocks), static_cast<const int*>(src_ids), rows, vals, counts,
-      n_blocks, b, k_tiles);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  const float* blk = static_cast<const float*>(blocks);
-  float* o = static_cast<float*>(out);
-  return vec ? launch_ring_as<true>(rows, vals, counts, blk, o, n_dev, b, k_tiles, bj, st)
-             : launch_ring_as<false>(rows, vals, counts, blk, o, n_dev, b, k_tiles, bj, st);
+  return launch(static_cast<const float*>(s_blocks), static_cast<const int*>(src_ids),
+                static_cast<const float*>(blocks), static_cast<float*>(out),
+                static_cast<int*>(fired_row), static_cast<float*>(fired_val),
+                static_cast<int*>(fired_n), n_dev, n_blocks, b, b, k_tiles, bj, vec != 0,
+                static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int spike_accum_launch(const void* s, const void* w, void* out,
-                                  int m, int n, void* stream) {
-  if (n <= 0) {
+// s f32[m], w f32[m, n], out f32[n], all contiguous: W as k_tiles =
+// ceil(m / b) row slabs of b rows (the last one m - (k_tiles - 1) * b),
+// one rank; workspaces fired_row i32[m], fired_val f32[m], fired_n
+// i32[k_tiles].  vec: n % 4 == 0 and w 16-byte aligned.
+extern "C" int spike_accum_launch(const void* s, const void* w, void* out, void* fired_row,
+                                  void* fired_val, void* fired_n, int m, int n, int b,
+                                  int vec, void* stream) {
+  if (m <= 0 || n <= 0 || b <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((n + kThreads - 1) / kThreads);
-  spike_accum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(s), static_cast<const float*>(w),
-      static_cast<float*>(out), m, n);
-  return static_cast<int>(cudaGetLastError());
+  const int k_tiles = (m + b - 1) / b;
+  return launch(static_cast<const float*>(s), nullptr, static_cast<const float*>(w),
+                static_cast<float*>(out), static_cast<int*>(fired_row),
+                static_cast<float*>(fired_val), static_cast<int*>(fired_n), 1, k_tiles, b,
+                m - (k_tiles - 1) * b, k_tiles, n, vec != 0,
+                static_cast<cudaStream_t>(stream));
 }

@@ -12,16 +12,17 @@ weight rows whose spike fired (plus spikes, indices and output) over the
 card's memory rate, 3.35 TB/s on an H100 SXM.  The kernels read only those
 rows — the TPU kernel reads every weight of a tile with any spike — with a
 fixed summation order and no atomics (see the source for the design).
-``spike_accum_blocks`` compacts each tile's fired rows once per call, then
-streams their weight segments through a ``cp.async`` ring; :func:`blocks_plan`
-gives its launch geometry.
+Both compact each tile's fired rows once per call, then stream their
+weight segments through a ``cp.async`` ring; ``spike_accum`` does so with
+W viewed, without a copy, as one rank's tiles of :data:`DENSE_SLAB` rows.
+:func:`blocks_plan` and :func:`dense_plan` give the launch geometry.
 
 The wrappers take CUDA tensors only: they check device, dtype, shape and
-contiguity, allocate the output with ``torch.empty``, launch on the
-current stream, raise when the launch reports an error, and count their
-launches in :data:`LAUNCHES` (shared by every kernel of the port).  The
-dispatch between these kernels and their plain versions lives in
-:mod:`repro_torch.kernels.ops`.
+contiguity, allocate the output and one workspace with ``torch.empty``,
+launch on the current stream, raise when the launch reports an error, and
+count their launches in :data:`LAUNCHES` (shared by every kernel of the
+port).  The dispatch between these kernels and their plain versions lives
+in :mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
@@ -33,11 +34,16 @@ from repro_torch.kernels._build import (
     LAUNCHES, SMEM_LIMIT, blocks_per_sm, load_library, raise_on, reset_launches,
 )
 
-__all__ = ["LAUNCHES", "reset_launches", "spike_accum", "spike_accum_blocks", "blocks_plan"]
+__all__ = [
+    "LAUNCHES", "reset_launches", "spike_accum", "spike_accum_blocks", "blocks_plan",
+    "dense_plan",
+]
 
 # csrc/spike_accum.cu's ring kernel: columns per block, stages, fired rows
 # per stage and rows listed in shared memory at once
 COL_TILE, RING_STAGES, RING_ROWS, LIST_CAP = 128, 3, 64, 2048
+#: rows of W per tile when :func:`spike_accum` views it as one rank's tiles
+DENSE_SLAB = 4096
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,9 +56,9 @@ def _lib():
         lib = load_library("spike_accum")
         lib.spike_accum_blocks_launch.argtypes = [_P] * 7 + [_I] * 6 + [_P]
         lib.spike_accum_blocks_launch.restype = _I
-        lib.spike_accum_blocks_smem_bytes.argtypes = [_I]
-        lib.spike_accum_blocks_smem_bytes.restype = ctypes.c_longlong
-        lib.spike_accum_launch.argtypes = [_P, _P, _P, _I, _I, _P]
+        lib.spike_accum_ring_smem_bytes.argtypes = [_I]
+        lib.spike_accum_ring_smem_bytes.restype = ctypes.c_longlong
+        lib.spike_accum_launch.argtypes = [_P] * 6 + [_I] * 4 + [_P]
         lib.spike_accum_launch.restype = _I
         _bound = lib
     return _bound
@@ -86,6 +92,19 @@ def blocks_plan(n_dev: int, k_tiles: int, bj: int) -> dict:
             "grid": (-(-bj // COL_TILE), n_dev),
             "smem": smem, "blocks_per_sm": blocks_per_sm(smem, COL_TILE),
             "bytes_in_flight": 4 * (RING_STAGES - 1) * RING_ROWS * COL_TILE}
+
+
+def dense_plan(m: int, n: int) -> dict:
+    """Launch geometry of :func:`spike_accum` on ``W f32[m, n]``: W viewed
+    as one rank's ``k_tiles = ceil(m / DENSE_SLAB)`` row slabs, the last one
+    ``last_rows`` long, under :func:`blocks_plan`'s kernels (``threads`` is
+    the column tile, 128: one thread per column, whose sum is one chain in
+    row order, so rows are never split across blocks).  The keys of
+    :func:`blocks_plan`, and ``k_tiles`` and ``last_rows``.
+    """
+    k_tiles = -(-m // DENSE_SLAB)
+    return {**blocks_plan(1, k_tiles, n), "k_tiles": k_tiles,
+            "last_rows": m - (k_tiles - 1) * DENSE_SLAB}
 
 
 def spike_accum_blocks(
@@ -123,7 +142,7 @@ def spike_accum_blocks(
     if k == 0:  # no tiles → no currents
         out = torch.zeros((n_dev, bj), dtype=torch.float32, device=dev)
         return out if stacked else out[0]
-    smem = _lib().spike_accum_blocks_smem_bytes(k)
+    smem = _lib().spike_accum_ring_smem_bytes(k)
     if smem > SMEM_LIMIT:
         raise ValueError(f"spike_accum_blocks: {k} tiles need {smem} B of shared memory")
     out = torch.empty((n_dev, bj), dtype=torch.float32, device=dev)
@@ -150,7 +169,8 @@ def spike_accum(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``I = spikes @ W`` on the card, reading only the rows that fired.
 
     ``spikes f32[M]``, ``w f32[M, N]`` → ``f32[N]``.  Spikes may be
-    weighted (any float32 value).
+    weighted (any float32 value).  ``M = 0`` returns zeros and ``N = 0`` an
+    empty vector, both without a launch.
     """
     if w.dim() != 2 or tuple(spikes.shape) != (w.shape[0],):
         raise ValueError(
@@ -160,13 +180,22 @@ def spike_accum(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("spikes and W must be float32")
     dev = _check_cuda("spike_accum", spikes, w)
     m, n = w.shape
+    if m == 0 or n == 0:
+        return torch.zeros((n,), dtype=torch.float32, device=dev)
+    k = dense_plan(m, n)["k_tiles"]
+    smem = _lib().spike_accum_ring_smem_bytes(k)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"spike_accum: {k} row slabs need {smem} B of shared memory")
     out = torch.empty((n,), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
+    # one workspace (one allocation a call): the fired rows' indices [M]
+    # int32, their values [M] float32, the counts per slab [K] int32
+    work = torch.empty(2 * m + k, dtype=torch.int32, device=dev)
+    ws = work.data_ptr()
+    vec = int(n % 4 == 0 and w.data_ptr() % 16 == 0)  # 16-byte row segments
     with torch.cuda.device(dev):
         err = _lib().spike_accum_launch(
-            spikes.data_ptr(), w.data_ptr(), out.data_ptr(), m, n,
-            torch.cuda.current_stream(dev).cuda_stream,
+            spikes.data_ptr(), w.data_ptr(), out.data_ptr(), ws, ws + 4 * m, ws + 8 * m,
+            m, n, DENSE_SLAB, vec, torch.cuda.current_stream(dev).cuda_stream,
         )
     raise_on(err, "spike_accum")
     LAUNCHES["spike_accum"] += 1

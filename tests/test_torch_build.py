@@ -13,7 +13,7 @@ import pytest
 from repro_torch.kernels import _build
 from repro_torch.kernels.attention import decode_splits
 from repro_torch.kernels.scan import SSD_HEAD_DIMS, ssd_plan
-from repro_torch.kernels.spike_accum import blocks_plan
+from repro_torch.kernels.spike_accum import DENSE_SLAB, blocks_plan, dense_plan
 
 SOURCES = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
 
@@ -122,3 +122,31 @@ def test_blocks_plan_counts_the_tile_offsets():
     small, big = blocks_plan(8, 8, 4096), blocks_plan(8, 40_000, 4096)
     assert big["smem"] - small["smem"] == 4 * (40_000 - 8)
     assert big["smem"] > _build.SMEM_LIMIT  # the wrapper raises before launch
+
+
+@pytest.mark.parametrize("n,blocks", [(4096, 32), (32768, 256)])
+def test_dense_plan_at_the_oracle_shapes(n, blocks):
+    """The single-device oracle's shapes (W f32[32768, n]): eight row
+    slabs, K1's 128-column blocks, two an SM, so N = 32,768 runs in one
+    wave and N = 4,096's 32 blocks, each bound by its columns' chains over
+    the fired rows, run at once."""
+    plan = dense_plan(32768, n)
+    assert plan == {**blocks_plan(1, 8, n), "k_tiles": 8, "last_rows": 4096}
+    assert plan["threads"] == 128 and plan["grid"] == (blocks, 1)
+    assert plan["compact_grid"] == (8, 1) and plan["blocks_per_sm"] == 2
+    assert blocks <= plan["blocks_per_sm"] * _build.SMS
+
+
+@pytest.mark.parametrize("m", [1, 1000, 4096, 4097, 5000, 32768, 100_000])
+@pytest.mark.parametrize("n", [1, 30, 200, 4096, 8449, 32768])
+def test_dense_plan_covers_every_row_and_column(m, n):
+    """K = ceil(M / 4,096) row slabs, the last one short where 4,096 does
+    not divide M; one 128-column block per started column tile; the shared
+    memory fits."""
+    plan = dense_plan(m, n)
+    k = plan["k_tiles"]
+    assert k == -(-m // DENSE_SLAB) and plan["compact_grid"] == (k, 1)
+    assert (k - 1) * DENSE_SLAB + plan["last_rows"] == m and 0 < plan["last_rows"] <= DENSE_SLAB
+    tiles = plan["grid"][0]
+    assert tiles * 128 >= n > (tiles - 1) * 128 and plan["grid"][1] == 1
+    assert plan["smem"] <= _build.SMEM_LIMIT and plan["blocks_per_sm"] >= 2

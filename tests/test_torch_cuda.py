@@ -31,6 +31,15 @@ def _spikes(kind, shape, gen, dev):
     u = torch.rand(shape, generator=gen, device=dev)
     if kind == "weighted":
         return u * (torch.rand(shape, generator=gen, device=dev) < 0.1)
+    if kind == "signed":
+        # rows 128-255 fire only negative spikes, rows 384-511 positive ones
+        # (the Pallas kernels skip a block with no positive spike; the port
+        # sums every nonzero spike, as repro/kernels/ref.py does)
+        s = torch.zeros(shape, device=dev)
+        flat, fired = s.view(-1), (u.view(-1) < 0.5).float()
+        flat[128:256] = -fired[128:256]
+        flat[384:512] = fired[384:512]
+        return s
     return (u < kind).float()
 
 
@@ -74,7 +83,7 @@ def test_blocks_kernel_edge_cases(dev):
                        torch.zeros(24, device=dev))
 
 
-@pytest.mark.parametrize("bj,offset", [(30, 0), (384, 1)])
+@pytest.mark.parametrize("bj,offset", [(30, 0), (384, 1), (4096, 1)])
 def test_blocks_kernel_copies_unaligned_rows(dev, bj, offset):
     """Row segments that are not 16-byte aligned (a width not a multiple of
     4 floats, or tiles starting one float into their storage) are copied 4
@@ -97,46 +106,58 @@ def test_blocks_kernel_copies_unaligned_rows(dev, bj, offset):
         assert torch.equal(out[d], dense)
 
 
-@pytest.mark.parametrize("kind", [0.0, 0.01, 0.3, "weighted"])
-@pytest.mark.parametrize("m,n", [(4096, 512), (1000, 200)])
+@pytest.mark.parametrize("kind", [0.0, 0.01, 0.3, "weighted", "signed"])
+@pytest.mark.parametrize("m", [1000, 4096, 5000, 32768])
+@pytest.mark.parametrize("n", [30, 200, 4096, 32768])
 def test_dense_kernel_matches_plain(dev, kind, m, n):
+    """W as row slabs of 4,096 (M = 1,000 and 5,000 end in a short one),
+    one to 256 column tiles of 128 (N = 30 and 200 end in a short one),
+    4-byte copies where N is not a multiple of 4; held to the plain version
+    on float64 copies, reruns bit-identical, one launch counted per call."""
     from repro_torch.kernels import spike_accum as k
     from repro_torch.kernels.ref import spike_accum_ref
 
     gen = torch.Generator(device=dev).manual_seed(2)
     s = _spikes(kind, (m,), gen, dev)
     w = torch.randn((m, n), generator=gen, device=dev)
+    before = k.LAUNCHES["spike_accum"]
     out = k.spike_accum(s, w)
     torch.cuda.synchronize()
     assert torch.equal(out, k.spike_accum(s, w))
-    torch.testing.assert_close(out, spike_accum_ref(s, w), **TOL)
+    assert k.LAUNCHES["spike_accum"] == before + 2
+    torch.testing.assert_close(out.double(), spike_accum_ref(s.double(), w.double()), **TOL)
 
 
-def test_kernels_agree_bit_for_bit(dev):
+@pytest.mark.parametrize("m", [512, 5120])
+def test_kernels_agree_bit_for_bit(dev, m):
     """On the same synapses the block kernel (tiles sorted by source) and
-    the dense kernel sum the same rows in the same order."""
+    the dense kernel sum the same rows in the same order; at M = 5,120 the
+    dense kernel's second row slab is short (1,024 rows) and its slabs
+    (4,096 rows) do not line up with the block kernel's tiles (1,280)."""
     from repro_torch import convert
     from repro_torch.kernels import spike_accum as k
     from repro_torch.snn import BlockSynapses
 
     rng = np.random.default_rng(3)
-    w = (rng.random((512, 512)) < 0.05) * rng.normal(size=(512, 512))
-    w[:128, 256:384] = 0.0  # a missing tile → a zero padding tile
+    b = m // 4
+    w = (rng.random((m, m)) < 0.05) * rng.normal(size=(m, m))
+    w[:b, 2 * b:3 * b] = 0.0  # a missing tile → a zero padding tile
     syn = BlockSynapses.from_dense(w.astype(np.float32), 4)
     src, blk = convert.padded_tiles(syn, dev)
-    s = torch.from_numpy((rng.random(512) < 0.2).astype(np.float32)).to(dev)
-    blocks_out = k.spike_accum_blocks(s.reshape(1, 4, 128).expand(4, 4, 128).contiguous(),
+    s = torch.from_numpy((rng.random(m) < 0.2).astype(np.float32)).to(dev)
+    blocks_out = k.spike_accum_blocks(s.reshape(1, 4, b).expand(4, 4, b).contiguous(),
                                       src, blk)
     dense_out = k.spike_accum(s, torch.from_numpy(syn.to_dense()).to(dev))
     assert torch.equal(blocks_out.reshape(-1), dense_out)
 
 
-@pytest.mark.parametrize("case", ["one_active_block", "weighted", "all_fire"])
+@pytest.mark.parametrize("case", ["one_active_block", "weighted", "all_fire", "signed"])
 def test_kernels_agree_bit_for_bit_at_full_tiles(dev, case):
     """chip_smoke.py phase 2's spike patterns on its 4,096-row tiles (two
-    ranks of 8 tiles, each rank's tiles in source order): the block kernel
-    equals the dense kernel on the rank's [32,768, 4,096] synapses bit for
-    bit."""
+    ranks of 8 tiles, each rank's tiles in source order), and a block of
+    negative spikes: the block kernel equals the dense kernel on the rank's
+    [32,768, 4,096] synapses bit for bit, and reruns of both are
+    bit-identical."""
     from repro_torch.kernels import spike_accum as k
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -151,12 +172,17 @@ def test_kernels_agree_bit_for_bit_at_full_tiles(dev, case):
     elif case == "weighted":
         u = torch.rand(shape, generator=gen, device=dev)
         s = u * (torch.rand(shape, generator=gen, device=dev) < 0.05)
+    elif case == "signed":
+        s = _spikes("signed", shape, gen, dev)
     else:
         s = torch.ones(shape, device=dev)
     out = k.spike_accum_blocks(s, src, blocks)
+    assert torch.equal(out, k.spike_accum_blocks(s, src, blocks))
     for d in range(n_dev):
-        dense = k.spike_accum(s[d].reshape(-1), blocks[d].reshape(n_blocks * b, b))
+        w = blocks[d].reshape(n_blocks * b, b)
+        dense = k.spike_accum(s[d].reshape(-1), w)
         assert torch.equal(out[d], dense)
+        assert torch.equal(dense, k.spike_accum(s[d].reshape(-1), w))
 
 
 @pytest.mark.parametrize("exchange", ["sparse", "ragged"])
@@ -468,7 +494,10 @@ def test_launch_geometry_matches_the_sources(dev):
     lib = spike_accum._lib()
     for n_dev, k_tiles, bj in ((8, 8, 4096), (1, 3, 24), (4, 64, 384)):
         plan = spike_accum.blocks_plan(n_dev, k_tiles, bj)
-        assert lib.spike_accum_blocks_smem_bytes(k_tiles) == plan["smem"]
+        assert lib.spike_accum_ring_smem_bytes(k_tiles) == plan["smem"]
+    for m, n in ((32768, 4096), (32768, 32768), (5000, 200), (100_000, 30)):
+        plan = spike_accum.dense_plan(m, n)
+        assert lib.spike_accum_ring_smem_bytes(plan["k_tiles"]) == plan["smem"]
 
 
 @pytest.mark.parametrize("bs,s,d", [(2, 256, 128), (1, 128, 256), (3, 512, 64), (2, 37, 100)])

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.ref import spike_accum_blocks_ref as jax_spike_accum_blocks_ref
+from repro.kernels.ref import spike_accum_ref as jax_spike_accum_ref
 from repro.kernels.spike_accum import spike_accum as jax_spike_accum
 from repro.kernels.spike_accum import spike_accum_blocks as jax_spike_accum_blocks
 from repro.snn import BlockSynapses as JaxBlockSynapses
@@ -108,6 +110,38 @@ def test_dense_ref_weighted_spikes():
     jx = np.asarray(jax_spike_accum(jnp.asarray(s), jnp.asarray(w),
                                     block_i=128, block_j=128, interpret=True))
     np.testing.assert_allclose(ops.spike_currents(_t(s), _t(w)).numpy(), jx, **TOL)
+
+
+def test_negative_spike_block_summed_as_the_reference_ref_does():
+    """Where the port departs from the Pallas kernels: they skip a block
+    with no positive spike (``jnp.any(s > 0.0)``,
+    ``repro/kernels/spike_accum.py:46``, ``:118``), while the reference's
+    own ``ref.py`` and the docstring contract ("any f32 works") compute the
+    full ``s @ W``.  The port follows ``ref.py``; the Pallas kernels differ
+    from it by exactly the skipped block's contribution.  (Spikes are 0/1
+    on every engine path, so no raster differs.)"""
+    rng = np.random.default_rng(8)
+    m, n, b = 512, 256, 128
+    s = np.zeros(m, np.float32)
+    s[128:256] = -(rng.random(b) < 0.5).astype(np.float32)  # block 1: negative spikes only
+    s[384:512] = rng.random(b) < 0.5  # block 3: positive spikes
+    w = rng.normal(size=(m, n)).astype(np.float32)
+    skipped = s[128:256] @ w[128:256]
+    assert np.abs(skipped).max() > 1.0
+    want = np.asarray(jax_spike_accum_ref(jnp.asarray(s), jnp.asarray(w)))
+    np.testing.assert_allclose(ops.spike_currents(_t(s), _t(w)).numpy(), want,
+                               rtol=1e-5, atol=1e-4)
+    jx = np.asarray(jax_spike_accum(jnp.asarray(s), jnp.asarray(w),
+                                    block_i=b, block_j=b, interpret=True))
+    np.testing.assert_allclose(jx, want - skipped, rtol=1e-5, atol=1e-4)
+    # the block layout: tile k reads source block k
+    sb, src, blk = s.reshape(m // b, b), np.arange(m // b), w.reshape(m // b, b, n)
+    want = np.asarray(jax_spike_accum_blocks_ref(jnp.asarray(sb), jnp.asarray(src),
+                                                 jnp.asarray(blk)))
+    np.testing.assert_allclose(ops.spike_currents_blocks(_t(sb), _t(src), _t(blk)).numpy(),
+                               want, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(_jax_blocks(sb, src, blk), want - skipped,
+                               rtol=1e-5, atol=1e-4)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
