@@ -5,8 +5,12 @@
 
 Drives the port (``src/repro_torch``) on the card, with nothing of JAX or
 of the JAX package ``repro``: the brain simulation (phases 3-4) and LM
-serving of three architectures (phase 5).  Each phase prints one JSON
-line; any failed check raises, so the script exits nonzero.
+serving of three architectures (phase 5).  Every main path runs as a user's
+call runs it on the card: each step after the first replays a CUDA graph
+of one step (``repro_torch.graphs``); the same run op by op
+(``graph=False``, the launchers' ``--eager``) is its check.  Each phase
+prints one JSON line; any failed check raises, so the script exits
+nonzero.
 
 1. Environment: the card's name and power limit (``nvidia-smi``), torch
    and CUDA versions, the kernel build's seconds (one ``nvcc`` per source,
@@ -23,7 +27,8 @@ line; any failed check raises, so the script exits nonzero.
    bidirectional, window 96, 384 tokens, ragged ``seq_lens``),
    phi4-mini-3.8b's shapes, recurrentgemma-9b's (MQA with 16 q heads, head
    dim 256, window 2,048; decode with ``slot_pos``, also a misaligned ring
-   whose valid slots are not a prefix).  The scans against their plain
+   whose valid slots are not a prefix; the window bound ``slot_lo`` a device
+   scalar, as the model passes it).  The scans against their plain
    versions on float64 copies at the reference's ``3e-3``: ``ssd_scan`` at
    the reference's sweep, chunks of 127 and 96, and mamba2-1.3b's prefill,
    its final state too; ``rglru_scan`` at the sweep and recurrentgemma-9b's
@@ -35,18 +40,23 @@ line; any failed check raises, so the script exits nonzero.
    four exchanges, at its defaults and with channel noise (``--noise 2``,
    which spreads the firing over the run so the rasters depend on the
    synapses and on every message): sparse == ragged == flat == two_level
-   bit for bit, one ``spike_accum_blocks`` launch per step, and a
+   bit for bit, each replayed raster equal to the same run's with
+   ``--eager``, one ``spike_accum_blocks`` launch per step, and a
    communicator that loses a message changes the noisy raster.
 4. Real size through the public API: 2,048 populations x 16 neurons =
    32,768 neurons on 8 ranks in a (2, 4) mesh under a per-neuron drive
    ``U(3, 8)`` (firing spread over the run, a few percent of the neurons
    per step), 200 steps of sparse, ragged/fused and ragged/per_round
-   (identical rasters, executed bytes == ``exchange_volume``).  Every
+   (identical rasters, executed bytes == ``exchange_volume`` on every
+   step), replayed and, uncounted, eager: rasters and ledgers equal, ms
+   per step of each, capture seconds; for sparse and ragged a profile of
+   each (device ms, CUDA kernels and graph launches per step, busy share,
+   and whether the profiler sees the graph's kernels).  Every replayed
    step's synaptic current equals the dense ``s @ W`` in float64; the
    raster equals the single-device engine's with the ``spike_accum``
-   kernel as its current hook, whose device time per step under the
-   raster's own spikes is profiled in a second, uncounted run; a lost
-   ragged payload changes the raster.
+   kernel as its current hook (replayed, and eager as its check), whose
+   device time per step under the raster's own spikes is profiled in a
+   second, uncounted run; a lost ragged payload changes the raster.
 5. Serving (``repro_torch.serve``) of phi4-mini-3.8b (attention: prefill
    runs ``flash_attention``, decode ``decode_attention``), mamba2-1.3b (48
    ssm layers: prefill runs ``ssd_scan``, decode plain recurrence steps)
@@ -67,7 +77,12 @@ line; any failed check raises, so the script exits nonzero.
    prefill(S) + decode(S) against prefill(S + 1) within 0.05 under float32
    compute (S = 861, 127, 4,096); no ssm layer recomputing its final state
    with the CPU path's closed form; prefill / decode times, tokens/s,
-   launches and device busy share of decode steps, peak memory; (c) the
+   launches and device busy share of decode steps, peak memory.  Decode
+   replays a CUDA graph per batch; the same requests eager (uncounted) give
+   the same greedy tokens under both schedulers, and a teacher-forced
+   window of each (profiled: device ms, kernels and graph launches per
+   step, busy share) gives logits within two bf16 steps (bit-equality
+   reported); capture seconds and the peak memory of each.  (c) the
    serving launcher ``python -m repro_torch.launch.serve`` at its
    defaults.
 6. A ``kernels`` line (all six kernels; K2 at 1 % firing on W f32[32768,
@@ -150,7 +165,11 @@ def timings(kern, plain, lib, main: bool, device: bool = False) -> dict:
     where the host is the slower side.  For a case of the main path
     (``main``) also ``device_ms`` keys: the device time of the kernels each
     call launches, from ``torch.profiler``; with ``device`` only the
-    kernel's.  ``device_kernels``: the kernel's time per CUDA kernel."""
+    kernel's.  ``device_kernels``: the kernel's time per CUDA kernel.  A
+    kernel launches each of its CUDA kernels once a call, so its
+    ``device_ms`` sums each CUDA kernel's mean over the calls the profiler
+    saw (it now and then misses some); the plain version's and the
+    library's divide their window's device time by the calls made."""
     out = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 5),
            "library_ms": None if lib is None else cuda_ms(lib, 5)}
     if main or device:
@@ -160,10 +179,14 @@ def timings(kern, plain, lib, main: bool, device: bool = False) -> dict:
             if fn is None:
                 out[key] = None
                 continue
-            prof = _device_profile(lambda n, fn=fn: [fn() for _ in range(n)], reps)
+            for _ in range(3):  # the profiler now and then reads no device time
+                prof = _device_profile(lambda n, fn=fn: [fn() for _ in range(n)], reps)
+                if prof["device_busy_s"] > 0:
+                    break
             out[key] = prof["device_busy_s"] * 1e3 / reps
             if key == "device_ms":
-                out["device_kernels"] = [{**k, "device_ms": k["device_ms"] / reps}
+                out[key] = sum(k["device_ms"] / k["calls"] for k in prof["kernels"])
+                out["device_kernels"] = [{**k, "device_ms": k["device_ms"] / k["calls"]}
                                          for k in prof["kernels"]]
     return out
 
@@ -179,6 +202,25 @@ def uncounted():
         yield
     finally:
         LAUNCHES.update(saved)
+
+
+@contextlib.contextmanager
+def captures():
+    """The seconds of every CUDA-graph capture made inside
+    (``repro_torch.graphs.StepGraph``), listed as they happen."""
+    from repro_torch import graphs
+
+    real, seen = graphs.StepGraph._capture, []
+
+    def timed(self):
+        real(self)
+        seen.append(self.capture_s)
+
+    graphs.StepGraph._capture = timed
+    try:
+        yield seen
+    finally:
+        graphs.StepGraph._capture = real
 
 
 def lossy_comm(mesh, dev):
@@ -467,7 +509,8 @@ def phase_attention(dev, rate: float) -> dict:
                 else:  # a prefill of n rows kept the last s; decode at n wrote slot n % s
                     sp, lo = idx + (n - s), n - RG_WINDOW
                     sp[n % s] = n
-                kw = {"slot_pos": sp, "slot_lo": lo}
+                # the bound as the model passes it: a device scalar
+                kw = {"slot_pos": sp, "slot_lo": torch.tensor(lo, dtype=torch.int32, device=dev)}
                 keep = ((sp >= 0) & (sp > lo)).expand(b, s)
             else:
                 sl = (torch.randint(1, s + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
@@ -610,20 +653,28 @@ def phase_launcher(device: str, argv: list[str] | None = None) -> dict:
     for tag, extra in (("defaults", []), ("noise_2", ["--noise", "2.0"])):
         rasters, runs, engines = {}, {}, {}
         for exch in ("flat", "two_level", "sparse", "ragged"):
+            line = [*argv, *extra, "--exchange", exch, "--device", device]
             before = LAUNCHES["spike_accum_blocks"]
             t0 = time.perf_counter()
-            res = run_brainsim.main([*argv, *extra, "--exchange", exch, "--device", device])
+            with captures() as caps:
+                res = run_brainsim.main(line)  # replayed from a CUDA graph on the card
             wall = time.perf_counter() - t0
             rasters[exch], engines[exch] = res["raster"], res["engine"]
             runs[exch] = {"spike_accum_blocks": LAUNCHES["spike_accum_blocks"] - before,
-                          "wall_s": wall}
+                          "wall_s": wall, "capture_s": sum(caps), "graph": res["engine"].graph}
+            with uncounted():  # the same run op by op, its check
+                t0 = time.perf_counter()
+                eager = run_brainsim.main([*line, "--eager"])["raster"]
+                runs[exch]["eager_wall_s"] = time.perf_counter() - t0
+            check(np.array_equal(eager, rasters[exch]), f"{tag}/{exch}: replayed != eager")
         steps = rasters["flat"].shape[0]
         for exch in ("two_level", "sparse", "ragged"):
             check(np.array_equal(rasters[exch], rasters["flat"]), f"{tag}: {exch} != flat")
         for exch in ("sparse", "ragged"):
             check(runs[exch]["spike_accum_blocks"] == (steps if per_run_launches else 0),
                   f"{tag}/{exch}: {runs[exch]} kernel launches for {steps} steps")
-        row = {"steps": steps, "spikes": int(rasters["flat"].sum()), "runs": runs}
+        row = {"steps": steps, "spikes": int(rasters["flat"].sum()), "runs": runs,
+               "replayed_equals_eager": True}
         if extra:
             row.update(sustained(torch.from_numpy(rasters["flat"]), steps // 2))
             with uncounted():
@@ -642,40 +693,51 @@ def phase_launcher(device: str, argv: list[str] | None = None) -> dict:
 def _device_profile(run, steps: int, match: tuple[str, ...] = ()) -> dict:
     """Where ``run(steps)``'s time goes: device time by kernel under
     ``torch.profiler`` and the device's busy share of the run's wall time
-    (the profiler's own cost is inside that wall time).  With ``match``,
-    also the device time and calls of every kernel whose name contains one
-    of its strings."""
+    (the profiler's own cost is inside that wall time; a CUDA-graph capture
+    made inside is not: ``capture_s``), CUDA kernels and graph launches
+    (``cudaGraphLaunch`` calls).  With ``match``, also the device time and
+    calls of every kernel whose name contains one of its strings."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run(2)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with captures() as caps, profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(steps)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0 - sum(caps)
 
     def dev_us(e) -> float:
         return float(getattr(e, "self_device_time_total", 0.0)
                      or getattr(e, "self_cuda_time_total", 0.0))
 
     # kernel events only: an aten op's device time is its kernels' time again
-    rows = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+    events = prof.key_averages()
+    rows = sorted((e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                   key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in rows) / 1e6
-    out = {"wall_s": wall, "device_busy_s": busy, "device_busy_share": busy / wall,
+    out = {"wall_s": wall, "capture_s": sum(caps), "device_busy_s": busy,
+           "device_busy_share": busy / wall,
            "kernels": [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3,
                         "calls": e.count} for e in rows[:8]],
-           "kernel_launches": sum(e.count for e in rows)}
+           "kernel_launches": sum(e.count for e in rows),
+           "graph_launches": sum(e.count for e in events if "cudaGraphLaunch" in e.key)}
     if match:
         hit = [e for e in rows if any(s in e.key for s in match)]
         out["matched"] = {"device_ms": sum(dev_us(e) for e in hit) / 1e3,
                           "calls": sum(e.count for e in hit)}
     return out
 
+
+
+def _per_step(prof: dict, steps: int) -> dict:
+    """A profile of ``steps`` steps with its per-step rates."""
+    return {**prof, "device_ms_per_step": prof["device_busy_s"] * 1e3 / steps,
+            "kernels_per_step": prof["kernel_launches"] / steps,
+            "graph_launches_per_step": prof["graph_launches"] / steps}
 
 
 def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
@@ -727,33 +789,62 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
     sync()
     out["stage_tiles_s"] = time.perf_counter() - t0
 
-    def engine(exch: str, mode: str = "fused") -> DistributedSNN:
+    def engine(exch: str, mode: str = "fused", graph: bool | None = None) -> DistributedSNN:
         return DistributedSNN(mesh=mesh, params=params, exchange=exch, i_ext=drive,
-                              syn=syn, ragged_scatter=mode, tiles=tiles, device=dev)
+                              syn=syn, ragged_scatter=mode, tiles=tiles, device=dev,
+                              graph=graph)
 
-    runs, rasters = {}, {}
+    def timed(run):
+        """(result, wall seconds, seconds of the captures inside)."""
+        sync()
+        t0 = time.perf_counter()
+        with captures() as caps:
+            res = run()
+        sync()
+        return res, time.perf_counter() - t0, sum(caps)
+
+    # the counted runs replay a CUDA graph of one step (the engines' default
+    # on the card); the same runs op by op are their checks, uncounted
+    runs, rasters, profiles = {}, {}, {}
     for tag, exch, mode in (("sparse", "sparse", "fused"),
                             ("ragged_fused", "ragged", "fused"),
                             ("ragged_per_round", "ragged", "per_round")):
         eng = engine(exch, mode)
-        eng.run(2)  # warm up
+        with uncounted():  # warm up, the card's clocks too
+            eng.run(steps)
         comm = LoopbackComm(mesh, dev)
         before = LAUNCHES["spike_accum_blocks"]
-        sync()
-        t0 = time.perf_counter()
-        raster = eng.run(steps, comm=comm)
-        sync()
-        wall = time.perf_counter() - t0
+        raster, wall, capture_s = timed(lambda: eng.run(steps, comm=comm))
         launched = LAUNCHES["spike_accum_blocks"] - before
         vol = eng.exchange_stats()
         check(launched == per_run, f"{tag}: {launched} kernel launches for {steps} steps")
         check(comm.step_bytes == [vol[exch]] * steps,
               f"{tag}: executed bytes {set(comm.step_bytes)} != {vol[exch]}")
+        with uncounted():
+            eager, eager_comm = engine(exch, mode, graph=False), LoopbackComm(mesh, dev)
+            eager.run(steps)
+            eager_raster, eager_wall, _ = timed(lambda: eager.run(steps, comm=eager_comm))
+        check(torch.equal(eager_raster, raster), f"{tag}: replayed raster != eager")
+        check(eager_comm.step_bytes == comm.step_bytes, f"{tag}: eager bytes differ")
         rasters[tag] = raster
-        runs[tag] = {"ms_per_step": wall / steps * 1e3, "steps_per_s": steps / wall,
-                     "bytes_per_step": vol[exch], "spike_accum_blocks_launches": launched}
-    if dev.type == "cuda":
-        out["profile"] = _device_profile(engine("sparse").run, steps)
+        replay_s = wall - capture_s
+        runs[tag] = {"graph": eng.graph, "ms_per_step": replay_s / steps * 1e3,
+                     "steps_per_s": steps / replay_s, "capture_s": capture_s,
+                     "wall_ms_per_step_with_capture": wall / steps * 1e3,
+                     "eager_ms_per_step": eager_wall / steps * 1e3,
+                     "bytes_per_step": vol[exch], "spike_accum_blocks_launches": launched,
+                     "replayed_equals_eager": True}
+        if dev.type == "cuda" and mode == "fused":
+            profiles[tag] = {"replayed": _per_step(_device_profile(engine(exch).run, steps),
+                                                   steps)}
+            with uncounted():
+                profiles[tag]["eager"] = _per_step(
+                    _device_profile(engine(exch, graph=False).run, steps), steps)
+    for prof in profiles.values():  # the profiler sees a graph's kernel nodes
+        prof["profiler_sees_graph_kernels"] = (
+            prof["replayed"]["kernels_per_step"] >= 0.9 * prof["eager"]["kernels_per_step"])
+    if profiles:
+        out["profile"] = profiles
     runs["ragged_fused"]["step_profile"] = engine("ragged").step_profile(4)
     raster = rasters["sparse"]
     for tag in ("ragged_fused", "ragged_per_round"):
@@ -788,17 +879,20 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
     out["currents_vs_dense_f64"] = currents
     out["planted_fault_seen"] = True
     # the raster oracle: the single-device engine, its current hook the
-    # spike_accum kernel (on the card)
+    # spike_accum kernel (on the card), replayed; op by op as its check
     before = LAUNCHES["spike_accum"]
-    sync()
-    t0 = time.perf_counter()
-    oracle = SNNEngine(w_syn=w, params=params, i_ext=drive, device=dev).run(
-        steps, current_fn=spike_currents).spikes
-    sync()
-    oracle_s = time.perf_counter() - t0
+    res, oracle_s, capture_s = timed(lambda: SNNEngine(
+        w_syn=w, params=params, i_ext=drive, device=dev).run(steps, current_fn=spike_currents))
+    oracle = res.spikes
     check(LAUNCHES["spike_accum"] - before == per_run, "oracle did not run the kernel")
     check(torch.equal(oracle, raster), "distributed != single-device oracle")
-    out["oracle"] = {"ms_per_step": oracle_s / steps * 1e3, "equal": True}
+    with uncounted():
+        eager = SNNEngine(w_syn=w, params=params, i_ext=drive, device=dev, graph=False)
+        res, eager_s, _ = timed(lambda: eager.run(steps, current_fn=spike_currents))
+    check(torch.equal(res.spikes, oracle), "oracle: replayed raster != eager")
+    out["oracle"] = {"ms_per_step": (oracle_s - capture_s) / steps * 1e3,
+                     "capture_s": capture_s, "eager_ms_per_step": eager_s / steps * 1e3,
+                     "equal": True, "replayed_equals_eager": True}
     if dev.type == "cuda":
         # the spike_accum kernel's device time per step (one call a step)
         # under the raster's own spikes: its two CUDA kernels, compaction
@@ -808,9 +902,13 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
             eng = SNNEngine(w_syn=w, params=params, i_ext=drive, device=dev)
             prof = _device_profile(lambda n: eng.run(n, current_fn=spike_currents), steps,
                                    match=("compact_tiles_kernel", "spike_accum_ring_kernel"))
+            eager_prof = _device_profile(lambda n: eager.run(n, current_fn=spike_currents),
+                                         steps)
         k2 = prof.pop("matched")
         calls = k2["calls"] / 2  # the profiler may miss a launch of the window
-        out["oracle"].update(profile=prof, plan=dense_plan(m, m), spike_accum_calls_seen=calls,
+        out["oracle"].update(profile={"replayed": _per_step(prof, steps),
+                                      "eager": _per_step(eager_prof, steps)},
+                             plan=dense_plan(m, m), spike_accum_calls_seen=calls,
                              spike_accum_device_ms_per_step=k2["device_ms"] / calls if calls
                              else None,
                              fired_rows_per_step=float(raster.sum(1).mean()))
@@ -967,8 +1065,10 @@ def _launches_per_call(cfg) -> tuple[dict, dict]:
 
 class _Timed:
     """Counts and times (synchronised, on the host clock) calls of
-    ``lm.prefill`` / ``lm.decode_step`` as the engine makes them, records
-    each call's kernel launches and checks its logits are finite."""
+    ``lm.prefill`` and of a batch's decode step (``serve.engine._Decode``:
+    the first eager, the second capturing its CUDA graph and replaying it,
+    the rest replaying) as the engine makes them, records each call's kernel
+    launches and checks its logits are finite."""
 
     def __init__(self, fn, n_vocab: int):
         self.fn, self.n_vocab, self.ms, self.launches = fn, n_vocab, [], []
@@ -985,7 +1085,8 @@ class _Timed:
         torch.cuda.synchronize()
         self.ms.append((time.perf_counter() - t0) * 1e3)
         self.launches.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
-        check(bool(torch.isfinite(out[0][..., : self.n_vocab]).all()), "non-finite logits")
+        logits = out[0] if isinstance(out, tuple) else out
+        check(bool(torch.isfinite(logits[..., : self.n_vocab]).all()), "non-finite logits")
         return out
 
 
@@ -996,17 +1097,19 @@ def _serve_timed(eng, name: str, prompts, cfg, per_call) -> dict:
     import torch
 
     from repro_torch.models import lm
+    from repro_torch.serve import engine as serve_engine
 
-    real = lm.prefill, lm.decode_step
-    lm.prefill, lm.decode_step = _Timed(real[0], cfg.vocab_size), _Timed(real[1], cfg.vocab_size)
+    real = lm.prefill, serve_engine._Decode.__call__
+    pre, dec = _Timed(real[0], cfg.vocab_size), _Timed(real[1], cfg.vocab_size)
+    lm.prefill, serve_engine._Decode.__call__ = pre, lambda self, tokens: dec(self, tokens)
     try:
         t0 = time.perf_counter()
-        toks = getattr(eng, name)(prompts, max_new_tokens=SERVE_NEW)
+        with captures() as caps:
+            toks = getattr(eng, name)(prompts, max_new_tokens=SERVE_NEW)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        pre, dec = lm.prefill, lm.decode_step
     finally:
-        lm.prefill, lm.decode_step = real
+        lm.prefill, serve_engine._Decode.__call__ = real
     for kind, timed, want in (("prefill", pre, per_call[0]), ("decode", dec, per_call[1])):
         for i, got in enumerate(timed.launches):
             check(got == want, f"{name}: {kind} call {i} launched {got}, expected {want}")
@@ -1014,7 +1117,8 @@ def _serve_timed(eng, name: str, prompts, cfg, per_call) -> dict:
           f"{name}: {[len(t) for t in toks]} tokens per request")
     check(all(0 <= t < cfg.vocab_size for r in toks for t in r), f"{name}: token outside vocab")
     slots = eng.sc.batch_slots
-    return {"tokens_out": toks, "wall_s": wall, "tokens": len(prompts) * SERVE_NEW,
+    return {"tokens_out": toks, "graph": eng.graph, "captures": len(caps),
+            "capture_s": caps, "wall_s": wall, "tokens": len(prompts) * SERVE_NEW,
             "tokens_per_s": len(prompts) * SERVE_NEW / wall,
             "prefill_calls": len(pre.ms), "prefill_ms": pre.ms,
             "decode_steps": len(dec.ms), "decode_ms_per_step_mean": float(np.mean(dec.ms)),
@@ -1029,14 +1133,18 @@ def phase_serve(dev, arch: str) -> dict:
     seed): 8 requests through ``ServeEngine.generate`` (two waves of 4) and
     ``generate_continuous``, every prefill and decode step launching exactly
     its layers' kernels; for recurrentgemma-9b also one batch-1 request of
-    4,096 tokens.  (a), the prefill + decode consistency and a profiled
-    decode window run outside the launch counts."""
+    4,096 tokens.  Decode replays a CUDA graph per batch (the engine's
+    default on the card); the same requests op by op (``graph=False``) must
+    give the same greedy tokens.  (a), the eager runs, the prefill + decode
+    consistency and the profiled decode windows (eager and replayed, their
+    logits compared) run outside the launch counts."""
     import numpy as np
     import torch
 
     from repro_torch.configs import ARCHS
     from repro_torch.models import lm
     from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve import engine as serve_engine
 
     opts = SERVE_PATHS[arch]
     out: dict = {"arch": arch}
@@ -1056,8 +1164,20 @@ def phase_serve(dev, arch: str) -> dict:
     out["prompt_lens"] = [int(n) for n in lens]
     eng = ServeEngine(cfg, params, ServeConfig(batch_slots=SERVE_SLOTS), device=dev)
 
-    runs = {name: _serve_timed(eng, name, prompts, cfg, per_call)
-            for name in ("generate", "generate_continuous")}
+    schedulers = ("generate", "generate_continuous")
+    runs = {name: _serve_timed(eng, name, prompts, cfg, per_call) for name in schedulers}
+    out["peak_memory_replayed"] = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with uncounted():  # the same requests op by op: the replayed tokens' check
+        eager = ServeEngine(cfg, params, ServeConfig(batch_slots=SERVE_SLOTS), device=dev,
+                            graph=False)
+        eager_runs = {name: _serve_timed(eager, name, prompts, cfg, per_call)
+                      for name in schedulers}
+    out["peak_memory_eager"] = torch.cuda.max_memory_allocated(dev)
+    for name in schedulers:
+        check(eager_runs[name]["tokens_out"] == runs[name]["tokens_out"],
+              f"{name}: replayed greedy tokens differ from eager")
+    out["replayed_tokens_equal_eager"] = True
     same = [runs["generate_continuous"]["tokens_out"][i] == runs["generate"]["tokens_out"][i]
             for i in range(SERVE_SLOTS)]
     if opts["first_wave"]:
@@ -1080,32 +1200,47 @@ def phase_serve(dev, arch: str) -> dict:
         long_prompt = rng.integers(0, cfg.vocab_size, LONG_PROMPT).tolist()
         one = ServeEngine(cfg, params, ServeConfig(batch_slots=1), device=dev)
         runs["long_prompt_batch1"] = _serve_timed(one, "generate", [long_prompt], cfg, per_call)
-    for run in runs.values():
+    for run in (*runs.values(), *eager_runs.values()):
         run.pop("tokens_out")
     out["runs"] = runs
-    out["peak_memory_serving"] = torch.cuda.max_memory_allocated(dev)
+    out["eager_runs"] = eager_runs
 
     with uncounted():
         n = opts["consistency_len"]
         prompt = (prompts[0] + [int(rng.integers(0, cfg.vocab_size))] if n is None
                   else rng.integers(0, cfg.vocab_size, n).tolist())
         out["prefill_decode_consistency"] = _prefill_decode_consistency(params, cfg, prompt, dev)
-        # launches and busy share of decode steps: a 4-slot wave at plen 1,024
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 1024))
+        # launches and busy share of decode steps, eager and replayed, and
+        # their logits: a 4-slot wave at plen 1,024, teacher-forced, each
+        # mode on its own copy of the caches (the profile's steps 3-10; the
+        # capture is the second step)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 1024 + 16))
                                 .astype(np.int32)).to(dev)
+        modes = {}
         with torch.inference_mode():
-            logits, cache = lm.prefill(params, {"tokens": toks}, cfg, max_len=1024 + 16)
-            tok = logits.argmax(-1).to(torch.int32)[:, None]
-            pos = iter(range(1024, 1024 + 16))
+            _, cache0 = lm.prefill(params, {"tokens": toks[:, :1024]}, cfg, max_len=1024 + 16)
+            for graph in (False, True):
+                cache = _clone(cache0)
+                decode = serve_engine._Decode(ServeEngine(cfg, params, device=dev, graph=graph),
+                                              cache, SERVE_SLOTS, 1024)
+                seen = []
 
-            def steps(n):
-                for _ in range(n):
-                    lm.decode_step(params, cache, {"tokens": tok}, next(pos), cfg)
+                def steps(n, decode=decode, seen=seen):
+                    for _ in range(n):
+                        seen.append(decode(toks[:, 1024 + len(seen)]).clone())
 
-            prof = _device_profile(steps, 8)
-        prof["kernel_launches_per_step"] = prof["kernel_launches"] / 8
-        out["decode_profile"] = prof
-        del cache, logits
+                modes[graph] = (_per_step(_device_profile(steps, 8), 8), torch.stack(seen))
+                del cache, decode
+            del cache0
+        (eager_prof, want), (prof, got) = modes[False], modes[True]
+        err, over = _bf16_close(got, want, cfg.vocab_size)
+        check(over <= 0, f"replayed vs eager decode logits: {err} exceeds two bf16 steps")
+        out["decode_profile"] = {
+            "replayed": prof, "eager": eager_prof, "logits_bit_equal": bool(torch.equal(got, want)),
+            "max_abs_logit_diff": err, "bound": "rtol 2^-6 + atol 2^-6 rms",
+            "profiler_sees_graph_kernels":
+                prof["kernels_per_step"] >= 0.9 * eager_prof["kernels_per_step"]}
+        del got, want
     out["peak_memory"] = torch.cuda.max_memory_allocated(dev)
     del params, eng
     torch.cuda.empty_cache()
@@ -1115,6 +1250,15 @@ def phase_serve(dev, arch: str) -> dict:
 def _leaves(tree: dict):
     for v in tree.values():
         yield from _leaves(v) if isinstance(v, dict) else [v]
+
+
+def _clone(tree):
+    """A copy of a nested cache (lists and dicts of tensors)."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone()
 
 
 def phase_serve_launcher() -> dict:

@@ -57,7 +57,7 @@ def _lib():
         ]
         lib.flash_attention_launch.restype = _I
         lib.decode_attention_launch.argtypes = [
-            _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _P
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _P
         ]
         lib.decode_attention_launch.restype = _I
         _bound = lib
@@ -163,7 +163,7 @@ def decode_attention(
     seq_lens: torch.Tensor | None = None,
     sm_scale: float | None = None,
     slot_pos: torch.Tensor | None = None,
-    slot_lo: int = -1,
+    slot_lo: int | torch.Tensor = -1,
 ) -> torch.Tensor:
     """One-token attention against a KV cache on the card.
 
@@ -172,8 +172,11 @@ def decode_attention(
     tensor made for it; rows past it are not read).  ``slot_pos`` optional
     ``int32[S]`` shared by the batch: row ``w`` then also needs
     ``slot_pos[w] >= 0`` and ``slot_pos[w] > slot_lo`` (the kernel reads
-    it; rows that fail are not read).  Returns ``[B, Hq, D]`` in q's
-    dtype; a row with no valid key is 0.
+    it; rows that fail are not read).  ``slot_lo`` is an ``int`` or a 0-d
+    ``int32`` tensor on q's device, which the kernel reads when it runs (a
+    decode step replayed from a CUDA graph reads the bound of its own
+    position); an ``int`` other than -1 is put on the device first.
+    Returns ``[B, Hq, D]`` in q's dtype; a row with no valid key is 0.
     """
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
@@ -193,6 +196,13 @@ def decode_attention(
         or slot_pos.dtype != torch.int32 or not slot_pos.is_contiguous()
     ):
         raise ValueError(f"slot_pos must be contiguous int32[{s}] on {dev}")
+    if isinstance(slot_lo, torch.Tensor):
+        if slot_lo.shape != () or slot_lo.device != dev or slot_lo.dtype != torch.int32:
+            raise ValueError(f"slot_lo must be an int or a 0-d int32 tensor on {dev}")
+    elif slot_lo > -1:
+        slot_lo = torch.full((), slot_lo, dtype=torch.int32, device=dev)
+    else:
+        slot_lo = None  # -1: every slot with slot_pos >= 0
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     n_split, chunk = decode_splits(
@@ -206,7 +216,8 @@ def decode_attention(
         err = _lib().decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if seq_lens is None else seq_lens.data_ptr(),
-            None if slot_pos is None else slot_pos.data_ptr(), max(int(slot_lo), -1),
+            None if slot_pos is None else slot_pos.data_ptr(),
+            None if slot_lo is None else slot_lo.data_ptr(),
             out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), int(q.dtype == torch.bfloat16), b, hq, hkv,
             s, d, n_split, chunk, _strides(q, k, v, out), float(sm_scale),

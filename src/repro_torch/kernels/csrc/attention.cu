@@ -10,7 +10,9 @@
 //   decode_attention  one query token per (batch, q head) against a KV cache
 //     whose first seq_lens[b] rows are valid and, when slot_pos is given,
 //     whose row w also holds a position slot_pos[w] >= 0 above slot_lo (the
-//     windowed ring buffer's rule, repro/models/layers.py:260-262).
+//     windowed ring buffer's rule, repro/models/layers.py:260-262).  slot_lo
+//     lies in device memory and each block reads it once, so a decode step
+//     captured in a CUDA graph reads the bound of the step it replays.
 //     Replaces repro/kernels/decode_attention.py:decode_attention (:94, body
 //     _kernel :33).
 //
@@ -921,8 +923,8 @@ struct DecShape {
 // min((split + 1) * chunk, len)) of kv head blockIdx.y / n_gc against its
 // q heads [g0, g0 + 16 Ht) of the group (g0 = (blockIdx.y % n_gc) * 16 Ht);
 // len = seq_lens[b] (s_cap without seq_lens), and with slot_pos key j also
-// needs slot_pos[j] > slot_lo (the host passes slot_lo >= -1, so an empty
-// slot, -1, never counts).
+// needs slot_pos[j] > lo, lo = max(*slot_lo, -1) read once per block (-1
+// when slot_lo is null, so an empty slot, -1, never counts).
 //
 // Per tile of kTk keys: warp w scores keys w kTk/4 .. + kTk/4 - 1 for all
 // heads (A = Q from shared memory, B = K rows), the tile's max per head is
@@ -934,7 +936,7 @@ template <int D, int Ht>
 __global__ void __launch_bounds__(kDecThreads)
     decode_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ seq_lens,
-                     const int* __restrict__ slot_pos, int slot_lo,
+                     const int* __restrict__ slot_pos, const int* __restrict__ slot_lo,
                      float* __restrict__ part_m, float* __restrict__ part_l,
                      float* __restrict__ part_acc, Strides qs, Strides ks, Strides vs, int hq,
                      int group, int n_gc, int s_cap, int chunk, float scale_log2) {
@@ -965,6 +967,7 @@ __global__ void __launch_bounds__(kDecThreads)
   const int g = lane >> 2;
   const int t = lane & 3;
   const int len = seq_lens == nullptr ? s_cap : min(max(seq_lens[b], 0), s_cap);
+  const int lo = slot_lo == nullptr ? -1 : max(*slot_lo, -1);
   const int j0 = split * chunk;
   const int j1 = min(j0 + chunk, len);
   const int n_tiles = j1 > j0 ? (j1 - j0 + kTk - 1) / kTk : 0;
@@ -993,7 +996,7 @@ __global__ void __launch_bounds__(kDecThreads)
       const int r = i / (D / 8);
       const int c = (i % (D / 8)) * 8;
       const int j = jt + r;
-      const bool ok = j < j1 && (slot_pos == nullptr || slot_pos[j] > slot_lo);
+      const bool ok = j < j1 && (slot_pos == nullptr || slot_pos[j] > lo);
       const long long jr = ok ? j : 0;
       cp_async_16(dk + r * kRow + c, kb + jr * ks.s + c, ok ? 16 : 0);
       cp_async_16(dv + r * kRow + c, vb + jr * vs.s + c, ok ? 16 : 0);
@@ -1202,7 +1205,7 @@ __global__ void __launch_bounds__(kDecThreads)
     decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v,
                         const int* __restrict__ seq_lens,
-                        const int* __restrict__ slot_pos, int slot_lo,
+                        const int* __restrict__ slot_pos, const int* __restrict__ slot_lo,
                         float* __restrict__ part_m, float* __restrict__ part_l,
                         float* __restrict__ part_acc, Strides qs, Strides ks,
                         Strides vs, int hq, int group, int n_gc, int s_cap,
@@ -1222,6 +1225,7 @@ __global__ void __launch_bounds__(kDecThreads)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int len = seq_lens == nullptr ? s_cap : min(max(seq_lens[b], 0), s_cap);
+  const int lo = slot_lo == nullptr ? -1 : max(*slot_lo, -1);
   const int j0 = split * chunk;
   const int j1 = min(j0 + chunk, len);
 
@@ -1251,7 +1255,7 @@ __global__ void __launch_bounds__(kDecThreads)
     float vr[U][E];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      ok[u] = j + u < j1 && (slot_pos == nullptr || slot_pos[j + u] > slot_lo);
+      ok[u] = j + u < j1 && (slot_pos == nullptr || slot_pos[j + u] > lo);
       if (ok[u]) {
         load_row<E>(kr[u], kb + (j + u) * ks.s);
         load_row<E>(vr[u], vb + (j + u) * vs.s);
@@ -1412,7 +1416,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
 
 template <int D>
 int launch_decode_tc(const void* q, const void* k, const void* v, const int* seq_lens,
-                     const int* slot_pos, int slot_lo, float* part_m, float* part_l,
+                     const int* slot_pos, const int* slot_lo, float* part_m, float* part_l,
                      float* part_acc, int b, int hq, int hkv, int s_cap, int n_split,
                      int chunk, const long long* st, float scale_log2, cudaStream_t stream) {
   const int group = hq / hkv;
@@ -1433,7 +1437,7 @@ int launch_decode_tc(const void* q, const void* k, const void* v, const int* seq
 
 template <int D, typename T>
 int launch_decode(const void* q, const void* k, const void* v,
-                  const int* seq_lens, const int* slot_pos, int slot_lo,
+                  const int* seq_lens, const int* slot_pos, const int* slot_lo,
                   void* o, float* part_m, float* part_l, float* part_acc,
                   int b, int hq, int hkv, int s_cap, int n_split, int chunk,
                   const long long* st, float scale_log2, cudaStream_t stream) {
@@ -1487,34 +1491,35 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // strides: 12 int64, (batch, head, row) element strides of q, k, v, o (the
 // row strides of q and o are unused).  seq_lens: null (every row up to
 // s_cap), or int32[b].  slot_pos: null, or int32[s_cap] shared by the
-// batch, with slot_lo >= -1.  part_m / part_l: f32[b, hq, n_split],
+// batch.  slot_lo: null (-1), or one int32 in device memory (a value below
+// -1 counts as -1).  part_m / part_l: f32[b, hq, n_split],
 // part_acc: f32[b, hq, n_split, d].
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* seq_lens,
-                                       const void* slot_pos, int slot_lo,
+                                       const void* slot_pos, const void* slot_lo,
                                        void* o, void* part_m, void* part_l,
                                        void* part_acc, int is_bf16, int b,
                                        int hq, int hkv, int s_cap, int d,
                                        int n_split, int chunk,
                                        const long long* strides,
                                        float sm_scale, void* stream) {
-  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || n_split <= 0 || chunk <= 0 ||
-      slot_lo < -1) {
+  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || n_split <= 0 || chunk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float sl2 = sm_scale * kLog2e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* sl = static_cast<const int*>(seq_lens);
   const int* sp = static_cast<const int*>(slot_pos);
+  const int* lo = static_cast<const int*>(slot_lo);
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
 #define REPRO_DECODE(D)                                                       \
-  return is_bf16 ? launch_decode<D, __nv_bfloat16>(q, k, v, sl, sp, slot_lo, \
+  return is_bf16 ? launch_decode<D, __nv_bfloat16>(q, k, v, sl, sp, lo,      \
                                                    o, pm, pl, pa, b, hq, hkv, \
                                                    s_cap, n_split, chunk,     \
                                                    strides, sl2, st)          \
-                 : launch_decode<D, float>(q, k, v, sl, sp, slot_lo, o, pm,  \
+                 : launch_decode<D, float>(q, k, v, sl, sp, lo, o, pm,       \
                                            pl, pa, b, hq, hkv, s_cap,         \
                                            n_split, chunk, strides, sl2, st)
   switch (d) {

@@ -46,12 +46,13 @@ def decode_attention(
     seq_lens: torch.Tensor | None = None,
     sm_scale: float | None = None,
     slot_pos: torch.Tensor | None = None,
-    slot_lo: int = -1,
+    slot_lo: int | torch.Tensor = -1,
 ) -> torch.Tensor:
     """One-token attention against a KV cache (decode).  q ``[B, Hq, D]``,
     k/v ``[B, Hkv, S, D]``, ``seq_lens`` optional ``int[B]``; ``slot_pos``
     optional ``int[S]`` (row ``w`` valid only when ``slot_pos[w] >= 0`` and
-    ``slot_pos[w] > slot_lo``: the windowed ring buffer's rule)."""
+    ``slot_pos[w] > slot_lo``: the windowed ring buffer's rule; ``slot_lo``
+    an ``int`` or a 0-d ``int32`` tensor on q's device)."""
     if q.device.type == "cpu":
         return _ref.decode_attention_ref(q, k, v, seq_lens=seq_lens, sm_scale=sm_scale,
                                          slot_pos=slot_pos, slot_lo=slot_lo)

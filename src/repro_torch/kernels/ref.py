@@ -71,7 +71,7 @@ def decode_attention_ref(
     seq_lens: torch.Tensor | None = None,
     sm_scale: float | None = None,
     slot_pos: torch.Tensor | None = None,
-    slot_lo: int = -1,
+    slot_lo: int | torch.Tensor = -1,
 ) -> torch.Tensor:
     """Single-token attention vs a KV cache.
 
@@ -79,7 +79,8 @@ def decode_attention_ref(
     slot_pos: optional int[S], the position each cache row holds (shared by
     the batch); row ``w`` then also needs ``slot_pos[w] >= 0`` and
     ``slot_pos[w] > slot_lo`` — the windowed decode's rule
-    (``repro/models/layers.py:260-262``, ``slot_lo = pos - window``).
+    (``repro/models/layers.py:260-262``, ``slot_lo = pos - window``), an
+    ``int`` or a 0-d tensor.
     """
     _, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]

@@ -1,10 +1,13 @@
 """Brain-simulation launcher: partition (Alg. 1) → route (Alg. 2) →
 distributed spiking run with the chosen exchange schedule.  Port of
 ``repro.launch.run_brainsim``: the same flags and output lines, with
-``--ranks`` logical ranks on one device (default 8) and ``--device``.
+``--ranks`` logical ranks on one device (default 8), ``--device`` and
+``--eager``.  On the card the steps replay a CUDA graph of one step (the
+counterpart of the reference's ``jax.jit``); ``--eager`` runs them op by
+op, as the checks do.
 
     PYTHONPATH=src python -m repro_torch.launch.run_brainsim \\
-        --populations 256 --steps 100 --exchange sparse [--device cpu]
+        --populations 256 --steps 100 --exchange sparse [--device cpu] [--eager]
 """
 from __future__ import annotations
 
@@ -43,6 +46,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--ranks", type=int, default=8,
                     help="logical ranks of the mesh, all on one device")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--eager", action="store_true",
+                    help="run every step op by op instead of replaying a CUDA graph")
     ap.add_argument("--trace", metavar="PATH",
                     help="export a Chrome-trace JSON of the whole run "
                          "(planner spans + executor profile)")
@@ -86,6 +91,7 @@ def main(argv: list[str] | None = None) -> dict:
         exchange=args.exchange,
         i_ext=3.5,
         device=device,
+        graph=False if args.eager else None,
     )
     if args.trace and args.exchange in ("sparse", "ragged"):
         prof = eng.step_profile(min(args.steps, 4), seed=args.seed)

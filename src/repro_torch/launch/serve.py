@@ -4,7 +4,10 @@ device, so it serves the reduced config, the reference's rule for one
 device (``repro/launch/serve.py:27``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
-        --prompts "1,2,3" "4,5" --max-new 16 [--device cpu]
+        --prompts "1,2,3" "4,5" --max-new 16 [--device cpu] [--eager]
+
+On the card decode steps replay a CUDA graph of one step; ``--eager`` runs
+them op by op.
 
 ``--arch`` takes every text architecture without experts: the dense ones,
 ``mamba2-1.3b`` and ``recurrentgemma-9b``.
@@ -28,6 +31,8 @@ def main(argv: list[str] | None = None) -> list[list[int]]:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--batch-slots", type=int, default=4)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--eager", action="store_true",
+                    help="run every decode step op by op instead of replaying a CUDA graph")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -38,6 +43,7 @@ def main(argv: list[str] | None = None) -> list[list[int]]:
         params,
         ServeConfig(batch_slots=args.batch_slots, temperature=args.temperature),
         device=device,
+        graph=False if args.eager else None,
     )
     prompts = [[int(t) for t in p.split(",")] for p in args.prompts]
     outs = eng.generate(prompts, max_new_tokens=args.max_new)

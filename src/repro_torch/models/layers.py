@@ -13,8 +13,9 @@ recurrent mixers is one recurrence step in PyTorch ops, as in the
 reference.  Matmuls run in :data:`COMPUTE_DTYPE` (bf16), read at call time
 as in the reference; softmax, normalizers, gates and recurrent state in
 fp32.  Decode updates the caches in place (they are views into the model's
-stacked caches; the reference returns new ones).  There is no sharding on
-one card.  MoE waits for its own slice (ROADMAP.md §1).
+stacked caches; the reference returns new ones) at a position held on the
+device, so one decode step captured in a CUDA graph serves every position.
+There is no sharding on one card.  MoE waits for its own slice (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from repro_torch.kernels import ops
 __all__ = [
     "rms_norm",
     "rope",
+    "device_position",
     "attention_block",
     "attention_decode",
     "swiglu_mlp",
@@ -53,18 +55,23 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 def rope(x: torch.Tensor, positions: torch.Tensor | int, theta: float) -> torch.Tensor:
     """Rotary embedding.  x: [..., S, H, hd]; positions: [S], or one
-    position as an int (decode)."""
+    position (decode) as an int or a 0-d tensor: the angles are the same
+    float32 products ``float(pos) * freq`` either way."""
     hd = x.shape[-1]
     half = hd // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
-    if isinstance(positions, int):
-        angles = (freqs * positions)[None]  # [1, half]
-    else:
-        angles = positions.float()[..., None] * freqs  # [S, half]
+    pos = torch.as_tensor(positions, device=x.device)
+    angles = pos.float().reshape(-1, 1) * freqs  # [S, half]
     cos = torch.cos(angles)[..., None, :]  # [S, 1, half]
     sin = torch.sin(angles)[..., None, :]
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1).to(x.dtype)
+
+
+def device_position(pos: torch.Tensor | int, device: torch.device) -> torch.Tensor:
+    """A decode position as a 0-d int32 tensor on ``device`` (an int is
+    copied there; a tensor already there is returned as it is)."""
+    return torch.as_tensor(pos, dtype=torch.int32, device=device).reshape(())
 
 
 def _window(cfg: ArchConfig, mixer: str) -> int | None:
@@ -126,42 +133,54 @@ def attention_decode(
     x: torch.Tensor,
     p: dict,
     cache: dict,
-    pos: int,
+    pos: torch.Tensor | int,
     cfg: ArchConfig,
     mixer: str,
 ):
     """One-token attention against the cache.
 
-    x: [B, 1, D]; cache: {"k","v": [B, W, Hkv, hd], "slot_pos": i32[W]}.
-    The new K/V row and its ``slot_pos`` are written IN PLACE (the cache is
-    views into the model's stacked cache; the reference returns a new one),
-    and the attention reads ``[B, Hkv, W, hd]`` views of the cache.
+    x: [B, 1, D]; cache: {"k","v": [B, W, Hkv, hd], "slot_pos": i32[W]};
+    pos: a 0-d int32 tensor on x's device (an int is put there).  The new
+    K/V row and its ``slot_pos`` are written IN PLACE (the cache is views
+    into the model's stacked cache; the reference returns a new one) at a
+    slot computed on the device, and the attention reads ``[B, Hkv, W,
+    hd]`` views of the cache.
 
     * ``full``: slot = pos; a write past the cache (``pos >= W``) is a
-      no-op, as in the reference.  A slot is valid when ``slot_pos >= 0``
-      (``slot_lo = -1``): the kernel reads ``slot_pos`` itself, so no
-      length is computed per layer and step.
+      no-op, as in the reference: the slot is clamped to ``W - 1`` and
+      that one row is written back as it was.  A slot is valid when
+      ``slot_pos >= 0`` (``slot_lo = -1``): the kernel reads ``slot_pos``
+      itself, so no length is computed per layer and step.
     * ``swa`` / ``local``: a ring buffer, slot = ``pos % W``.  A slot is
       valid when ``slot_pos >= 0`` and ``slot_pos > pos - window``
       (``repro/models/layers.py:260-262``); after a prefill whose length
       is not a multiple of the window the valid slots are not a prefix, so
-      the kernel is handed ``slot_pos`` and applies the rule per slot.
+      the kernel is handed ``slot_pos`` and the bound ``pos - window`` as a
+      device scalar and applies the rule per slot.
 
     Returns (out, cache).
     """
     b = x.shape[0]
     hq, hd = cfg.n_heads, cfg.head_dim
+    pos = device_position(pos, x.device)
     q, k, v = _qkv(_bf(x[:, 0]), p, cfg)
     q = rope(q[:, None], pos, cfg.rope_theta)[:, 0]
     k = rope(k[:, None], pos, cfg.rope_theta)[:, 0]
     k_cache, v_cache, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
     w_len = k_cache.shape[1]
     windowed = mixer in ("swa", "local")
-    slot = pos % w_len if windowed else pos
-    if slot < w_len:
-        k_cache[:, slot] = k.to(k_cache.dtype)
-        v_cache[:, slot] = v.to(v_cache.dtype)
-        slot_pos[slot] = pos
+    k, v, written = k.to(k_cache.dtype), v.to(v_cache.dtype), pos
+    if windowed:
+        slot = (pos % w_len).long().reshape(1)
+    else:
+        slot = pos.clamp(max=w_len - 1).long().reshape(1)
+        keep = pos < w_len  # past the cache the row is written back unchanged
+        k = torch.where(keep, k, k_cache.index_select(1, slot)[:, 0])
+        v = torch.where(keep, v, v_cache.index_select(1, slot)[:, 0])
+        written = torch.where(keep, pos, slot_pos.index_select(0, slot)[0])
+    k_cache.index_copy_(1, slot, k[:, None])
+    v_cache.index_copy_(1, slot, v[:, None])
+    slot_pos.index_copy_(0, slot, written.reshape(1))
     kv = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
     slot_lo = pos - (cfg.window or cfg.local_window or w_len) if windowed else -1
     o = ops.decode_attention(q, *kv, slot_pos=slot_pos, slot_lo=slot_lo)

@@ -356,14 +356,21 @@ def _put(dst, src) -> None:
 
 
 def decode_step(
-    params: dict, caches: list[dict], batch: dict, pos: int, cfg: ArchConfig
+    params: dict, caches: list[dict], batch: dict, pos: torch.Tensor | int, cfg: ArchConfig
 ):
-    """One decode step at position ``pos`` (an int).  batch["tokens"]: [B, 1].
+    """One decode step at position ``pos``: a 0-d int tensor on the
+    tokens' device, as the reference's traced ``pos`` (an int is copied
+    there; both give the same logits and caches bit for bit).
+    batch["tokens"]: [B, 1].
 
     Each layer updates its cache in place (see
-    :mod:`repro_torch.models.layers`).  Returns (logits [B, Vp], caches)."""
+    :mod:`repro_torch.models.layers`); nothing here reads a device value
+    on the host, so the step can be captured in a CUDA graph and replayed
+    with the position and tokens changed in place.  Returns (logits
+    [B, Vp], caches)."""
     check_supported(cfg)
     x = embed_inputs(params, batch, cfg)  # [B, 1, D]
+    pos = L.device_position(pos, x.device)
     for i, (unit, r) in enumerate(segments(cfg)):
         for li in range(r):
             lp = _layer(params[f"seg{i}"], li)

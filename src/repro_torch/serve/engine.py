@@ -10,19 +10,31 @@ Port of ``repro/serve/engine.py``, with its two schedulers:
   prefilled (batch-1) and its cache is spliced into the batched cache
   at the freed slot.
 
-Both run :func:`repro_torch.models.lm.prefill` / ``decode_step`` eagerly
-under ``torch.inference_mode()``, for every architecture the LM serves
-(attention K/V caches, Mamba-2 and RG-LRU states: ``_tile_cache`` and
-``_splice_cache`` walk the nested cache and treat every ``[R, B, ...]``
-leaf alike, as the reference's do).  The schedules, and the reference's
-quirks, are kept as they are: the initial fill of ``generate_continuous``
-leaves every slot with the last prefilled request's cache (``_splice_cache``
-into a batch-1 cache replaces it), a newcomer attends to the zero K/V its
-prefill left in slots ``[plen, pos)`` because ``slot_pos`` is shared by the
-batch and not spliced, left-padding tokens (0) enter the SSM and RG-LRU
-states, and both schedulers run one decode step past the last token they
-keep.  Greedy decoding matches the reference;
-``temperature > 0`` samples with a ``torch.Generator`` seeded from
+Both run under ``torch.inference_mode()``, for every architecture the LM
+serves (attention K/V caches, Mamba-2 and RG-LRU states: ``_tile_cache``
+and ``_splice_cache`` walk the nested cache and treat every ``[R, B, ...]``
+leaf alike, as the reference's do).  Prefill
+(:func:`repro_torch.models.lm.prefill`) runs eagerly.  Decode is one
+:func:`~repro_torch.models.lm.decode_step` per step over caches that stay
+where prefill (or the tiling of the first fill) put them: the tokens and
+the position sit in static device tensors and the position advances on the
+device.  With ``graph`` (the default on the card, the counterpart of the
+reference's jitted decode) the first step of a batch runs eagerly and the
+rest replay its CUDA graph (:mod:`repro_torch.graphs`), one capture per
+wave of ``generate`` and one per ``generate_continuous``, all in one memory
+pool of the engine; ``graph=False`` runs every step eagerly.  Sampling and
+the host's token bookkeeping stay outside the graph, as in the reference,
+and ``_splice_cache`` copies a refill into the captured cache in place.
+
+The schedules, and the reference's quirks, are kept as they are: the
+initial fill of ``generate_continuous`` leaves every slot with the last
+prefilled request's cache (``_splice_cache`` into a batch-1 cache
+overwrites it whole, where the reference replaces it), a newcomer
+attends to the zero K/V its prefill left in slots ``[plen, pos)`` because
+``slot_pos`` is shared by the batch and not spliced, left-padding tokens
+(0) enter the SSM and RG-LRU states, and both schedulers run one decode
+step past the last token they keep.  Greedy decoding matches the
+reference; ``temperature > 0`` samples with a ``torch.Generator`` seeded from
 ``ServeConfig.seed``, whose streams differ from ``jax.random``'s.
 """
 from __future__ import annotations
@@ -33,6 +45,7 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
+from repro_torch import graphs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
@@ -57,9 +70,14 @@ class ServeEngine:
         sc: ServeConfig = ServeConfig(),
         *,
         device: str | torch.device | None = None,
+        graph: bool | None = None,
     ):
+        """``graph``: replay decode steps from CUDA graphs (``None``: on the
+        card yes, on the CPU no; ``True`` on the CPU raises)."""
         lm.check_supported(cfg)
         self.device = resolve_device(device)
+        self.graph = graphs.use_graph(graph, self.device)
+        self._pool = torch.cuda.graph_pool_handle() if self.graph else None
         emb = params["embed"]["tok"]
         if emb.device.type != self.device.type:
             raise ValueError(f"params lie on {emb.device}, the engine on {self.device}")
@@ -128,17 +146,17 @@ class ServeEngine:
             tok[s_] = int(self._sample(logits)[0])
             results[r].append(int(tok[s_]))
             slot_req[s_], slot_left[s_] = r, max_new_tokens - 1
-            caches = c1 if caches is None else _splice_cache(caches, c1, s_)
+            if caches is None:
+                caches = c1
+            else:
+                _splice_cache(caches, c1, s_)
         if caches is None:
             return results
-        caches = _tile_cache(caches, b)
-        step = 0
+        caches = _tile_cache(caches, b)  # the decode graph captures these tensors
+        decode = _Decode(self, caches, b, plen)
         while any(sr >= 0 for sr in slot_req):
-            logits, caches = lm.decode_step(
-                self.params, caches, self._tokens(tok[:, None].copy()), plen + step, self.cfg
-            )
+            logits = decode(torch.from_numpy(tok))
             nxt = self._sample(logits).cpu().numpy()
-            step += 1
             for s_ in range(b):
                 r = slot_req[s_]
                 if r < 0:
@@ -154,7 +172,7 @@ class ServeEngine:
                     if queue:  # refill the freed slot immediately
                         r2 = queue.pop(0)
                         logits2, c1 = prefill(r2)
-                        caches = _splice_cache(caches, c1, s_)
+                        _splice_cache(caches, c1, s_)
                         tok[s_] = int(self._sample(logits2)[0])
                         results[r2].append(int(tok[s_]))
                         slot_req[s_], slot_left[s_] = r2, max_new_tokens - 1
@@ -175,7 +193,8 @@ class ServeEngine:
         results: list[list[int]] = [[] for _ in range(b)]
         done = np.zeros(b, bool)
         tok = self._sample(logits)
-        for step in range(max_new_tokens):
+        decode = _Decode(self, caches, b, plen)
+        for _ in range(max_new_tokens):
             t = tok.cpu().numpy()
             for r in range(b):
                 if not done[r]:
@@ -184,11 +203,34 @@ class ServeEngine:
                         done[r] = True
             if done.all():
                 break
-            logits, caches = lm.decode_step(
-                self.params, caches, {"tokens": tok[:, None]}, plen + step, self.cfg
-            )
-            tok = self._sample(logits)
+            tok = self._sample(decode(tok))
         return results
+
+
+class _Decode:
+    """Decode steps of one batch: ``lm.decode_step`` over caches that stay
+    in place, its tokens ``[B, 1]`` and position in static device tensors
+    (the position advances on the device), run eagerly or, on the card,
+    replayed from a CUDA graph after the first step.  Calling it with the
+    batch's tokens ``[B]`` returns the step's logits ``[B, Vp]``, valid
+    until the next call."""
+
+    def __init__(self, eng: ServeEngine, caches: list[dict], batch: int, pos: int):
+        dev = eng.device
+        tokens = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+        position = torch.full((), pos, dtype=torch.int32, device=dev)
+
+        def step() -> torch.Tensor:  # refers to no _Decode: no cycle keeps the graph alive
+            logits, _ = lm.decode_step(eng.params, caches, {"tokens": tokens}, position, eng.cfg)
+            position.add_(1)
+            return logits
+
+        self.tokens = tokens
+        self.run = graphs.stepper(step, dev, eng.graph, pool=eng._pool)
+
+    def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
+        self.tokens.copy_(tokens.reshape(self.tokens.shape))
+        return self.run()
 
 
 def _tree_map(fn, *trees):
@@ -211,8 +253,10 @@ def _tile_cache(cache, b: int):
 
 
 def _splice_cache(batched, single, slot: int):
-    """Write a batch-1 cache into slot ``slot`` of a batched cache (in place
-    where the batched cache has more than one slot)."""
+    """Copy a batch-1 cache into slot ``slot`` of a batched cache, in place
+    (a decode graph may hold its tensors).  A batch-1 cache is overwritten
+    whole, whatever ``slot``: the reference returns the new cache there.
+    Returns ``batched``."""
     def splice(bc, sc_):
         if (
             bc.dim() >= 2
@@ -221,7 +265,8 @@ def _splice_cache(batched, single, slot: int):
             and bc.shape[0] == sc_.shape[0]
         ):
             if bc.shape[1] == 1:
-                return sc_
-            bc[:, slot] = sc_[:, 0].to(bc.dtype)
-        return bc
-    return _tree_map(splice, batched, single)
+                bc.copy_(sc_)
+            else:
+                bc[:, slot] = sc_[:, 0].to(bc.dtype)
+    _tree_map(splice, batched, single)
+    return batched

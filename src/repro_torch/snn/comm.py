@@ -18,7 +18,12 @@ Every call adds the bytes it moves across the slow axis to the current
 step of :attr:`LoopbackComm.step_bytes`, counted per message as
 ``repro_torch.snn.sparse.exchange_messages`` and
 ``RaggedPlan.round_messages`` define them, so one step's ledger equals
-``exchange_volume`` for the schedule the engine ran.  Fast-axis traffic
+``exchange_volume`` for the schedule the engine ran.  A step replayed from
+a CUDA graph runs none of this Python: the graph records the entry its
+capture charged and credits it once per replay
+(:class:`repro_torch.graphs.StepGraph`), and the index tensors of
+:meth:`LoopbackComm.ppermute` are made by the eager first step that comes
+before any capture.  Fast-axis traffic
 (level-1 gathers, the bridge re-broadcast) is level-1 territory and is
 not charged.  A ``torch.distributed``/NCCL backend behind this interface
 is a later slice of the port.

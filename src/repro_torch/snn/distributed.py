@@ -31,6 +31,16 @@ the block-CSR ``I = Σ_k s_blk[src_ids[k]] @ blocks[k]`` through
 :func:`repro_torch.kernels.spike_currents_blocks`, one launch per step for
 all ranks.  There is no policy flag: on a CUDA device that is the
 hand-written ``spike_accum_blocks`` kernel, on the CPU its plain version.
+
+A step updates the rank-stacked state in place and writes its raster row
+through a device step counter, so it can be captured: on the card the
+first step of a run runs eagerly and the rest replay its CUDA graph
+(:mod:`repro_torch.graphs`, the counterpart of the reference's ``jax.jit``
+over ``lax.scan``), one capture per run.  The graph binds the synapse
+tiles, the drive and the index rows by address, so a plan swap
+(:meth:`DistributedSNN.with_plan`, :meth:`PlanBuffer.flip`) is captured
+anew by the next run; the tiles are never copied.  ``graph=False`` runs
+every step eagerly.
 """
 from __future__ import annotations
 
@@ -42,7 +52,7 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from repro_torch import convert
+from repro_torch import convert, graphs
 from repro_torch.core.routing import pool_block_mask
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import spike_currents_blocks
@@ -53,6 +63,8 @@ from repro_torch.snn.sparse import BlockSynapses, exchange_schedule, exchange_vo
 from repro_torch.snn.neuron import (
     IzhikevichParams,
     LIFParams,
+    NeuronState,
+    generators,
     init_state,
     izhikevich_step,
     lif_step,
@@ -145,6 +157,8 @@ class DistributedSNN:
         ``syn.blocks`` made after that are not seen).
       device: where the ranks live; ``None`` means ``"cuda"``, and a
         missing card raises unless ``"cpu"`` is asked for.
+      graph: replay the steps from a CUDA graph (``None``: on the card yes,
+        on the CPU no; ``True`` on the CPU raises).
     """
 
     mesh: tuple[int, ...]
@@ -158,9 +172,11 @@ class DistributedSNN:
     plan: RaggedPlan | None = None
     tiles: tuple[torch.Tensor, torch.Tensor] | None = None
     device: str | torch.device | None = None
+    graph: bool | None = None
 
     def __post_init__(self):
         object.__setattr__(self, "device", resolve_device(self.device))
+        object.__setattr__(self, "graph", graphs.use_graph(self.graph, self.device))
         object.__setattr__(self, "mesh", tuple(int(x) for x in self.mesh))
         if self.params is None:
             raise ValueError("params is required")
@@ -310,7 +326,8 @@ class DistributedSNN:
         comm = LoopbackComm(self.mesh, self.device) if comm is None else comm
         if self.exchange in ("sparse", "ragged"):
             fn, args = self._sparse_callable_and_args()
-            return fn(*args, n_steps=n_steps, seed=seed, comm=comm, probe=probe)
+            return fn(*args, n_steps=n_steps, seed=seed, comm=comm, probe=probe,
+                      graph=self.graph)[0]
         w = self._dense_w()
         m = w.shape[0]
         n_dev = self.n_devices
@@ -332,14 +349,17 @@ class DistributedSNN:
         prev = torch.zeros((n_dev, n_loc), dtype=torch.float32, device=self.device)
         raster = torch.empty((n_steps, n_dev, n_loc), dtype=torch.float32,
                              device=self.device)
-        for t in range(n_steps):
+        t_dev = torch.zeros((1,), dtype=torch.long, device=self.device)
+
+        def one_step():
             comm.new_step()
             s_global = gather(prev)  # [n_dev, M]
             cur = torch.matmul(s_global[:, None, :], w_block)[:, 0]
-            if probe is not None:
-                probe(t, cur.reshape(-1))
-            state, prev = step(state, cur + drive, self.params)
-            raster[t] = prev
+            _advance(step, state, prev, raster, t_dev, cur + drive, self.params)
+            return cur
+
+        graphs.run_steps(one_step, n_steps, self.device, self.graph, ledger=comm,
+                         generators=generators(state.key), probe=_global(probe))
         return raster.reshape(n_steps, m)
 
     def step_profile(self, n_steps: int = 2, *, seed: int = 0) -> dict[str, float]:
@@ -348,8 +368,11 @@ class DistributedSNN:
         Phases are timed on the host, synchronizing the device at each
         boundary: ``prepare_s`` (looking up the prepared step and staging
         its device inputs), ``first_call_s`` and ``steady_call_s`` (two
-        runs of ``n_steps``); plus the :meth:`exchange_stats` byte ledger
-        (``bytes_per_step``) and the prepared-step cache hit/miss counters.
+        runs of ``n_steps``, each capturing its step's CUDA graph where the
+        engine replays), and ``capture_s``, the first run's capture (inside
+        ``first_call_s``, as the reference's compile is); plus the
+        :meth:`exchange_stats` byte ledger (``bytes_per_step``) and the
+        prepared-step cache hit/miss counters.
         Each phase is also a tracer span and the bytes are counters.
         """
         if self.exchange not in ("sparse", "ragged"):
@@ -370,10 +393,12 @@ class DistributedSNN:
             for phase in ("first_call", "steady_call"):
                 t = time.perf_counter()
                 with obs.span(f"snn.{phase}", cat="exec", tid="snn"):
-                    fn(*args, n_steps=n_steps, seed=seed,
-                       comm=LoopbackComm(self.mesh, self.device))
+                    _, capture_s = fn(*args, n_steps=n_steps, seed=seed,
+                                      comm=LoopbackComm(self.mesh, self.device),
+                                      graph=self.graph)
                     sync()
                 prof[f"{phase}_s"] = time.perf_counter() - t
+                prof.setdefault("capture_s", capture_s)
         stats = self.exchange_stats()
         bytes_step = float(stats[self.exchange])
         prof["bytes_per_step"] = bytes_step
@@ -524,14 +549,19 @@ class _SparseStep:
         buf = buf.reshape(n_dev, g, rb + 1)[:, :, :rb]
         return buf.reshape(n_dev, n_dev, rb // r)
 
-    def __call__(self, src, blocks, drive, idx_rows, *, n_steps, seed, comm, probe=None):
+    def __call__(self, src, blocks, drive, idx_rows, *, n_steps, seed, comm, probe=None,
+                 graph=False):
+        """Run ``n_steps`` (replayed from a CUDA graph with ``graph``);
+        returns the raster ``[T, n_dev·B]`` and the capture's seconds."""
         key = self.key
         n_dev, b = self.n_dev, blocks.shape[-1]
         dev = blocks.device
         state = _init(key.params, n_dev, b, seed, dev)
         prev = torch.zeros((n_dev, b), dtype=torch.float32, device=dev)
         raster = torch.empty((n_steps, n_dev, b), dtype=torch.float32, device=dev)
-        for t in range(n_steps):
+        t_dev = torch.zeros((1,), dtype=torch.long, device=dev)
+
+        def one_step():
             comm.new_step()
             s_grp = comm.all_gather(prev, "inner") if self.r > 1 else prev
             if self.kind == "ragged":
@@ -539,11 +569,29 @@ class _SparseStep:
             else:
                 s_blocks = self._gather_blocks(comm, s_grp)
             cur = spike_currents_blocks(s_blocks, src, blocks)
-            if probe is not None:
-                probe(t, cur.reshape(-1))
-            state, prev = self.step(state, cur + drive, key.params)
-            raster[t] = prev
-        return raster.reshape(n_steps, n_dev * b)
+            _advance(self.step, state, prev, raster, t_dev, cur + drive, key.params)
+            return cur
+
+        capture_s = graphs.run_steps(one_step, n_steps, dev, graph, ledger=comm,
+                                     generators=generators(state.key), probe=_global(probe))
+        return raster.reshape(n_steps, n_dev * b), capture_s
+
+
+def _advance(step, state: NeuronState, prev, raster, t_dev, i_syn, params) -> None:
+    """One neuron update of the rank-stacked ``state`` under ``i_syn``, in
+    place: the state and ``prev`` take the new values, and the spikes land
+    in raster row ``t_dev``, which then advances."""
+    new, spikes = step(state, i_syn, params)
+    state.v.copy_(new.v)
+    state.u.copy_(new.u)
+    prev.copy_(spikes)
+    raster.index_copy_(0, t_dev, spikes[None])
+    t_dev.add_(1)
+
+
+def _global(probe):
+    """``probe(t, i)`` on the global current ``[M]`` from a rank-stacked one."""
+    return None if probe is None else (lambda t, cur: probe(t, cur.reshape(-1)))
 
 
 @functools.lru_cache(maxsize=32)

@@ -1,8 +1,11 @@
 """Single-device SNN engine — the reference simulation loop, on tensors.
 
 Port of ``repro.snn.engine``.  :class:`SNNEngine` steps the neuron
-dynamics and the synaptic-current accumulation in a Python loop over
-steps; it is the raster oracle the distributed engine
+dynamics and the synaptic-current accumulation in a loop over steps, each
+step updating the state in place and writing its raster row through a
+device step counter; on the card the first step runs eagerly and the rest
+replay its CUDA graph (:mod:`repro_torch.graphs`, the counterpart of the
+reference's ``jax.jit`` over ``lax.scan``).  It is the raster oracle the distributed engine
 (:mod:`repro_torch.snn.distributed`) is pinned to, modulo the neuron
 permutation.  The ``current_fn`` hook swaps the accumulation: pass
 :func:`repro_torch.kernels.spike_currents` to run the hand-written
@@ -19,6 +22,7 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
+from repro_torch import graphs
 from repro_torch.core.graph import CommGraph
 from repro_torch.device import resolve_device
 from repro_torch.snn.sparse import BlockSynapses
@@ -27,6 +31,7 @@ from repro_torch.snn.neuron import (
     LIFParams,
     NeuronState,
     init_state,
+    generators,
     izhikevich_step,
     lif_step,
     make_generators,
@@ -183,6 +188,7 @@ class RunResult:
     spikes: torch.Tensor  # [T, M] f32 raster
     v_trace: torch.Tensor  # [T, M] membrane potential ([T, 0] unless recorded)
     final_state: NeuronState
+    capture_s: float = 0.0  # seconds spent capturing the step's CUDA graph
 
     @property
     def rates(self) -> torch.Tensor:
@@ -200,16 +206,20 @@ class SNNEngine:
       i_ext: constant external drive per neuron ``f32[M]`` (or scalar).
       device: where the engine runs; ``None`` means ``"cuda"``, and a
         missing card raises unless ``"cpu"`` is asked for.
+      graph: replay the steps from a CUDA graph (``None``: on the card yes,
+        on the CPU no; ``True`` on the CPU raises).
     """
 
     w_syn: torch.Tensor
     params: LIFParams | IzhikevichParams
     i_ext: torch.Tensor | float = 0.0
     device: str | torch.device | None = None
+    graph: bool | None = None
 
     def __post_init__(self):
         dev = resolve_device(self.device)
         object.__setattr__(self, "device", dev)
+        object.__setattr__(self, "graph", graphs.use_graph(self.graph, dev))
         object.__setattr__(
             self, "w_syn",
             torch.as_tensor(self.w_syn, dtype=torch.float32, device=dev),
@@ -253,10 +263,19 @@ class SNNEngine:
         vs = torch.empty((n_steps, m if record_v else 0), dtype=torch.float32,
                          device=dev)
         prev = torch.zeros((m,), dtype=torch.float32, device=dev)
-        for t in range(n_steps):
-            i_syn = accumulate(prev, w) + i_ext
-            state, prev = step(state, i_syn, self.params)
-            spikes_out[t] = prev
+        t_dev = torch.zeros((1,), dtype=torch.long, device=dev)  # the step counter
+
+        def one_step():
+            new, spikes = step(state, accumulate(prev, w) + i_ext, self.params)
+            state.v.copy_(new.v)
+            state.u.copy_(new.u)
+            prev.copy_(spikes)
+            spikes_out.index_copy_(0, t_dev, spikes[None])
             if record_v:
-                vs[t] = state.v
-        return RunResult(spikes=spikes_out, v_trace=vs, final_state=state)
+                vs.index_copy_(0, t_dev, new.v[None])
+            t_dev.add_(1)
+
+        capture_s = graphs.run_steps(one_step, n_steps, dev, self.graph,
+                                     generators=generators(gen))
+        return RunResult(spikes=spikes_out, v_trace=vs, final_state=state,
+                         capture_s=capture_s)

@@ -34,6 +34,7 @@ __all__ = [
     "izhikevich_step",
     "init_state",
     "make_generators",
+    "generators",
 ]
 
 
@@ -87,6 +88,15 @@ def make_generators(
         for s in np.random.SeedSequence(seed).spawn(n)
     ]
     return [torch.Generator(device=device).manual_seed(s) for s in seeds]
+
+
+def generators(key: Key) -> tuple[torch.Generator, ...]:
+    """The generators a state draws from, to register with a CUDA graph
+    that captures its steps (:class:`repro_torch.graphs.StepGraph`): a
+    replay then advances each one's Philox offset as an eager step would."""
+    if key is None:
+        return ()
+    return (key,) if isinstance(key, torch.Generator) else tuple(key)
 
 
 def init_state(

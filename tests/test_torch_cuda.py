@@ -595,3 +595,119 @@ def test_serve_engine_on_the_card(dev, arch):
         assert card == cpu
     finally:
         L.COMPUTE_DTYPE = saved
+
+
+# -- the compiled step: CUDA graphs replayed against eager runs --------------
+
+
+def _block_network(seed: int, m: int = 256, n_blocks: int = 8):
+    """Block-sparse weights (each rank's tile and its neighbour's) and a
+    per-neuron drive that spreads the firing over the run."""
+    rng = np.random.default_rng(seed)
+    w = np.zeros((m, m), np.float32)
+    b = m // n_blocks
+    for d in range(n_blocks):
+        for src in (d, (d + 1) % n_blocks):
+            tile = (rng.random((b, b)) < 0.3) * rng.gamma(2.0, 2.0, (b, b))
+            w[src * b:(src + 1) * b, d * b:(d + 1) * b] = tile
+    np.fill_diagonal(w, 0.0)
+    return w, rng.uniform(3.0, 8.0, m).astype(np.float32)
+
+
+@pytest.mark.parametrize("noise", [0.0, 2.0])
+@pytest.mark.parametrize("exchange,scatter", [
+    ("flat", "fused"), ("two_level", "fused"), ("sparse", "fused"),
+    ("ragged", "fused"), ("ragged", "per_round"),
+])
+def test_replayed_steps_equal_eager(dev, exchange, scatter, noise):
+    """A run replayed from a CUDA graph gives the eager run's raster and
+    probed currents bit for bit (with channel noise too: each rank's
+    generator advances as in eager), the same launches, and the same
+    ledger, one entry per step (``exchange_volume`` for sparse / ragged)."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.snn import DistributedSNN, LIFParams, LoopbackComm
+
+    w, drive = _block_network(5)
+    steps, runs = 40, {}
+    for graph in (False, True):
+        eng = DistributedSNN(mesh=(4, 2), w_syn=w, params=LIFParams(noise_sigma=noise),
+                             exchange=exchange, i_ext=drive, ragged_scatter=scatter,
+                             device=dev, graph=graph)
+        comm, cur = LoopbackComm(eng.mesh, dev), []
+        before = dict(LAUNCHES)
+        raster = eng.run(steps, seed=3, comm=comm, probe=lambda t, i: cur.append(i.clone()))
+        runs[graph] = (raster, comm.step_bytes, {k: LAUNCHES[k] - before[k] for k in LAUNCHES},
+                       torch.stack(cur))
+    (r0, b0, l0, c0), (r1, b1, l1, c1) = runs[False], runs[True]
+    assert r0.sum() > 0 and torch.equal(r1, r0)
+    assert torch.equal(c1, c0)
+    assert l1 == l0 and b1 == b0 and len(b1) == steps
+    if exchange in ("sparse", "ragged"):
+        assert l1["spike_accum_blocks"] == steps
+        assert b1 == [eng.exchange_stats()[exchange]] * steps
+
+
+@pytest.mark.parametrize("noise", [0.0, 2.0])
+@pytest.mark.parametrize("hook", ["matmul", "spike_accum"])
+def test_replayed_oracle_equals_eager(dev, hook, noise):
+    """The single-device engine replayed from a CUDA graph (its current
+    hook the ``spike_accum`` kernel or a matmul) gives the eager raster and
+    membrane trace bit for bit and launches K2 once per step either way."""
+    from repro_torch.kernels import LAUNCHES, spike_currents
+    from repro_torch.snn import LIFParams, SNNEngine
+
+    w, drive = _block_network(6)
+    steps, runs = 40, {}
+    fn = spike_currents if hook == "spike_accum" else None
+    for graph in (False, True):
+        eng = SNNEngine(w_syn=w, params=LIFParams(noise_sigma=noise), i_ext=drive, device=dev,
+                        graph=graph)
+        before = LAUNCHES["spike_accum"]
+        res = eng.run(steps, seed=2, record_v=True, current_fn=fn)
+        runs[graph] = (res, LAUNCHES["spike_accum"] - before)
+    (e, n0), (g, n1) = runs[False], runs[True]
+    assert e.spikes.sum() > 0 and torch.equal(g.spikes, e.spikes)
+    assert torch.equal(g.v_trace, e.v_trace)
+    assert n0 == n1 == (steps if fn else 0)
+    assert g.capture_s > 0 and e.capture_s == 0
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b"])
+def test_replayed_decode_equals_eager(dev, arch):
+    """bf16 decode replayed from CUDA graphs: both schedulers' greedy
+    tokens equal the eager engine's (with refills spliced into the
+    captured caches, and a one-slot pool whose cache is overwritten whole),
+    with the same launches; teacher-forced steps past the cache's end give
+    logits within two bf16 steps of eager's (bit-equal unless cuBLAS picks
+    another algorithm under capture)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.engine import _Decode
+
+    cfg = ARCHS[arch].reduced()
+    params = lm.init_params(cfg, 0, device=dev)
+    prompts = [[1, 2, 3], [4, 5], [6, 7, 8, 9, 10], [11], [12, 13], [14, 15, 16]]
+    for slots in (4, 1):
+        for name in ("generate", "generate_continuous"):
+            out = {}
+            for graph in (False, True):
+                eng = ServeEngine(cfg, params, ServeConfig(batch_slots=slots), device=dev,
+                                  graph=graph)
+                before = dict(LAUNCHES)
+                toks = getattr(eng, name)(prompts, 6)
+                out[graph] = (toks, {k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+            assert out[True] == out[False], (slots, name)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1), dtype=torch.int32)
+    logits = {}
+    with torch.inference_mode():
+        for graph in (False, True):
+            eng = ServeEngine(cfg, params, device=dev, graph=graph)
+            _, caches = lm.prefill(params, {"tokens": toks[:, :8]}, cfg, max_len=12)
+            decode = _Decode(eng, caches, 2, 8)
+            logits[graph] = torch.stack([decode(toks[:, 8 + i]).clone() for i in range(8)])
+    got, want = logits[True][..., :cfg.vocab_size], logits[False][..., :cfg.vocab_size]
+    rms = float(want.double().pow(2).mean().sqrt())
+    assert float(((got - want).abs() - 2**-6 * want.abs()).max()) <= 2**-6 * rms

@@ -3,9 +3,11 @@
 (``repro_torch.convert.lm_params`` of the JAX ``init_params`` tree) and the
 same numpy tokens: the layers one by one, prefill and several decode steps
 for ``deepseek-7b`` reduced (MHA), ``phi4-mini-3.8b`` reduced with two kv
-heads (GQA, group 2), ``mamba2-1.3b`` reduced (ssm) and
+heads (GQA, group 2), ``mamba2-1.3b`` reduced (ssm),
 ``recurrentgemma-9b`` reduced (rglru + local attention, window 64, whose
-ring-buffer decode is checked on an aligned and a misaligned prefill).
+ring-buffer decode is checked on an aligned and a misaligned prefill),
+``qwen2.5-14b`` reduced (the one served config with q/k/v biases) and
+``yi-34b`` reduced.
 
 Tolerance.  Both packages compute in bfloat16 with float32 softmax and
 norms and round at the same places, but their matmuls sum in other orders,
@@ -36,7 +38,8 @@ from repro_torch.models import lm
 POL = ShardingPolicy()
 CPU = "cpu"
 MODELS = {"deepseek-7b": None, "phi4-mini-3.8b": 2,  # arch -> n_kv_heads override
-          "mamba2-1.3b": None, "recurrentgemma-9b": None}
+          "mamba2-1.3b": None, "recurrentgemma-9b": None,
+          "qwen2.5-14b": None, "yi-34b": None}
 RECURRENT = ["mamba2-1.3b", "recurrentgemma-9b"]
 
 

@@ -124,19 +124,26 @@ def test_sampling_is_seeded(deepseek):
 
 def test_cache_tile_and_splice():
     """``_tile_cache`` copies slot 0 to every slot; ``_splice_cache``
-    replaces a batch-1 cache and writes one slot of a batched one, and
-    leaves ``slot_pos`` (no batch dim) as it was, as the reference does."""
-    single = [{"0": {"k": torch.arange(6.0).view(2, 1, 3), "slot_pos": torch.tensor([[0, -1]] * 2)}}]
+    overwrites a batch-1 cache whole (the reference replaces it) and writes
+    one slot of a batched one, both in place (a decode graph holds the
+    tensors), and leaves ``slot_pos`` (no batch dim) as it was, as the
+    reference does."""
+    k0 = torch.arange(6.0).view(2, 1, 3)
+    single = [{"0": {"k": k0.clone(), "slot_pos": torch.tensor([[0, -1]] * 2)}}]
     tiled = _tile_cache(single, 3)
     assert tiled[0]["0"]["k"].shape == (2, 3, 3)
     assert torch.equal(tiled[0]["0"]["k"][:, 2], single[0]["0"]["k"][:, 0])
     assert tiled[0]["0"]["slot_pos"] is single[0]["0"]["slot_pos"]
     other = [{"0": {"k": -torch.ones(2, 1, 3), "slot_pos": torch.tensor([[5, 6]] * 2)}}]
-    assert _splice_cache(single, other, 0)[0]["0"]["k"] is other[0]["0"]["k"]
-    out = _splice_cache(tiled, other, 1)
-    assert torch.equal(out[0]["0"]["k"][:, 1], -torch.ones(2, 3))
-    assert torch.equal(out[0]["0"]["k"][:, 0], single[0]["0"]["k"][:, 0])
-    assert torch.equal(out[0]["0"]["slot_pos"], torch.tensor([[0, -1]] * 2))
+    k_single = single[0]["0"]["k"]
+    _splice_cache(single, other, 0)
+    assert single[0]["0"]["k"] is k_single and torch.equal(k_single, other[0]["0"]["k"])
+    k_tiled = tiled[0]["0"]["k"]
+    _splice_cache(tiled, other, 1)
+    assert tiled[0]["0"]["k"] is k_tiled
+    assert torch.equal(k_tiled[:, 1], -torch.ones(2, 3))
+    assert torch.equal(k_tiled[:, 0], k0[:, 0])
+    assert torch.equal(tiled[0]["0"]["slot_pos"], torch.tensor([[0, -1]] * 2))
 
 
 def test_engine_rejects_what_the_slice_does_not_serve(deepseek):
