@@ -31,11 +31,15 @@ nonzero.
    scalar, as the model passes it).  The scans against their plain
    versions on float64 copies at the reference's ``3e-3``: ``ssd_scan`` at
    the reference's sweep, chunks of 127 and 96, and mamba2-1.3b's prefill,
-   its final state too; ``rglru_scan`` at the sweep and recurrentgemma-9b's
-   prefill.  Kernel, plain, library-yardstick (none for the scans) and
-   bound times (``ssd_scan``'s 3xTF32 products at the TF32 peak); at the
-   main paths' shapes also their device times (``torch.profiler``), and
-   for every spike-accumulation case the kernel's.
+   its final state too; ``rglru_scan`` at the sweep and at the four shapes
+   recurrentgemma-9b's prefills give it (batch 4 at 1,024 and 512 tokens,
+   batch 1 at 1,024 and 4,096), each with its launch geometry
+   (``rglru_plan``), the hash of its trace and the exact traces of a = b =
+   1 (t + 1) and a = 0 (b).  Kernel, plain, library-yardstick (none for
+   the scans) and bound times (``ssd_scan``'s 3xTF32 products at the TF32
+   peak); at the main paths' shapes also their device times
+   (``torch.profiler``), and for every spike-accumulation case the
+   kernel's.
 3. The launcher (``repro_torch.launch.run_brainsim.main``) for each of the
    four exchanges, at its defaults and with channel noise (``--noise 2``,
    which spreads the firing over the run so the rasters depend on the
@@ -85,10 +89,12 @@ nonzero.
    reported); capture seconds and the peak memory of each.  (c) the
    serving launcher ``python -m repro_torch.launch.serve`` at its
    defaults.
-6. A ``kernels`` line (all six kernels; K2 at 1 % firing on W f32[32768,
-   4096] and at the oracle's shape, K3 and K4 at phi4-mini-3.8b's and at
-   recurrentgemma-9b's shapes), the card's name and power limit, and the
-   last line, ``{"ok": true, "device": {...}}``.
+6. The launches of ``rglru_scan`` on recurrentgemma-9b's main path by
+   input shape and by batch; a ``kernels`` line (all six kernels; K2 at 1 %
+   firing on W f32[32768, 4096] and at the oracle's shape, K3 and K4 at
+   phi4-mini-3.8b's and at recurrentgemma-9b's shapes, K6 at the batch-4
+   wave and the batch-1 prefill of 1,024 tokens), the card's name and power
+   limit, and the last line, ``{"ok": true, "device": {...}}``.
 
 Each main path (phases 3-4, and each model of phase 5) runs with the
 launch counts set to 0 just before it and read just after, and must have
@@ -100,6 +106,7 @@ Exits 2 without CUDA.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import subprocess
 import sys
@@ -113,6 +120,7 @@ STEPS = 100  # the launcher's default
 REAL_STEPS = 200
 DRIVE = (3.0, 8.0)  # per-neuron external drive at real size, uniform
 TOL = dict(rtol=1e-5, atol=1e-4)
+LONG_PROMPT = 4096  # recurrentgemma-9b's batch-1 request: two local windows
 F32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores (data sheet)
 TF32_PEAK = 494.7e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
 
@@ -197,11 +205,44 @@ def uncounted():
     the launch counts are put back as they were."""
     from repro_torch.kernels import LAUNCHES
 
-    saved = dict(LAUNCHES)
+    saved, shapes = dict(LAUNCHES), dict(SHAPES)
     try:
         yield
     finally:
         LAUNCHES.update(saved)
+        SHAPES.clear()
+        SHAPES.update(shapes)
+
+
+#: launches of ``rglru_scan`` by input shape ``(B, S, D)`` while
+#: :func:`shapes_of_rglru` is on, kept like the launch counts
+SHAPES: dict[tuple, int] = {}
+
+
+@contextlib.contextmanager
+def shapes_of_rglru():
+    """Counts the shapes ``rglru_scan`` launches at, where the model's
+    dispatch (``kernels.ops.rglru``) calls it; launches made inside
+    :func:`uncounted` are put back as they were."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import scan
+
+    real = scan.rglru_scan
+
+    def counted(a, b):
+        before = LAUNCHES["rglru_scan"]
+        out = real(a, b)
+        if LAUNCHES["rglru_scan"] > before:
+            key = tuple(a.shape)
+            SHAPES[key] = SHAPES.get(key, 0) + 1
+        return out
+
+    SHAPES.clear()
+    scan.rglru_scan = counted
+    try:
+        yield SHAPES
+    finally:
+        scan.rglru_scan = real
 
 
 @contextlib.contextmanager
@@ -548,11 +589,14 @@ SSD_CASES = [
     ("chunk_96", 2, 384, 8, 2, 32, 16, 96),
     ("mamba2_prefill", 4, 1024, 64, 1, 64, 128, 128),
 ]
-# (name, b, s, d): tests/test_kernels.py:94-103, then recurrentgemma-9b's
-# prefill (a 4-slot wave of 1,024 tokens, lru_width 4,096)
+# (name, b, s, d): tests/test_kernels.py:94-103, then the shapes
+# recurrentgemma-9b's prefills give it (lru_width 4,096): a 4-slot wave of
+# 1,024 tokens and of 512 (``generate``'s two waves), a batch-1 prefill of
+# 1,024 (``generate_continuous``) and the batch-1 request of 4,096 tokens
 RGLRU_CASES = [
     ("sweep_1", 2, 256, 128), ("sweep_2", 1, 128, 256), ("sweep_3", 3, 512, 64),
-    ("rg_prefill", 4, 1024, 4096),
+    ("rg_prefill", 4, 1024, 4096), ("rg_wave2", 4, 512, 4096),
+    ("rg_continuous", 1, 1024, 4096), ("rg_long", 1, LONG_PROMPT, 4096),
 ]
 
 
@@ -626,9 +670,23 @@ def phase_scans(dev, rate: float) -> dict:
     for name, b, s, d in RGLRU_CASES:
         a = 0.8 + 0.199 * torch.rand((b, s, d), generator=gen, device=dev)
         bb = torch.randn((b, s, d), generator=gen, device=dev)
-        record(result["rglru_scan"], name, lambda: k.rglru_scan(a, bb),
-               lambda: rglru_ref(a, bb), rglru_ref(a.double(), bb.double()),
-               3 * a.numel() * 4, 2 * a.numel(), name.startswith("rg"))
+        row = record(result["rglru_scan"], name, lambda: k.rglru_scan(a, bb),
+                     lambda: rglru_ref(a, bb), rglru_ref(a.double(), bb.double()),
+                     3 * a.numel() * 4, 2 * a.numel(), name.startswith("rg"))
+        # the trace's bytes, to hold it bit for bit to another build's
+        row["trace_sha256"] = hashlib.sha256(
+            k.rglru_scan(a, bb).cpu().numpy().tobytes()).hexdigest()
+        # exact traces: with a = 1, b = 1 every h_t is t + 1 (integers below
+        # 2^24); with a = 0 it is b.  A carry lost or doubled across ring
+        # stages, tiles or tails fails these exactly.
+        ones = torch.ones_like(a)
+        steps = torch.arange(1, s + 1, device=dev, dtype=torch.float32)[None, :, None]
+        check(torch.equal(k.rglru_scan(ones, ones), steps.expand(b, s, d)),
+              f"{name}: a = b = 1 does not give t + 1")
+        check(torch.equal(k.rglru_scan(torch.zeros_like(a), bb), bb), f"{name}: a = 0 is not b")
+        row["exact_traces"] = True
+        if hasattr(k, "rglru_plan"):  # absent in a tree before the channel-tile ring
+            row["plan"] = k.rglru_plan(b, s, d)
     for table in result.values():
         table["max_abs_err"] = max(c["max_abs_err"] for c in table.values())
     result["ssd_scan"]["state_max_abs_err"] = max(
@@ -923,7 +981,6 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
 SERVE_ARCH = "phi4-mini-3.8b"
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW = 8, 4, 64
 F32_LOGIT_BOUND = 0.05  # tests/test_models.py:94-114, float32 compute
-LONG_PROMPT = 4096  # recurrentgemma-9b's batch-1 request: two local windows
 # per serving path: n_kv_heads of the reduced config checked card vs CPU (phi4
 # with 2 for GQA), the prompt length S + 1 of the prefill(S) + decode vs
 # prefill(S + 1) check (None: the first request's prompt plus one token;
@@ -1326,14 +1383,24 @@ def main() -> int:
             check(got[kname] > 0, f"{phases[0][0]}: main path never launched {kname}")
         for kname, n in got.items():
             launches[kname] += n
+        return got
 
     path(("spike_accum_blocks", "spike_accum"),
          ("launcher", lambda: phase_launcher("cuda")),
          ("real_size", lambda: phase_real_size("cuda")))
     path(("flash_attention", "decode_attention"), ("serve", lambda: phase_serve(dev, SERVE_ARCH)))
     path(("ssd_scan",), ("serve_mamba2", lambda: phase_serve(dev, "mamba2-1.3b")))
-    path(("rglru_scan", "flash_attention", "decode_attention"),
-         ("serve_recurrentgemma", lambda: phase_serve(dev, "recurrentgemma-9b")))
+    with shapes_of_rglru() as shapes:
+        got = path(("rglru_scan", "flash_attention", "decode_attention"),
+                   ("serve_recurrentgemma", lambda: phase_serve(dev, "recurrentgemma-9b")))
+    by_batch: dict[int, int] = {}
+    for (b, _, _), n in shapes.items():
+        by_batch[b] = by_batch.get(b, 0) + n
+    check(sum(shapes.values()) == got["rglru_scan"],
+          f"rglru_scan shapes {shapes} do not add up to the path's launches")
+    emit({"phase": "rglru_scan_shapes", "path": "serve_recurrentgemma",
+          "launches_by_shape": {"x".join(map(str, k)): n for k, n in sorted(shapes.items())},
+          "launches_by_batch": by_batch})
     emit({"phase": "serve_launcher", **phase_serve_launcher()})
 
     csrc = "src/repro_torch/kernels/csrc/"
@@ -1349,6 +1416,7 @@ def main() -> int:
          "rg_ring_misaligned/bfloat16"),
         ("ssd_scan", "scan.cu", "ssd_scan.py:81", "mamba2_prefill"),
         ("rglru_scan", "scan.cu", "rglru_scan.py:53", "rg_prefill"),
+        ("rglru_scan", "scan.cu", "rglru_scan.py:53", "rg_continuous"),
     ):
         table = kern[kname]
         c = table["cases"][case] if "cases" in table else table[case]

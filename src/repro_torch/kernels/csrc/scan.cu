@@ -53,13 +53,21 @@
 // skip their products.  Fixed order, no atomics: reruns agree bit for bit.
 //
 // K6, bound on the card.  The recurrence does 2 flops per 12 bytes: it is
-// bound by memory (3 * B * S * D * 4 bytes over 3.35 TB/s).  One thread
-// owns one (batch, channel) and walks time in order; neighbouring threads
-// take neighbouring channels, so every load of a_t, b_t and store of h_t is
-// coalesced, and each thread loads kRgUnroll steps ahead before the
-// dependent FMA chain uses them.  B * D threads is 16,384 at
-// recurrentgemma-9b's prefill, about one block of 128 per SM: a chunked
-// two-pass scan that fills the card is later work.
+// bound by memory (3 * B * S * D * 4 bytes over 3.35 TB/s).  The chain of
+// one channel is one dependent fmaf a step and cheap; what the card needs
+// is bytes in flight on every SM.  Design: a block owns a tile of W
+// channels (32, 64 or 128) of one batch row for all of S, so the grid is
+// B * D / W blocks and the wrapper (kernels/scan.py: rglru_plan) picks W
+// so that it fills the 132 SMs (W 32 at batch 1, 128 blocks; W 128 at
+// batch 4).  The block's 128 threads stream [T, W] tiles of a and b (T W =
+// 2,048 floats, 16 KB a stage for both) through a cp.async ring of 4
+// stages, 48 KB in flight; its first W threads run the chains out of
+// shared memory and store each h_t from registers, one coalesced row
+// segment a step.  Tails of S and of D are predicated copies in the same
+// loop; D not a multiple of 4 (or an input off 16 bytes) copies 4 bytes at
+// a time.  Each chain is state = fmaf(a_t, state, b_t), t in order, as in
+// the one-thread-per-channel kernel before it: the trace is that kernel's
+// bit for bit, and reruns agree.
 //
 // Interface: plain C, pointers as void*, launched on the caller's stream;
 // each launcher returns the first nonzero CUDA error of its launches.
@@ -73,6 +81,7 @@
 namespace {
 
 using hopper::cp_async_16;
+using hopper::cp_async_4;
 using hopper::cp_async_commit;
 using hopper::cp_async_wait;
 
@@ -584,40 +593,130 @@ int launch_ssd(const float* x, const float* a, const float* bm, const float* cm,
 // K6: rglru_scan
 // ---------------------------------------------------------------------------
 
-constexpr int kRgThreads = 128;
-constexpr int kRgUnroll = 16;  // steps loaded ahead of the dependent chain
+constexpr int kRgThreads = 128;        // threads per block: all copy, the first W run chains
+constexpr int kRgStageFloats = 2048;   // T steps x W channels of a (and of b) per ring stage
+constexpr int kRgStages = 4;           // stages of the ring
+constexpr int kRgChunk = 16;           // steps read from shared memory ahead of the chain
 
-// grid ceil(B * D / kRgThreads); block kRgThreads.  Thread i owns channel
-// i % D of batch row i / D.
+// Shared memory of rglru_ring_kernel, the one owner of this size (the
+// wrapper's plan, kernels/scan.py: rglru_plan, predicts it for the CPU
+// tests; the card tests hold the two equal).
+constexpr long long rg_smem_bytes() {
+  return 2LL * kRgStages * kRgStageFloats * static_cast<long long>(sizeof(float));
+}
+
+// grid (ceil(d / W), bs); block kRgThreads.  Block (x, y) runs the chains
+// of channels [x W, x W + W) of batch row y over all s_len steps, reading
+// a and b from a cp.async ring of kRgStages [T, W] tiles (T = 2,048 / W
+// steps).  VEC (d % 4 == 0, a and b 16-byte aligned): a thread copies one
+// 16-byte piece of every (kRgThreads / (W / 4))-th row of a tile; else one
+// float of every (kRgThreads / W)-th row.  Copies past d or past s_len are
+// not issued (their ring slots are never read).  Thread c < W carries the
+// chain of channel x W + c as state = fmaf(a_t, state, b_t), t in order,
+// and stores each h_t from its register: a warp's stores of one step are
+// one coalesced 128-byte row segment.
+template <int W, bool VEC>
 __global__ void __launch_bounds__(kRgThreads)
-    rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                      float* __restrict__ h, int bs, int s_len, int d) {
-  const long long i = static_cast<long long>(blockIdx.x) * kRgThreads + threadIdx.x;
-  if (i >= static_cast<long long>(bs) * d) return;
-  const long long base = (i / d) * s_len * d + i % d;
-  const float* ap = a + base;
-  const float* bp = b + base;
-  float* hp = h + base;
+    rglru_ring_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                      float* __restrict__ h, int s_len, int d) {
+  constexpr int T = kRgStageFloats / W;               // steps per stage
+  constexpr int kPiece = VEC ? 4 : 1;                 // floats per copy
+  constexpr int kPerRow = W / kPiece;                 // copies per tile row
+  constexpr int kRowStep = kRgThreads / kPerRow;      // rows between one thread's copies
+  static_assert(kRgThreads % kPerRow == 0 && T % kRowStep == 0 && T % kRgChunk == 0,
+                "tile geometry");
+  extern __shared__ float smem[];
+  float* ring_a = smem;  // [kRgStages][T][W]
+  float* ring_b = smem + kRgStages * kRgStageFloats;
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * W;
+  const long long base = static_cast<long long>(blockIdx.y) * s_len * d + c0;
+  // this thread's copies: floats [cp, cp + kPiece) of rows r_first + i kRowStep
+  const int cp = (tid % kPerRow) * kPiece;
+  const int r_first = tid / kPerRow;
+  const bool copies = c0 + cp < d;  // VEC: d % 4 == 0, so a piece is wholly in or out
+  const float* a_src = a + base + cp;
+  const float* b_src = b + base + cp;
+  const int n_st = (s_len + T - 1) / T;
+  auto issue = [&](int st) {  // stage st's rows into ring slot st % kRgStages
+    if (!copies) return;
+    const int rows = min(T, s_len - st * T);
+    float* da = ring_a + (st % kRgStages) * kRgStageFloats + cp;
+    float* db = ring_b + (st % kRgStages) * kRgStageFloats + cp;
+#pragma unroll
+    for (int i = 0; i < T / kRowStep; ++i) {
+      const int r = r_first + i * kRowStep;
+      if (r < rows) {
+        const long long off = static_cast<long long>(st * T + r) * d;
+        if (VEC) {
+          cp_async_16(da + r * W, a_src + off, 16);
+          cp_async_16(db + r * W, b_src + off, 16);
+        } else {
+          cp_async_4(da + r * W, a_src + off);
+          cp_async_4(db + r * W, b_src + off);
+        }
+      }
+    }
+  };
+  for (int st = 0; st < kRgStages - 1; ++st) {
+    if (st < n_st) issue(st);
+    cp_async_commit();
+  }
+  const bool chain = tid < W && c0 + tid < d;
+  float* hp = h + base + tid;
   float state = 0.0f;
-  int t = 0;
-  for (; t + kRgUnroll <= s_len; t += kRgUnroll) {
-    float av[kRgUnroll], bv[kRgUnroll];
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait<kRgStages - 2>();
+    __syncthreads();  // stage st landed; stage st - 1's readers are done
+    if (st + kRgStages - 1 < n_st) issue(st + kRgStages - 1);  // into the slot just freed
+    cp_async_commit();
+    if (!chain) continue;
+    const float* sa = ring_a + (st % kRgStages) * kRgStageFloats + tid;
+    const float* sb = ring_b + (st % kRgStages) * kRgStageFloats + tid;
+    float* out = hp + static_cast<long long>(st) * T * d;
+    const int rows = min(T, s_len - st * T);
+    if (rows == T) {
 #pragma unroll
-    for (int u = 0; u < kRgUnroll; ++u) {
-      av[u] = ap[static_cast<long long>(t + u) * d];
-      bv[u] = bp[static_cast<long long>(t + u) * d];
-    }
+      for (int r0 = 0; r0 < T; r0 += kRgChunk) {
+        float av[kRgChunk], bv[kRgChunk];
 #pragma unroll
-    for (int u = 0; u < kRgUnroll; ++u) {
-      state = fmaf(av[u], state, bv[u]);
-      hp[static_cast<long long>(t + u) * d] = state;
+        for (int u = 0; u < kRgChunk; ++u) {
+          av[u] = sa[(r0 + u) * W];
+          bv[u] = sb[(r0 + u) * W];
+        }
+#pragma unroll
+        for (int u = 0; u < kRgChunk; ++u) {
+          state = fmaf(av[u], state, bv[u]);
+          out[static_cast<long long>(r0 + u) * d] = state;
+        }
+      }
+    } else {
+      for (int r = 0; r < rows; ++r) {
+        state = fmaf(sa[r * W], state, sb[r * W]);
+        out[static_cast<long long>(r) * d] = state;
+      }
     }
   }
-  for (; t < s_len; ++t) {
-    state = fmaf(ap[static_cast<long long>(t) * d], state,
-                 bp[static_cast<long long>(t) * d]);
-    hp[static_cast<long long>(t) * d] = state;
-  }
+  cp_async_wait<0>();
+}
+
+template <int W, bool VEC>
+int launch_rglru_as(const float* a, const float* b, float* h, int bs, int s, int d,
+                    cudaStream_t stream) {
+  const int err = set_smem(rglru_ring_kernel<W, VEC>, static_cast<int>(rg_smem_bytes() / 4));
+  if (err) return err;
+  rglru_ring_kernel<W, VEC><<<dim3((d + W - 1) / W, bs), kRgThreads, rg_smem_bytes(), stream>>>(
+      a, b, h, s, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W>
+int launch_rglru(const float* a, const float* b, float* h, int bs, int s, int d,
+                 cudaStream_t stream) {
+  const bool vec = d % 4 == 0 && (reinterpret_cast<uintptr_t>(a) % 16) == 0 &&
+                   (reinterpret_cast<uintptr_t>(b) % 16) == 0;
+  return vec ? launch_rglru_as<W, true>(a, b, h, bs, s, d, stream)
+             : launch_rglru_as<W, false>(a, b, h, bs, s, d, stream);
 }
 
 }  // namespace
@@ -671,14 +770,22 @@ extern "C" int ssd_scan_launch(const void* x, const void* a, const void* b, cons
   }
 }
 
-// a, b, h: f32[bs, s, d], contiguous.
-extern "C" int rglru_scan_launch(const void* a, const void* b, void* h, int bs,
-                                 int s, int d, void* stream) {
+// Shared memory bytes of rglru_scan's ring kernel (every tile width).
+extern "C" long long rglru_scan_smem_bytes() { return rg_smem_bytes(); }
+
+// a, b, h: f32[bs, s, d], contiguous.  w: channels per block, 32, 64 or
+// 128 (kernels/scan.py: rglru_plan picks it so that the grid fills the card).
+extern "C" int rglru_scan_launch(const void* a, const void* b, void* h, int bs, int s, int d,
+                                 int w, void* stream) {
   if (bs <= 0 || s <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long threads = static_cast<long long>(bs) * d;
-  const unsigned blocks = static_cast<unsigned>((threads + kRgThreads - 1) / kRgThreads);
-  rglru_scan_kernel<<<blocks, kRgThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(h), bs, s, d);
-  return static_cast<int>(cudaGetLastError());
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  float* hf = static_cast<float*>(h);
+  const cudaStream_t sm = static_cast<cudaStream_t>(stream);
+  switch (w) {
+    case 32: return launch_rglru<32>(af, bf, hf, bs, s, d, sm);
+    case 64: return launch_rglru<64>(af, bf, hf, bs, s, d, sm);
+    case 128: return launch_rglru<128>(af, bf, hf, bs, s, d, sm);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

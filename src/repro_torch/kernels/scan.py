@@ -14,9 +14,11 @@ Both take and return float32 in the JAX kernels' layouts and raise their
 ``ValueError``s on bad shapes.  The SSD scan is bound by the tensor
 cores' rate at mamba2-1.3b's shapes (its products run as 3xTF32) and the
 RG-LRU scan by memory; the source says what each design does about it,
-and :func:`ssd_plan` gives the SSD scan's launch geometry.  The TPU kernel's tiling
-arguments (``rglru_scan``'s ``chunk`` and ``block_d``) have no counterpart
-here: the recurrence runs over the whole sequence in one pass.
+and :func:`ssd_plan` and :func:`rglru_plan` give their launch geometry.
+The TPU kernel's tiling arguments (``rglru_scan``'s ``chunk`` and
+``block_d``) have no counterpart here: :func:`rglru_plan` picks the channel
+tile from the shape, and each tile runs over the whole sequence in one
+pass.
 
 The wrappers take contiguous CUDA tensors only: they check device, dtype,
 shape and contiguity, allocate the output with ``torch.empty``, launch on
@@ -33,7 +35,7 @@ import torch
 
 from repro_torch.kernels._build import LAUNCHES, SMS, blocks_per_sm, load_library, raise_on
 
-__all__ = ["ssd_scan", "ssd_plan", "rglru_scan"]
+__all__ = ["ssd_scan", "ssd_plan", "rglru_scan", "rglru_plan"]
 
 SSD_HEAD_DIMS = (16, 32, 64, 128)
 SSD_MAX_CHUNK = 128
@@ -69,6 +71,34 @@ def ssd_plan(bs: int, s: int, h: int, g: int, p: int, n: int, chunk: int, sms: i
     }
 
 
+# csrc/scan.cu's K6 constants: threads per block, floats of a (and of b)
+# per ring stage, stages of the ring
+_RG_THREADS, _RG_STAGE_FLOATS, _RG_STAGES = 128, 2048, 4
+RG_WIDTHS = (128, 64, 32)  # channel tiles the kernel is built for, widest first
+
+
+def rglru_plan(bs: int, s: int, d: int, sms: int = SMS) -> dict:
+    """Launch geometry of :func:`rglru_scan` (``csrc/scan.cu``): the widest
+    channel tile ``width`` whose grid of ``(ceil(d / width), bs)`` blocks
+    covers nine tenths of the SMs (the narrowest where none does), the
+    ring's ``steps`` per stage and ``stages``, the ring stages the longest
+    block walks, the shared memory (the source owns this size: the card
+    tests hold the library's count to it), how many blocks share an SM,
+    and the bytes of a and b each block keeps in flight (every stage but
+    the one being read)."""
+    for width in RG_WIDTHS:
+        if bs * -(-d // width) * 10 >= 9 * sms:
+            break
+    steps = _RG_STAGE_FLOATS // width
+    smem = 2 * _RG_STAGES * _RG_STAGE_FLOATS * 4
+    grid = (-(-d // width), bs)
+    per_sm = blocks_per_sm(smem, _RG_THREADS)
+    return {"width": width, "steps": steps, "stages": _RG_STAGES, "n_stages": -(-s // steps),
+            "threads": _RG_THREADS, "grid": grid, "smem": smem, "blocks_per_sm": per_sm,
+            "waves": -(-grid[0] * grid[1] // (per_sm * sms)),
+            "bytes_in_flight": 2 * 4 * (_RG_STAGES - 1) * _RG_STAGE_FLOATS}
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _bound = None
@@ -82,8 +112,10 @@ def _lib():
         lib.ssd_scan_launch.restype = _I
         lib.ssd_scan_smem_bytes.argtypes = [_I, _I]
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
-        lib.rglru_scan_launch.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+        lib.rglru_scan_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
         lib.rglru_scan_launch.restype = _I
+        lib.rglru_scan_smem_bytes.argtypes = []
+        lib.rglru_scan_smem_bytes.restype = ctypes.c_longlong
         _bound = lib
     return _bound
 
@@ -163,7 +195,8 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The gated diagonal recurrence on the card.
 
     a ``[B, S, D]`` decay gates in (0, 1), b ``[B, S, D]`` gated inputs.
-    Returns the state trace h ``[B, S, D]`` (``h_{-1} = 0``).
+    Returns the state trace h ``[B, S, D]`` (``h_{-1} = 0``).  One launch,
+    in the geometry of :func:`rglru_plan`.
     """
     if b.shape != a.shape:
         raise ValueError(f"a {tuple(a.shape)} != b {tuple(b.shape)}")
@@ -174,9 +207,11 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.numel() == 0:
         return out
     bs, s, d = a.shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    width = rglru_plan(bs, s, d, sms)["width"]
     with torch.cuda.device(dev):
         err = _lib().rglru_scan_launch(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), bs, s, d,
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), bs, s, d, width,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     raise_on(err, "rglru_scan")

@@ -12,7 +12,7 @@ import pytest
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.attention import decode_splits
-from repro_torch.kernels.scan import SSD_HEAD_DIMS, ssd_plan
+from repro_torch.kernels.scan import RG_WIDTHS, SSD_HEAD_DIMS, rglru_plan, ssd_plan
 from repro_torch.kernels.spike_accum import DENSE_SLAB, blocks_plan, dense_plan
 
 SOURCES = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
@@ -92,6 +92,38 @@ def test_ssd_plan_fits_shared_memory(p, chunk, s):
     items = 2 * plan["n_chunks"] * 8
     assert (plan["grid"]["scan"] - 1) * plan["items_per_scan_block"] < items
     assert plan["grid"]["scan"] * plan["items_per_scan_block"] >= items
+
+
+@pytest.mark.parametrize("bs,width", [(1, 32), (4, 128)])
+@pytest.mark.parametrize("s", [512, 1024, 4096])
+def test_rglru_plan_fills_the_card(bs, width, s):
+    """recurrentgemma-9b's prefills (lru_width 4,096; batch 1 and 4, S 512
+    to 4,096): channel tiles narrow enough that the grid covers at least
+    120 of the 132 SMs, in at most two waves, with at least 32 KB of a and
+    b in flight per block."""
+    plan = rglru_plan(bs, s, 4096)
+    blocks = plan["grid"][0] * plan["grid"][1]
+    assert plan["width"] == width and plan["grid"] == (4096 // width, bs)
+    assert min(blocks, _build.SMS) >= 120
+    assert plan["waves"] <= 2 and blocks <= 2 * plan["blocks_per_sm"] * _build.SMS
+    assert plan["bytes_in_flight"] >= 32 * 1024
+    assert plan["smem"] <= _build.SMEM_LIMIT and plan["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("bs", [1, 2, 4, 64])
+@pytest.mark.parametrize("s", [1, 37, 1000, 4096])
+@pytest.mark.parametrize("d", [33, 100, 4096, 4100])
+def test_rglru_plan_covers_every_step_and_channel(bs, s, d):
+    """Tails of S and of D: one block per started channel tile of every
+    batch row, enough ring stages for every step, the ring in shared
+    memory."""
+    plan = rglru_plan(bs, s, d)
+    width, steps = plan["width"], plan["steps"]
+    assert width in RG_WIDTHS and width * steps == 2048
+    tiles, rows = plan["grid"]
+    assert rows == bs and tiles * width >= d > (tiles - 1) * width
+    assert plan["n_stages"] * steps >= s > (plan["n_stages"] - 1) * steps
+    assert 0 < plan["smem"] <= _build.SMEM_LIMIT and plan["blocks_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("k_tiles", [8, 1, 64])

@@ -500,11 +500,32 @@ def test_launch_geometry_matches_the_sources(dev):
         assert lib.spike_accum_ring_smem_bytes(plan["k_tiles"]) == plan["smem"]
 
 
-@pytest.mark.parametrize("bs,s,d", [(2, 256, 128), (1, 128, 256), (3, 512, 64), (2, 37, 100)])
+def test_rglru_plan_matches_the_source(dev):
+    """The shared memory ``rglru_plan`` predicts is the CUDA source's own,
+    at every channel tile the plan picks."""
+    from repro_torch.kernels import scan
+
+    lib = scan._lib()
+    plans = [scan.rglru_plan(bs, s, d) for bs, s, d in
+             ((1, 1024, 4096), (2, 1000, 4100), (4, 1024, 4096), (1, 1, 33))]
+    assert {p["width"] for p in plans} == set(scan.RG_WIDTHS)
+    for plan in plans:
+        assert lib.rglru_scan_smem_bytes() == plan["smem"]
+
+
+# the reference's sweep (tests/test_kernels.py:94-103), ragged shapes (S
+# not a multiple of a ring stage, D not of a channel tile or of 4), the
+# batch-1 prefill recurrentgemma-9b's continuous scheduler runs
+RGLRU_SHAPES = [(2, 256, 128), (1, 128, 256), (3, 512, 64), (2, 37, 100), (1, 1024, 4096),
+                (1, 1, 33), (2, 1000, 4100)]
+
+
+@pytest.mark.parametrize("bs,s,d", RGLRU_SHAPES)
 def test_rglru_scan_matches_plain(dev, bs, s, d):
-    """The reference's sweep (``tests/test_kernels.py:94-103``) and a
-    ragged shape (S not a multiple of the kernel's 16-step unroll, D not
-    of its 128 threads), against the plain recurrence in float64."""
+    """The reference's sweep (``tests/test_kernels.py:94-103``), ragged
+    shapes (S not a multiple of a ring stage, D not of the channel tile;
+    D = 33 and 100 are no multiple of 4 and copy 4 bytes at a time) and the
+    batch-1 prefill, against the plain recurrence in float64."""
     from repro_torch.kernels import scan as k
     from repro_torch.kernels.ref import rglru_ref
 
@@ -517,6 +538,46 @@ def test_rglru_scan_matches_plain(dev, bs, s, d):
     assert k.LAUNCHES["rglru_scan"] == before + 2
     assert torch.equal(out, again)
     torch.testing.assert_close(out.double(), rglru_ref(a.double(), b.double()), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("bs,s,d", [*RGLRU_SHAPES, (4, 1024, 4096), (4, 512, 4096),
+                                     (1, 4096, 4096)])
+@pytest.mark.parametrize("case", ["ones", "zero_decay"])
+def test_rglru_scan_exact_traces(dev, bs, s, d, case):
+    """Traces known exactly: with a = b = 1 every h_t is t + 1 (integers
+    below 2^24, so float32 holds them), with a = 0 it is b.  A carry
+    dropped or doubled across ring stages, channel tiles or tails fails
+    these exactly, not within a tolerance."""
+    from repro_torch.kernels import scan as k
+
+    if case == "ones":
+        a = b = torch.ones((bs, s, d), device=dev)
+        want = torch.arange(1, s + 1, device=dev, dtype=torch.float32)[None, :, None]
+        want = want.expand(bs, s, d)
+    else:
+        a = torch.zeros((bs, s, d), device=dev)
+        b = want = torch.randn((bs, s, d), generator=torch.Generator(device=dev).manual_seed(12),
+                               device=dev)
+    out = k.rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("d", [4096, 100])
+def test_rglru_scan_unaligned_inputs(dev, d):
+    """An input starting one float into its storage (contiguous, off 16
+    bytes) is copied 4 bytes at a time and gives the aligned trace bit for
+    bit."""
+    from repro_torch.kernels import scan as k
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    a = 0.8 + 0.199 * torch.rand((1, 300, d), generator=gen, device=dev)
+    b = torch.randn((1, 300, d), generator=gen, device=dev)
+    store = torch.empty(a.numel() + 1, device=dev)
+    shifted = store[1:].view(a.shape)
+    shifted.copy_(a)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    assert torch.equal(k.rglru_scan(shifted, b), k.rglru_scan(a, b))
 
 
 def test_scan_wrappers_reject_bad_inputs(dev):

@@ -45,7 +45,11 @@ TOL = dict(rtol=3e-3, atol=3e-3)  # tests/test_kernels.py:74-76, 101-103
 EXACT = dict(rtol=1e-5, atol=1e-5)
 
 SSD_CASES = [(2, 256, 4, 2, 32, 16, 64), (1, 128, 2, 1, 16, 8, 128), (1, 512, 8, 2, 64, 32, 128)]
-RGLRU_CASES = [(2, 256, 128, 64, 64), (1, 128, 256, 128, 128), (3, 512, 64, 256, 64)]
+# the reference's sweep (tests/test_kernels.py:94-103), then batch 1 with S
+# not a multiple of 16 (one 37-step chunk, D not a multiple of 4) and batch 1
+# at 1,000 steps
+RGLRU_CASES = [(2, 256, 128, 64, 64), (1, 128, 256, 128, 128), (3, 512, 64, 256, 64),
+               (1, 37, 100, 37, 100), (1, 1000, 64, 200, 64)]
 
 
 def _ssd_inputs(seed, bs, s, h, g, p, n):
