@@ -46,7 +46,12 @@ nonzero.
    synapses and on every message): sparse == ragged == flat == two_level
    bit for bit, each replayed raster equal to the same run's with
    ``--eager``, one ``spike_accum_blocks`` launch per step, and a
-   communicator that loses a message changes the noisy raster.
+   communicator that loses a message changes the noisy raster.  Then
+   ``repro_torch.launch.brainsim.main`` (the port of ``examples/brainsim.py``)
+   with ``--method greedy`` and ``--method multilevel``, each over the flat,
+   two-level, sparse and ragged exchanges: one raster, one
+   ``spike_accum_blocks`` launch per sparse or ragged step, the multilevel
+   cut beside the greedy one.
 4. Real size through the public API: 2,048 populations x 16 neurons =
    32,768 neurons on 8 ranks in a (2, 4) mesh under a per-neuron drive
    ``U(3, 8)`` (firing spread over the run, a few percent of the neurons
@@ -61,6 +66,24 @@ nonzero.
    kernel as its current hook (replayed, and eager as its check), whose
    device time per step under the raster's own spikes is profiled in a
    second, uncounted run; a lost ragged payload changes the raster.
+   Beside the greedy plan, ``multilevel_partition``'s cut and host seconds
+   on the same graph, and beside the closed-form latency the netsim one
+   (``estimate(model="netsim")``, one switch and the reference benchmarks'
+   two-tier fabric).  After the counted ragged run, planlint Layer 1 over
+   the ragged plan that engine executed on ``netsim.two_tier(8, 4)``: any
+   error fails the run, warnings are printed; beside the card's ms per step,
+   the netsim replay of the plan's rounds (predicted wire seconds per step,
+   bytes conserved and equal to the plan's; a loopback on one card, so no
+   agreement is claimed).
+   ``plan_paper_scale`` (host only): the paper's experiment planned by the
+   port's numpy planning layer as ``benchmarks/paper_scale.py`` plans it with
+   the reference's — 10 billion neurons in 8,000 populations, the
+   out-of-core planner over 2,000 devices in pods of 100, the shard lints
+   with PL160, Fig. 4's connection counts, the netsim replays on
+   ``two_tier(2000, 100)`` and the closed-form estimates.  Zero shard lint
+   errors, cross-shard conservation, conserved bytes and the reference's
+   counts, or the run fails; host seconds per stage and every count beside
+   the reference's value.
 5. Serving (``repro_torch.serve``) of phi4-mini-3.8b (attention: prefill
    runs ``flash_attention``, decode ``decode_attention``), mamba2-1.3b (48
    ssm layers: prefill runs ``ssd_scan``, decode plain recurrence steps)
@@ -742,6 +765,42 @@ def phase_launcher(device: str, argv: list[str] | None = None) -> dict:
                           f"{tag}/{exch}: a lost message left the raster unchanged")
             row["planted_faults_seen"] = True
         out[tag] = row
+    out["brainsim"] = phase_brainsim(device, per_run_launches)
+    return out
+
+
+def phase_brainsim(device: str, per_run_launches: bool) -> dict:
+    """``python -m repro_torch.launch.brainsim`` (the port of
+    ``examples/brainsim.py``) with each partitioner: the flat and
+    two-level exchanges (and, on the block-CSR kernel's path, sparse and
+    ragged) give one raster; the multilevel cut beside the greedy one."""
+    import numpy as np
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch import brainsim
+
+    out = {}
+    for method in ("greedy", "multilevel"):
+        before = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        res = brainsim.main(["--method", method, "--device", device, "--steps", str(STEPS),
+                             "--exchanges", "flat", "two_level", "sparse", "ragged"])
+        wall = time.perf_counter() - t0
+        rasters = res["rasters"]
+        for exch in ("two_level", "sparse", "ragged"):
+            check(np.array_equal(rasters[exch], rasters["flat"]),
+                  f"brainsim/{method}: {exch} != flat")
+        launched = {k: v - before[k] for k, v in LAUNCHES.items() if v > before[k]}
+        want = 2 * STEPS if per_run_launches else 0  # sparse and ragged, one a step
+        check(launched.get("spike_accum_blocks", 0) == want,
+              f"brainsim/{method}: {launched} kernel launches for 2 x {STEPS} steps")
+        part = res["partition"]
+        out[method] = {"cut": part.cut, "max_load": float(part.loads.max()),
+                       "groups": res["table"].n_groups,
+                       "latency_ms": {k: v * 1e3 for k, v in res["latency_s"].items()},
+                       "spikes": int(rasters["flat"].sum()), "rasters_equal": True,
+                       "kernels_launched": launched, "wall_s": wall}
+    out["cut_multilevel_over_greedy"] = out["multilevel"]["cut"] / out["greedy"]["cut"]
     return out
 
 
@@ -791,6 +850,42 @@ def _device_profile(run, steps: int, match: tuple[str, ...] = ()) -> dict:
 
 
 
+def _lint_executed_plan(syn, mesh, plan, ms_per_step: float) -> dict:
+    """planlint Layer 1 over the ragged plan an engine executed, on the
+    two-tier fabric of the mesh (pods of 4): an error fails the run,
+    warnings are reported.  Beside it, the netsim replay of the plan's
+    rounds on that fabric (predicted wire seconds a step) and the card's
+    measured ms a step (a loopback on one card: no agreement is claimed)."""
+    import numpy as np
+
+    from repro_torch import netsim
+    from repro_torch.analysis import PlanContext, run_lints
+
+    t0 = time.perf_counter()
+    topo = netsim.two_tier(int(np.prod(mesh)), mesh[1])
+    ctx = PlanContext.from_synapses(syn, mesh, name="real_size_ragged", plan=plan,
+                                    topology=topo)
+    found = run_lints(ctx)
+    lint_s = time.perf_counter() - t0
+    errors = [f for f in found if f.severity == "error"]
+    check(not errors, f"planlint: errors in the executed plan: {errors}")
+    t0 = time.perf_counter()
+    rounds = netsim.ragged_rounds(plan)
+    res = netsim.simulate(rounds, topo)
+    res.assert_conserved()
+    check(netsim.total_bytes(rounds) == plan.bytes_per_step,
+          "netsim: replayed bytes != the plan's bytes a step")
+    return {"topology": topo.name, "errors": 0,
+            "warnings": [f"{f.rule_id}: {f.message}" for f in found if f.severity == "warning"],
+            "info": [f"{f.rule_id}: {f.message}" for f in found if f.severity == "info"],
+            "lint_host_s": lint_s,
+            "netsim_replay": {"messages": sum(len(r) for r in rounds),
+                              "bytes_per_step": plan.bytes_per_step,
+                              "predicted_wire_s_per_step": res.t_total,
+                              "conserved": True, "host_s": time.perf_counter() - t0},
+            "card_ms_per_step": ms_per_step}
+
+
 def _per_step(prof: dict, steps: int) -> dict:
     """A profile of ``steps`` steps with its per-step rates."""
     return {**prof, "device_ms_per_step": prof["device_busy_s"] * 1e3 / steps,
@@ -805,8 +900,8 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
 
     from repro_torch import convert
     from repro_torch.core import (
-        device_traffic_csr, greedy_partition, p2p_routing, step_latency,
-        two_level_routing,
+        device_traffic_csr, estimate, greedy_partition, multilevel_partition, p2p_routing,
+        step_latency, two_level_routing,
     )
     from repro_torch.kernels import LAUNCHES, spike_currents
     from repro_torch.snn import (
@@ -830,6 +925,18 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
                    "latency_p2p_ms": step_latency(p2p_routing(t, wg)).t_total * 1e3,
                    "latency_two_level_ms": step_latency(tb).t_total * 1e3,
                    "host_s": time.perf_counter() - t0}
+    # beside it, the multilevel partitioner on the same graph and the
+    # netsim replay of the same table (the engine below runs the greedy plan)
+    t0 = time.perf_counter()
+    ml = multilevel_partition(bm.graph, n_dev, seed=0)
+    out["plan"]["multilevel"] = {"cut": ml.cut, "max_load": float(ml.loads.max()),
+                                 "host_s": time.perf_counter() - t0}
+    out["plan"]["greedy_max_load"] = float(part.loads.max())
+    t0 = time.perf_counter()
+    out["plan"]["latency_two_level_netsim_ms"] = {
+        "single_switch": estimate(tb, model="netsim").t_total * 1e3,
+        "paper_fabric": estimate(tb, model="netsim", topology=paper_fabric(n_dev)).t_total * 1e3,
+        "host_s": time.perf_counter() - t0}
     t0 = time.perf_counter()
     # Algorithm 1's population partition is not equal-count: contiguous slabs
     syn, _ = expand_synapses_sparse(bm.graph, npp, n_dev, seed=0)
@@ -892,6 +999,9 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
                      "eager_ms_per_step": eager_wall / steps * 1e3,
                      "bytes_per_step": vol[exch], "spike_accum_blocks_launches": launched,
                      "replayed_equals_eager": True}
+        if tag == "ragged_fused":
+            out["planlint"] = _lint_executed_plan(syn, mesh, eng._ragged_plan(),
+                                                  runs[tag]["ms_per_step"])
         if dev.type == "cuda" and mode == "fused":
             profiles[tag] = {"replayed": _per_step(_device_profile(engine(exch).run, steps),
                                                    steps)}
@@ -973,6 +1083,115 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
     if dev.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     del w, tiles
+    return out
+
+
+# -- plan_paper_scale --------------------------------------------------------
+
+#: the paper-scale plan's deterministic outputs as the JAX package's
+#: ``python -m benchmarks.paper_scale`` prints them (numpy on a CPU)
+PAPER_SCALE_REFERENCE = {
+    "tm_nnz": 274_636, "conn_p2p_max": 396, "conn_two_level_max": 165,
+    "msgs_two_level": 212_865, "msgs_p2p": 274_636,
+    "closed_ratio_p2p_over_two_level": 6.217, "wire_ratio_p2p_over_two_level": 1.146,
+    "peak_dense_frac": 0.01,
+}
+
+
+def paper_fabric(n_devices: int):
+    """The reference benchmarks' two-tier fabric: pods of about 1 % of the
+    devices, snapped down to a divisor; one switch when none divides."""
+    from repro_torch import netsim
+
+    pod = max(n_devices // 100, 2)
+    while pod > 1 and n_devices % pod:
+        pod -= 1
+    return netsim.two_tier(n_devices, pod) if pod >= 2 else netsim.single_switch(n_devices)
+
+
+def phase_plan_paper_scale() -> dict:
+    """The paper's experiment planned on the host by the port's numpy
+    planning layer, as ``benchmarks/paper_scale.py`` plans it with the
+    reference's: a 10-billion-neuron model of 8,000 populations, the
+    out-of-core planner over 2,000 devices in pods of 100, the shard
+    lints with PL160, Fig. 4's connection counts, the netsim replays on
+    the two-tier fabric and the closed-form estimates."""
+    import numpy as np
+
+    from repro_torch import netsim
+    from repro_torch.core import (
+        ClusterModel, connection_counts, estimate, p2p_routing, plan_out_of_core,
+    )
+    from repro_torch.snn import generate_brain_model
+
+    n, pod = 2000, 100
+    host_s = {}
+    t_phase = t0 = time.perf_counter()
+    bm = generate_brain_model(n_populations=8000, n_regions=90,
+                              total_neurons=10_000_000_000, lambda_mm=30.0,
+                              inter_degree=36.0, long_range_frac=0.5, seed=0)
+    host_s["model"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = plan_out_of_core(bm.graph, n, pod, block_size=4, seed=0, sym_mode="both")
+    host_s["planner"] = time.perf_counter() - t0
+    host_s.update({f"planner.{k}": v for k, v in plan.wall_s.items()})
+    dcn_errors = sum(1 for f in plan.dcn_findings if f.severity == "error")
+
+    t0 = time.perf_counter()
+    tb_p2p = p2p_routing(plan.traffic, plan.wg)
+    cc_p2p, cc_two = connection_counts(tb_p2p), connection_counts(plan.pod_table)
+    host_s["connections"] = time.perf_counter() - t0
+
+    cl = ClusterModel(bytes_per_traffic_unit=2.0e5)
+    topo = netsim.two_tier(n, pod)
+    t0 = time.perf_counter()
+    rounds = netsim.sharded_rounds(plan, bytes_per_unit=cl.bytes_per_traffic_unit)
+    p2p = netsim.p2p_rounds(plan.traffic, bytes_per_unit=cl.bytes_per_traffic_unit)
+    res_two = netsim.simulate(rounds, topo, alpha_msg=cl.alpha_conn, barriers=True)
+    res_p2p = netsim.simulate(p2p, topo, alpha_msg=cl.alpha_conn)
+    host_s["netsim"] = time.perf_counter() - t0
+    conserved = True
+    for res in (res_two, res_p2p):
+        try:
+            res.assert_conserved()
+        except AssertionError:
+            conserved = False
+    t0 = time.perf_counter()
+    e_two = estimate(plan.pod_table, cl, model="closed_form")
+    e_p2p = estimate(tb_p2p, cl, model="closed_form")
+    host_s["closed_form"] = time.perf_counter() - t0
+
+    got = {
+        "tm_nnz": int(plan.traffic.nnz), "conn_p2p_max": int(cc_p2p.max()),
+        "conn_two_level_max": int(cc_two.max()),
+        "msgs_two_level": sum(len(r) for r in rounds), "msgs_p2p": sum(len(r) for r in p2p),
+        "closed_ratio_p2p_over_two_level": round(e_p2p.t_total / e_two.t_total, 3),
+        "wire_ratio_p2p_over_two_level": round(res_p2p.t_total / res_two.t_total, 3),
+        "peak_dense_frac": round(plan.peak_dense_elems / float(n) ** 2, 4),
+    }
+    host_s["phase"] = time.perf_counter() - t_phase
+    vs = {k: {"port": v, "reference": PAPER_SCALE_REFERENCE[k],
+              "equal": bool(v == PAPER_SCALE_REFERENCE[k])} for k, v in got.items()}
+    out = {"devices": n, "pod_size": pod, "pods": plan.n_pods,
+           "populations": bm.n_populations, "host_s": host_s,
+           "shard_lint_errors": plan.shard_lint_errors,
+           "shard_lint_warnings": plan.shard_lint_warnings,
+           "shard_warnings": [f"pod {sh.pod}: {f.rule_id}: {f.message}" for sh in plan.shards
+                              for f in sh.findings if f.severity == "warning"],
+           "dcn_findings": len(plan.dcn_findings), "cross_shard_ok": dcn_errors == 0,
+           "bytes_conserved": conserved,
+           "mean_shard_groups": float(np.mean([s.mesh_shape[0] for s in plan.shards])),
+           "conn_reduction_max": float(cc_p2p.max()) / float(cc_two.max()),
+           "conn_reduction_mean": float(cc_p2p.mean()) / float(cc_two.mean()),
+           "t_two_level_wire_s": res_two.t_total, "t_p2p_wire_s": res_p2p.t_total,
+           "t_two_level_closed_s": e_two.t_total, "t_p2p_closed_s": e_p2p.t_total,
+           "vs_reference": vs, "all_equal_reference": all(c["equal"] for c in vs.values())}
+    counts = ("tm_nnz", "conn_p2p_max", "conn_two_level_max", "msgs_two_level", "msgs_p2p")
+    check(all(vs[k]["equal"] for k in counts),
+          f"paper scale: counts differ from the reference's: { {k: vs[k] for k in counts} }")
+    check(plan.shard_lint_errors == 0, f"paper scale: {plan.shard_lint_errors} shard lint errors")
+    check(dcn_errors == 0, f"paper scale: cross-shard check failed: {plan.dcn_findings}")
+    check(conserved, "paper scale: a netsim replay did not conserve bytes")
     return out
 
 
@@ -1388,6 +1607,8 @@ def main() -> int:
     path(("spike_accum_blocks", "spike_accum"),
          ("launcher", lambda: phase_launcher("cuda")),
          ("real_size", lambda: phase_real_size("cuda")))
+    # the paper's experiment planned on the host (no kernel: outside the counts)
+    emit({"phase": "plan_paper_scale", **phase_plan_paper_scale()})
     path(("flash_attention", "decode_attention"), ("serve", lambda: phase_serve(dev, SERVE_ARCH)))
     path(("ssd_scan",), ("serve_mamba2", lambda: phase_serve(dev, "mamba2-1.3b")))
     with shapes_of_rglru() as shapes:

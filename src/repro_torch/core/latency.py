@@ -36,7 +36,7 @@ Two backends, one API
 * ``model='closed_form'`` — the α-β-congestion formulas in this module
   (:func:`step_latency`), cheap enough for sweeps at any scale.
 * ``model='netsim'`` — the discrete-event interconnect simulator
-  (:mod:`repro.netsim`): the table's forwarding schedule is replayed
+  (:mod:`repro_torch.netsim`): the table's forwarding schedule is replayed
   message by message over an explicit topology, so congestion comes
   from simulated FIFO queueing on shared links instead of the fitted
   ``γ`` term.  Pass ``topology=`` (default: a single switch over the
@@ -45,9 +45,7 @@ Two backends, one API
   scales flows to wire bytes.
 
 Both return the same :class:`LatencyBreakdown`, so benchmarks flip
-between them with a flag.  In this numpy copy for the PyTorch port only
-``'closed_form'`` runs: ``model='netsim'`` raises ``ValueError`` until
-the simulator is ported (ROADMAP).
+between them with a flag.
 """
 from __future__ import annotations
 
@@ -184,6 +182,42 @@ def step_latency(
     )
 
 
+def _netsim_latency(
+    tb: RoutingTable,
+    cluster: ClusterModel,
+    *,
+    noise: float,
+    topology=None,
+) -> LatencyBreakdown:
+    """Discrete-event backend: replay the table's forwarding schedule.
+
+    Lazy-imports :mod:`repro_torch.netsim` (keeps the closed-form path free of
+    the dependency).  The cluster constants map onto the simulator:
+    ``alpha_conn`` is charged per message at injection (the host-side
+    connection cost that sinks P2P in Table II), traffic units scale to
+    wire bytes by ``bytes_per_traffic_unit`` times the noise multiplier.
+    """
+    from repro_torch import netsim
+
+    topo = topology or netsim.single_switch(tb.n_devices, link_bw=cluster.bw_link)
+    if topo.n_devices != tb.n_devices:
+        raise ValueError(f"topology has {topo.n_devices} devices, table {tb.n_devices}")
+    noise_mult = 1.0 + cluster.kappa * noise
+    rounds = netsim.table_rounds(tb, bytes_per_unit=cluster.bytes_per_traffic_unit * noise_mult)
+    # forwarding stages truly depend on each other (bridges aggregate
+    # only after level-1 delivers) — simulate with barriers
+    res = netsim.simulate(rounds, topo, alpha_msg=cluster.alpha_conn, barriers=True)
+    res.assert_conserved()
+    t_compute = cluster.t_compute0 * noise_mult
+    return LatencyBreakdown(
+        t_total=float(t_compute + res.t_total),
+        t_compute=float(t_compute),
+        t_conn=0.0,  # folded into the simulated per-message injection cost
+        t_serial=float(res.t_total),
+        worst_device=res.worst_device(),
+    )
+
+
 def estimate(
     tb: RoutingTable,
     cluster: ClusterModel = ClusterModel(),
@@ -206,10 +240,10 @@ def estimate(
         per-connection setup cost, congestion coefficients, unit scale).
       model: ``'closed_form'`` (this module's α-β-congestion formulas)
         or ``'netsim'`` (discrete-event replay over ``topology`` —
-        :mod:`repro.netsim`).
+        :mod:`repro_torch.netsim`).
       noise: channel-noise level ``z`` of Table II — scales spike (and
         hence wire) volume.
-      topology: netsim only — a :class:`repro.netsim.Topology` over the
+      topology: netsim only — a :class:`repro_torch.netsim.Topology` over the
         table's devices; defaults to a single switch at the cluster's
         link bandwidth.
 
@@ -219,10 +253,7 @@ def estimate(
     if model == "closed_form":
         return step_latency(tb, cluster, noise=noise)
     if model == "netsim":
-        raise ValueError(
-            "model='netsim' is not ported yet (ROADMAP: port netsim/ to "
-            "repro_torch); use model='closed_form'"
-        )
+        return _netsim_latency(tb, cluster, noise=noise, topology=topology)
     raise ValueError(f"unknown latency model {model!r}")
 
 

@@ -15,7 +15,7 @@ Outputs reproduce the paper's measured quantities:
   * per-device connection counts (Fig. 4 — paper: mean 1,552 → 88),
   * per-device level-2 egress traffic (Fig. 3(b)),
   * the routing table consumed by the distributed SNN engine and by the
-    hierarchical collective schedules in :mod:`repro.core.hierarchical`.
+    hierarchical collective schedules in :mod:`repro_torch.core.hierarchical`.
 
 Bridge selection balances the aggregated inter-group traffic across the
 members of each group (multiple bridges per group pair are allowed only
@@ -26,12 +26,12 @@ Implementation note: this module is the **sparse, vectorized core** —
 device traffic is carried as a CSR :class:`~repro_torch.core.traffic.TrafficMatrix`
 and every measured quantity is computed with O(nnz) scatter/gather ops,
 which scales Algorithm 2 past 10,000 devices on one CPU.  Dense ``[N, N]``
-inputs are accepted everywhere and converted on entry.  This is a numpy
-copy of ``repro.core.routing`` (the JAX package's) for the PyTorch port.
-The reference's dense parity oracle (``repro.core.routing_dense``) and
-its ``grouping='multilevel'`` are not ported yet: measurement functions
-handed a table carrying a dense matrix, and the multilevel grouping,
-raise ``ValueError`` naming the ROADMAP item.
+inputs are accepted everywhere and converted on entry.  The original dense
+implementation survives as a parity oracle (N ≤ ~256) in
+:mod:`repro_torch.core.routing_dense`; measurement functions transparently
+dispatch to it when handed a table carrying a dense matrix.  This is a
+numpy copy of ``repro.core.routing`` (the JAX package's) for the PyTorch
+port.
 """
 from __future__ import annotations
 
@@ -76,7 +76,7 @@ class RoutingTable:
       device_traffic: the device-to-device traffic the table was derived
                      from — a sparse :class:`TrafficMatrix` (the scalable
                      path) or a dense ``float64[N, N]`` (the parity oracle
-                     of :mod:`repro.core.routing_dense`).
+                     of :mod:`repro_torch.core.routing_dense`).
       method:        provenance of the grouping ('greedy' | 'genetic' | ...).
       share_coo:     bridge load fractions as COO triplets
                      ``(device, dst_group, fraction)`` — ``fraction`` of
@@ -130,7 +130,7 @@ class RoutingTable:
 
     def validate(self) -> None:
         # delegated to the planlint rule registry (rules PL005 + PL121)
-        # so construction-time checks and `python -m repro.analysis`
+        # so construction-time checks and `python -m repro_torch.analysis`
         # agree.  check_bridge_shares also covers P2P tables, which the
         # historical body skipped entirely (bridge.size == 0 returned
         # before any share_coo consistency check).
@@ -148,14 +148,6 @@ def _as_traffic(traffic: TrafficMatrix | np.ndarray) -> TrafficMatrix:
 
 def _is_dense(tb: RoutingTable) -> bool:
     return isinstance(tb.device_traffic, np.ndarray)
-
-
-def _dense_not_ported():
-    raise ValueError(
-        "tables carrying a dense device-traffic matrix need the dense parity "
-        "oracle, which is not ported yet (ROADMAP: port core/routing_dense.py "
-        "to repro_torch); build the table from a TrafficMatrix"
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -253,9 +245,11 @@ def _graph_from_traffic(tm: TrafficMatrix, wg: np.ndarray) -> CommGraph:
 
 
 def _multilevel_grouper(dg, g, *, itermax, balance_slack, seed):
-    raise ValueError(
-        "grouping='multilevel' is not ported yet (ROADMAP: port "
-        "core/multilevel.py to repro_torch)"
+    # local import: multilevel pulls in the whole coarsening stack
+    from repro_torch.core.multilevel import multilevel_partition
+
+    return multilevel_partition(
+        dg, g, itermax=itermax, balance_slack=balance_slack, seed=seed
     )
 
 
@@ -318,7 +312,7 @@ def two_level_routing(
         (``max group weight <= (1 + slack) * mean``).
       seed: grouping RNG seed; the routing itself is deterministic.
       grouping: 'greedy' (Algorithm 2 proper), 'multilevel' (the
-        multilevel partitioner on the device graph; not ported yet), or 'genetic' /
+        multilevel partitioner on the device graph), or 'genetic' /
         'random' (the baselines of Fig. 3(b)).
 
     Returns:
@@ -404,7 +398,7 @@ def select_bridges(
     destination groups.  Returns ``(primary_bridge [G, G], share_coo)``.
 
     Restricted re-election (the delta-replan path,
-    :mod:`repro.core.replan`): with ``only_groups`` set, only those
+    :mod:`repro_torch.core.replan`): with ``only_groups`` set, only those
     source groups rerun their LPT; every other group's bridge row and
     share entries are carried over verbatim from ``base`` (a prior
     ``(bridge, share_coo)`` pair), which is sound because a group's
@@ -604,11 +598,13 @@ def connection_components(
     * ``aggregated`` — the level-2 connections a device serves as bridge:
       one per (served destination group with traffic above threshold).
 
-    ``connection_counts`` is the sum; :mod:`repro.core.hierarchical` uses
+    ``connection_counts`` is the sum; :mod:`repro_torch.core.hierarchical` uses
     the split for measured level-1/level-2 message accounting.
     """
     if _is_dense(tb):
-        _dense_not_ported()
+        from repro_torch.core import routing_dense
+
+        return routing_dense.connection_components_dense(tb, threshold=threshold)
     tm: TrafficMatrix = tb.device_traffic
     n = tb.n_devices
     rows, cols, vals = tm.rows(), tm.indices, tm.data
@@ -671,7 +667,9 @@ def group_pair_traffic(tb: RoutingTable) -> np.ndarray:
     Materializes ``[G, G]`` — meant for grouped tables (G ≪ N), not for
     the P2P table where G = N."""
     if _is_dense(tb):
-        _dense_not_ported()
+        from repro_torch.core import routing_dense
+
+        return routing_dense.group_pair_traffic_dense(tb)
     tm: TrafficMatrix = tb.device_traffic
     g = tb.n_groups
     out = np.bincount(
@@ -693,7 +691,9 @@ def level2_egress(tb: RoutingTable) -> np.ndarray:
     over level-1 links, so their level-2 egress is zero.
     """
     if _is_dense(tb):
-        _dense_not_ported()
+        from repro_torch.core import routing_dense
+
+        return routing_dense.level2_egress_dense(tb)
     tm: TrafficMatrix = tb.device_traffic
     n = tb.n_devices
     if tb.method == "p2p":
@@ -715,7 +715,9 @@ def level1_egress(tb: RoutingTable) -> np.ndarray:
     aggregate across the same bridges.
     """
     if _is_dense(tb):
-        _dense_not_ported()
+        from repro_torch.core import routing_dense
+
+        return routing_dense.level1_egress_dense(tb)
     tm: TrafficMatrix = tb.device_traffic
     n = tb.n_devices
     if tb.method == "p2p":

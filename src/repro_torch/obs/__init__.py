@@ -1,20 +1,34 @@
-"""repro_torch.obs — tracing and metrics for the port (copy of ``repro.obs``).
+"""repro_torch.obs — tracing, metrics and critical-path attribution for
+the port (a copy of the reference's ``repro.obs``).
 
 * :mod:`~repro_torch.obs.trace` — the zero-dependency tracer (nestable
   spans, instants, labeled counters; process-global, off by default, one
   branch when disabled) plus the always-on metrics registry;
 * :mod:`~repro_torch.obs.export` — Chrome-trace-event JSON (Perfetto-
-  loadable, deterministic bytes) and schema validation.
+  loadable, deterministic bytes) and schema validation;
+* :mod:`~repro_torch.obs.timeline` — simulated transmissions as trace
+  events and the *exact* critical-path decomposition of a
+  :class:`~repro_torch.netsim.SimResult` into serialization /
+  propagation / queueing / outage-stall per round and per link kind.
 
-The reference's ``timeline`` module (netsim critical-path attribution)
-is not ported yet.  ``--trace PATH`` on
-``python -m repro_torch.launch.run_brainsim`` produces a trace.
+``python -m repro_torch.obs validate|summarize TRACE.json`` inspects an
+exported trace; ``--trace PATH`` on
+``python -m repro_torch.launch.run_brainsim`` produces one.
 """
 from repro_torch.obs.export import (
     chrome_trace,
     dumps_chrome_trace,
     validate_chrome_trace,
     write_chrome_trace,
+)
+from repro_torch.obs.timeline import (
+    CATEGORIES,
+    CriticalPathAttribution,
+    CriticalSegment,
+    attribute_critical_path,
+    emit_simulation,
+    export_simulation_trace,
+    trace_events,
 )
 from repro_torch.obs.trace import (
     METRICS,
@@ -60,4 +74,11 @@ __all__ = [
     "dumps_chrome_trace",
     "write_chrome_trace",
     "validate_chrome_trace",
+    "CATEGORIES",
+    "CriticalSegment",
+    "CriticalPathAttribution",
+    "attribute_critical_path",
+    "trace_events",
+    "emit_simulation",
+    "export_simulation_trace",
 ]

@@ -1,5 +1,7 @@
 """The port stands alone: nothing in ``src/repro_torch/`` or
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``; its entry
+``chip_smoke.py`` imports ``jax``, the JAX package ``repro`` or the
+reference's ``benchmarks`` (which import ``repro``), not even inside a
+function body; its entry
 points refuse to run without CUDA unless asked for the CPU; and a CPU
 tensor never reaches a CUDA kernel."""
 from __future__ import annotations
@@ -34,7 +36,7 @@ def test_port_files_found():
 def test_no_jax_or_reference_imports(path):
     bad = [
         mod for mod in _imported_modules(path)
-        if mod.split(".")[0] in ("jax", "jaxlib", "repro")
+        if mod.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")
     ]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
@@ -55,7 +57,7 @@ def test_device_rule(no_cuda):
 
 def test_entry_points_raise_without_cuda(no_cuda):
     from repro_torch.configs import ARCHS
-    from repro_torch.launch import run_brainsim, serve
+    from repro_torch.launch import brainsim, run_brainsim, serve
     from repro_torch.models import lm
     from repro_torch.serve import ServeEngine
     from repro_torch.snn import DistributedSNN, LIFParams, SNNEngine, init_state
@@ -68,6 +70,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
         DistributedSNN(mesh=(2,), w_syn=w, params=LIFParams())
     with pytest.raises(RuntimeError, match="CUDA"):
         run_brainsim.main(["--populations", "16", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        brainsim.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         init_state(4, LIFParams())
     with pytest.raises(RuntimeError, match="CUDA"):
