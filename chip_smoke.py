@@ -84,6 +84,28 @@ nonzero.
    errors, cross-shard conservation, conserved bytes and the reference's
    counts, or the run fails; host seconds per stage and every count beside
    the reference's value.
+``comm`` (after phase 4; the spike exchange across real processes, one
+   rank each over ``torch.distributed``, phase 4's host tiles shared with
+   them through ``share_memory_()``): (a) phase 4's network on 8 gloo
+   processes sharing the card (mesh ``(2, 4)``, collectives staged through
+   pinned host buffers, eager), 200 steps of ``sparse`` and ``ragged``:
+   each process runs K1 on its own rank's tiles, 200 launches a run, and
+   the gathered raster and the summed ledger (``ledger_total()``) equal
+   phase 4's loopback run's on every step; the wall ms a step beside the
+   loopback's (a record of the host-staged path, not a time of NCCL or of
+   a fabric); (b) the launcher as a user starts it, ``python -m
+   torch.distributed.run --standalone --nproc-per-node 4 -m
+   repro_torch.launch.run_brainsim --backend gloo`` at its size, ``(2,
+   2)``, ``--noise 2``, one run per exchange, the four side by side: rank
+   0's lines, the raster and the ledger equal to the loopback launcher's;
+   (c) NCCL at world size 1 on ``(1,)`` and ``(1, 1)``: the hierarchical
+   collectives are the identity, and every exchange, replayed from a CUDA
+   graph over the NCCL communicator, gives the loopback's raster and
+   ledger (the captured NCCL calls are flat's and two_level's
+   ``all_gather``; at one rank a ``ppermute`` is a local copy, and sparse
+   and ragged call no collective).  Then the ``comm_nccl_multi`` line:
+   NCCL across ranks takes a card per rank, so with one card it says it
+   was not run.
 5. Serving (``repro_torch.serve``) of phi4-mini-3.8b (attention: prefill
    runs ``flash_attention``, decode ``decode_attention``), mamba2-1.3b (48
    ssm layers: prefill runs ``ssd_scan``, decode plain recurrence steps)
@@ -121,7 +143,9 @@ nonzero.
 
 Each main path (phases 3-4, and each model of phase 5) runs with the
 launch counts set to 0 just before it and read just after, and must have
-launched each of its kernels; the ``kernels`` line sums them.  Runs made
+launched each of its kernels; the ``kernels`` line sums them.  A process
+rank of phase ``comm`` counts its own launches the same way, and K1's
+row of the ``kernels`` line gives them per rank.  Runs made
 only to check (probed currents, planted faults, the card-vs-CPU and
 consistency checks, the profiled windows) leave the counts as they were.
 Exits 2 without CUDA.
@@ -130,6 +154,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import subprocess
 import sys
@@ -894,7 +919,11 @@ def _per_step(prof: dict, steps: int) -> dict:
 
 
 def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
-                    steps: int = REAL_STEPS) -> dict:
+                    steps: int = REAL_STEPS, keep: dict | None = None) -> dict:
+    """Real size through the public API (see the module's docstring).
+    ``keep``: filled with what phase ``comm`` reuses — the host tiles, the
+    drive, the mesh, the neuron constants, the ragged plan and, per
+    exchange, the replayed raster, its ledger and its ms per step."""
     import numpy as np
     import torch
 
@@ -970,7 +999,7 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
 
     # the counted runs replay a CUDA graph of one step (the engines' default
     # on the card); the same runs op by op are their checks, uncounted
-    runs, rasters, profiles = {}, {}, {}
+    runs, rasters, profiles, ledgers = {}, {}, {}, {}
     for tag, exch, mode in (("sparse", "sparse", "fused"),
                             ("ragged_fused", "ragged", "fused"),
                             ("ragged_per_round", "ragged", "per_round")):
@@ -991,7 +1020,7 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
             eager_raster, eager_wall, _ = timed(lambda: eager.run(steps, comm=eager_comm))
         check(torch.equal(eager_raster, raster), f"{tag}: replayed raster != eager")
         check(eager_comm.step_bytes == comm.step_bytes, f"{tag}: eager bytes differ")
-        rasters[tag] = raster
+        rasters[tag], ledgers[tag] = raster, list(comm.step_bytes)
         replay_s = wall - capture_s
         runs[tag] = {"graph": eng.graph, "ms_per_step": replay_s / steps * 1e3,
                      "steps_per_s": steps / replay_s, "capture_s": capture_s,
@@ -1000,8 +1029,8 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
                      "bytes_per_step": vol[exch], "spike_accum_blocks_launches": launched,
                      "replayed_equals_eager": True}
         if tag == "ragged_fused":
-            out["planlint"] = _lint_executed_plan(syn, mesh, eng._ragged_plan(),
-                                                  runs[tag]["ms_per_step"])
+            plan = eng._ragged_plan()
+            out["planlint"] = _lint_executed_plan(syn, mesh, plan, runs[tag]["ms_per_step"])
         if dev.type == "cuda" and mode == "fused":
             profiles[tag] = {"replayed": _per_step(_device_profile(engine(exch).run, steps),
                                                    steps)}
@@ -1082,7 +1111,292 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
                              fired_rows_per_step=float(raster.sum(1).mean()))
     if dev.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    if keep is not None:
+        keep.update(syn=syn, drive=drive, mesh=mesh, params=params, steps=steps,
+                    plan=plan, ledgers=ledgers,
+                    rasters={tag: r.to(torch.uint8).cpu().numpy() for tag, r in rasters.items()},
+                    ms_per_step={tag: run["ms_per_step"] for tag, run in runs.items()})
     del w, tiles
+    return out
+
+
+# -- phase comm --------------------------------------------------------------
+
+COMM_TIMEOUT = 600  # seconds a group of ranks may take; a hung collective fails
+
+
+def _spawn(fn, n: int, backend: str, *args) -> list:
+    """``[fn(rank, n, *args) for rank in range(n)]``, each rank in a process
+    of its own in a ``backend`` group on the card
+    (:func:`repro_torch.multiproc.spawn`: NCCL a card per rank, gloo the
+    cards shared).  A rank that raises, dies or outlasts
+    :data:`COMM_TIMEOUT` fails the run; every process is stopped."""
+    from repro_torch.multiproc import spawn
+
+    return spawn(fn, n, *args, backend=backend, device="cuda", timeout=COMM_TIMEOUT)
+
+
+def _raster_digest(raster) -> str:
+    return hashlib.sha256(raster.tobytes()).hexdigest()
+
+
+def _real_size_rank(rank: int, n: int, backend: str, blocks, meta_path: str) -> dict:
+    """Phase 4's network, one rank in this process: its own tiles staged
+    from the shared host copy, sparse and ragged steps through a
+    ``ProcessGroupComm``; K1 launches, the gathered raster, the ledgers and
+    the wall time of the run.  ``meta_path``: the pickled rest of the
+    network (drive, plan, ...)."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import convert
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.snn import (
+        BlockSynapses, DistributedSNN, ProcessGroupComm, gather_raster,
+    )
+
+    t_start = time.perf_counter()
+    meta = pickle.loads(Path(meta_path).read_bytes())
+    # from the parent's spawn to here: the process, its imports, the group
+    # (the host's clock, shared with the parent)
+    out = {"started_s": time.time() - meta["t_spawn"]}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    held = range(rank, rank + 1)
+    syn = BlockSynapses(indptr=meta["indptr"], src_ids=meta["src_ids"],
+                        blocks=blocks.numpy(), n_blocks=meta["n_blocks"])
+    t0 = time.perf_counter()
+    tiles = convert.padded_tiles(syn, dev, ranks=held)
+    torch.cuda.synchronize(dev)
+    out.update(stage_tiles_s=time.perf_counter() - t0, tiles=tuple(tiles[1].shape),
+               real_tiles=int(syn.indptr[rank + 1] - syn.indptr[rank]))
+    t0 = time.perf_counter()
+    comm = ProcessGroupComm(meta["mesh"], backend, dev)
+    out["comm_s"] = time.perf_counter() - t0
+    steps = meta["steps"]
+    for tag, exch in (("sparse", "sparse"), ("ragged_fused", "ragged")):
+        eng = DistributedSNN(mesh=meta["mesh"], params=meta["params"], exchange=exch,
+                             i_ext=meta["drive"], syn=syn, tiles=tiles, tile_ranks=held,
+                             device=dev, plan=meta["plan"] if exch == "ragged" else None,
+                             graph=None if comm.capturable else False)
+        t0 = time.perf_counter()
+        eng.run(2, comm=comm)  # warm-up: kernels, pinned buffers, connections
+        out[f"{tag}_warm_up_s"] = time.perf_counter() - t0
+        comm.step_bytes.clear()
+        dist.barrier()
+        reset_launches()
+        t0 = time.perf_counter()
+        local = eng.run(steps, comm=comm)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launched = LAUNCHES["spike_accum_blocks"]
+        raster = gather_raster(local, comm).to(torch.uint8).cpu().numpy()
+        out[tag] = {"spike_accum_blocks_launches": launched, "wall_s": wall,
+                    "digest": _raster_digest(raster), "raster": raster if rank == 0 else None,
+                    "step_bytes": list(comm.step_bytes), "ledger_total": comm.ledger_total()}
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    out["rank_s"] = time.perf_counter() - t_start
+    return out
+
+
+def _comm_real_size(kept: dict, backend: str) -> dict:
+    """(a): phase 4's network, 8 processes of one rank each, every rank's
+    raster, ledger and K1 launches against phase 4's loopback run."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    syn, steps, mesh = kept["syn"], kept["steps"], kept["mesh"]
+    n = int(np.prod(mesh))
+    t0 = time.perf_counter()
+    blocks = torch.from_numpy(syn.blocks).share_memory_()  # every process maps this copy
+    share_s = time.perf_counter() - t0
+    meta = {"indptr": syn.indptr, "src_ids": syn.src_ids, "n_blocks": syn.n_blocks,
+            "mesh": mesh, "params": kept["params"], "drive": kept["drive"],
+            "plan": kept["plan"], "steps": steps}
+    t0 = time.perf_counter()
+    # a spawned process reads its arguments from a pipe as it imports what
+    # they need: arguments over the pipe's 64 KB would start the ranks one
+    # after another, so the drive and the plan go through a file
+    with tempfile.TemporaryDirectory() as d:
+        meta_path = Path(d, "meta.pkl")
+        meta_path.write_bytes(pickle.dumps({**meta, "t_spawn": time.time()}))
+        ranks = _spawn(_real_size_rank, n, backend, backend, blocks, str(meta_path))
+    out = {"backend": backend, "processes": n,
+           "mesh": list(mesh), "steps": steps, "share_host_tiles_s": share_s,
+           "spawn_and_run_s": time.perf_counter() - t0,
+           "rank_s_max": {key: max(r[key] for r in ranks) for key in
+                          ("comm_s", "sparse_warm_up_s", "ragged_fused_warm_up_s", "rank_s")},
+           "started_s": [r["started_s"] for r in ranks],
+           "tiles_per_rank": [r["real_tiles"] for r in ranks],
+           "padded_tiles_shape": list(ranks[0]["tiles"]),
+           "stage_tiles_s_max": max(r["stage_tiles_s"] for r in ranks),
+           "max_memory_allocated_per_rank": [r["max_memory_allocated"] for r in ranks]}
+    del blocks
+    for tag in ("sparse", "ragged_fused"):
+        runs = [r[tag] for r in ranks]
+        launches = [run["spike_accum_blocks_launches"] for run in runs]
+        check(launches == [steps] * n,
+              f"comm/{tag}: K1 launches per rank {launches}, want {steps} each")
+        check(len({run["digest"] for run in runs}) == 1, f"comm/{tag}: ranks gathered "
+              "different rasters")
+        check(np.array_equal(runs[0]["raster"], kept["rasters"][tag]),
+              f"comm/{tag}: the gathered raster != phase 4's loopback raster")
+        for rank, run in enumerate(runs):
+            check(run["ledger_total"] == kept["ledgers"][tag],
+                  f"comm/{tag}: rank {rank}'s summed ledger != the loopback's")
+        summed = np.sum([run["step_bytes"] for run in runs], axis=0).tolist()
+        check(summed == kept["ledgers"][tag], f"comm/{tag}: the ranks' ledgers do not sum")
+        walls = [run["wall_s"] for run in runs]
+        out[tag] = {"raster_equals_loopback": True, "ledger_equals_loopback": True,
+                    "bytes_per_step": kept["ledgers"][tag][0],
+                    "spike_accum_blocks_launches_per_rank": steps,
+                    "wall_ms_per_step": max(walls) / steps * 1e3,
+                    "wall_ms_per_step_by_rank": [w / steps * 1e3 for w in walls],
+                    "loopback_replayed_ms_per_step": kept["ms_per_step"][tag],
+                    "spikes": int(runs[0]["raster"].sum())}
+    return out
+
+
+def _comm_launcher(backend: str, n: int = 4) -> dict:
+    """(b): the launcher at its size as a user starts it, ``python -m
+    torch.distributed.run --standalone --nproc-per-node n -m
+    repro_torch.launch.run_brainsim --backend ...``, one run per exchange,
+    the four side by side; each against the same launcher on the loopback
+    in this process: rank 0's lines (the loopback's plus the executed
+    ledger), the raster every rank gathered, the ledger and each rank's K1
+    launches (``--save``)."""
+    import os
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch import run_brainsim
+
+    exchanges = ("flat", "two_level", "sparse", "ragged")
+    argv = ["--ranks", str(n), "--noise", "2.0", "--steps", str(STEPS)]
+    here = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        filter(None, [str(here / "src"), os.environ.get("PYTHONPATH")]))}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        procs = {exch: subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(n), "-m", "repro_torch.launch.run_brainsim", *argv,
+             "--backend", backend, "--exchange", exch, "--save", f"{d}/{exch}.npz"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=here,
+            start_new_session=True) for exch in exchanges}
+        deadline = time.monotonic() + COMM_TIMEOUT
+        printed = {}
+        try:
+            for exch, proc in procs.items():
+                printed[exch] = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for proc in procs.values():  # a run past its time: every rank of every run
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        saved = {}
+        for exch, proc in procs.items():
+            check(proc.returncode == 0, f"comm/launcher/{exch}: torch.distributed.run exited "
+                  f"{proc.returncode}:\n{printed[exch][1][-3000:]}")
+            with np.load(f"{d}/{exch}.npz") as z:
+                saved[exch] = {key: z[key] for key in z.files}
+    out = {"backend": backend, "processes": n, "steps": STEPS, "noise": 2.0,
+           "started_by": "python -m torch.distributed.run --standalone",
+           "runs_side_by_side_s": time.perf_counter() - t0}
+    for exch in exchanges:
+        loop_lines = io.StringIO()
+        with uncounted(), contextlib.redirect_stdout(loop_lines):  # the loopback, the check
+            want = run_brainsim.main([*argv, "--exchange", exch])
+        got, lines = saved[exch], printed[exch][0].strip().splitlines()
+        check(lines[:-1] == loop_lines.getvalue().strip().splitlines()
+              and lines[-1] == f"executed slow-axis bytes/step over {n} processes "
+                               f"({backend}): {want['ledger'][0]}",
+              f"comm/launcher/{exch}: rank 0 printed {lines}")
+        check(len(set(got["digests"].tolist())) == 1, f"comm/launcher/{exch}: ranks differ")
+        check(np.array_equal(got["raster"], want["raster"]),
+              f"comm/launcher/{exch}: raster != the loopback launcher's")
+        check(got["ledger"].tolist() == want["ledger"],
+              f"comm/launcher/{exch}: ledger != the loopback's")
+        launches = [r["spike_accum_blocks"] for r in json.loads(str(got["launches"]))]
+        want_launches = STEPS if exch in ("sparse", "ragged") else 0
+        check(launches == [want_launches] * n,
+              f"comm/launcher/{exch}: K1 launches per rank {launches}")
+        out[exch] = {"raster_equals_loopback": True, "ledger_equals_loopback": True,
+                     "spikes": int(want["raster"].sum()), "bytes_per_step": want["ledger"][0],
+                     "spike_accum_blocks_launches_per_rank": want_launches,
+                     "rank0_lines": lines}
+    return out
+
+
+def _nccl_one_rank(rank: int, n: int) -> dict:
+    """(c): NCCL at world size 1 — the hierarchical collectives give the
+    identity, and the engine, replayed from a CUDA graph over a
+    ``ProcessGroupComm``, gives the loopback's raster and ledger."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import hierarchical as h
+    from repro_torch.snn import (
+        BlockSynapses, DistributedSNN, LIFParams, LoopbackComm, ProcessGroupComm,
+        expand_synapses, generate_brain_model,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as in the parent
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out: dict = {}
+    comm = ProcessGroupComm((1, 1), "nccl", dev)
+    x = torch.arange(30, dtype=torch.float32, device=dev).reshape(1, 1, 6, 5)
+    flat, two = h.make_exchange_fns(comm)
+    for name, got in (("flat_all_to_all", flat(x)), ("two_level_all_to_all", two(x)),
+                      ("flat_psum", h.flat_psum(x[0], comm)),
+                      ("hierarchical_psum", h.hierarchical_psum(x[0], comm)),
+                      ("two_level_all_gather", h.two_level_all_gather(x[0], comm))):
+        check(torch.equal(got.reshape(x.shape), x), f"comm/nccl: {name} is not the identity")
+    out["hierarchical_identity"] = True
+    out["capturable"] = comm.capturable
+    bm = generate_brain_model(n_populations=128, n_regions=8, total_neurons=1_000_000, seed=0)
+    w = expand_synapses(bm.graph, 4, seed=0)[0].astype(np.float32) * np.float32(0.05)
+    params = LIFParams(noise_sigma=2.0)
+    syn = BlockSynapses.from_dense(w, 1)
+    for mesh, exchanges in (((1,), ("flat", "sparse", "ragged")),
+                            ((1, 1), ("flat", "two_level", "sparse", "ragged"))):
+        for exch in exchanges:
+            kw = {"w_syn": w} if exch in ("flat", "two_level") else {"syn": syn}
+            eng = DistributedSNN(mesh=mesh, params=params, exchange=exch, i_ext=3.5,
+                                 device=dev, **kw)
+            loop = LoopbackComm(mesh, dev)
+            want = eng.run(STEPS, comm=loop)
+            pg = ProcessGroupComm(mesh, "nccl", dev)
+            with captures() as caps:
+                got = eng.run(STEPS, comm=pg)
+            check(torch.equal(got, want), f"comm/nccl/{mesh}/{exch}: raster != loopback")
+            check(pg.ledger_total() == loop.step_bytes, f"comm/nccl/{mesh}/{exch}: ledger")
+            check(eng.graph and len(caps) == 1,
+                  f"comm/nccl/{mesh}/{exch}: {len(caps)} captures, graph={eng.graph}")
+            out["x".join(map(str, mesh)) + "/" + exch] = {
+                "replayed": True, "capture_s": caps[0], "raster_equals_loopback": True,
+                "spikes": int(want.sum())}
+    return out
+
+
+def phase_comm(dev, kept: dict) -> dict:
+    """The spike exchange across real processes (see the module's
+    docstring): (a) phase 4's network on 8 gloo processes sharing the card,
+    (b) the launcher on 4, (c) NCCL at world size 1."""
+    import gc
+
+    import torch
+
+    gc.collect()  # phase 4's dense W and graphs, before 8 more contexts
+    torch.cuda.empty_cache()
+    out = {"real_size": _comm_real_size(kept, "gloo"), "launcher": _comm_launcher("gloo")}
+    out["nccl_world_1"] = _spawn(_nccl_one_rank, 1, "nccl")[0]
     return out
 
 
@@ -1561,6 +1875,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    import numpy as np
     from repro_torch.kernels import LAUNCHES, _build, reset_launches
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1604,9 +1919,23 @@ def main() -> int:
             launches[kname] += n
         return got
 
+    kept: dict = {}
     path(("spike_accum_blocks", "spike_accum"),
          ("launcher", lambda: phase_launcher("cuda")),
-         ("real_size", lambda: phase_real_size("cuda")))
+         ("real_size", lambda: phase_real_size("cuda", keep=kept)))
+    # the spike exchange across processes, phase 4's tiles shared with them:
+    # each process rank counts its own kernel launches
+    results["comm"] = phase_comm(dev, kept)
+    emit({"phase": "comm", **results["comm"]})
+    cards = torch.cuda.device_count()
+    if cards >= 4:  # NCCL across ranks takes one card per rank
+        multi = {"run": True, "cards": cards, "launcher": _comm_launcher("nccl", 4)}
+        if cards >= int(np.prod(kept["mesh"])):
+            multi["real_size"] = _comm_real_size(kept, "nccl")
+    else:
+        multi = {"run": False, "cards": cards}
+    emit({"phase": "comm_nccl_multi", **multi})
+    kept.clear()
     # the paper's experiment planned on the host (no kernel: outside the counts)
     emit({"phase": "plan_paper_scale", **phase_plan_paper_scale()})
     path(("flash_attention", "decode_attention"), ("serve", lambda: phase_serve(dev, SERVE_ARCH)))
@@ -1625,6 +1954,9 @@ def main() -> int:
     emit({"phase": "serve_launcher", **phase_serve_launcher()})
 
     csrc = "src/repro_torch/kernels/csrc/"
+    comm_real = results["comm"]["real_size"]
+    per_rank = sum(comm_real[tag]["spike_accum_blocks_launches_per_rank"]
+                   for tag in ("sparse", "ragged_fused"))
     rows = []
     for kname, source, replaces, case in (
         ("spike_accum_blocks", "spike_accum.cu", "spike_accum.py:133", "rate_1pct"),
@@ -1650,6 +1982,9 @@ def main() -> int:
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                      "device_ms": c["device_ms"], "case": case,
+                     **({"process_rank_launches": {"ranks": comm_real["processes"],
+                                                   "per_rank": per_rank}}
+                        if kname == "spike_accum_blocks" else {}),
                      **{key: c[key] for key in ("bound_ms_bytes", "main_path_device_ms")
                         if key in c}})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})

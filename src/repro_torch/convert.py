@@ -64,24 +64,28 @@ def block_synapses(
 
 
 def padded_tiles(
-    syn: BlockSynapses, device: str | torch.device | None = None
+    syn: BlockSynapses, device: str | torch.device | None = None, *,
+    ranks: range | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(src_ids int32[n_blocks, K], blocks f32[n_blocks, K, B, B])`` on
     ``device`` — :meth:`BlockSynapses.padded`'s layout (destination ``d``'s
     real tiles first, then zero tiles pointing at source 0), built on the
-    device from the stored tiles.  A fresh copy on every call: engines that
-    should share one pass it as ``DistributedSNN(tiles=...)``."""
+    device from the stored tiles; with ``ranks``, only those destinations'
+    rows (``K`` stays the whole grid's).  A fresh copy on every call:
+    engines that should share one pass it as ``DistributedSNN(tiles=...,
+    tile_ranks=ranks)``."""
     dev = resolve_device(device)
     deg = np.diff(syn.indptr)
     k = max(int(deg.max()) if deg.size else 0, 1)
     b = syn.block_size
-    src = np.zeros((syn.n_blocks, k), dtype=np.int32)
-    blk = torch.zeros((syn.n_blocks, k, b, b), dtype=torch.float32, device=dev)
-    for d in range(syn.n_blocks):
+    ranks = range(syn.n_blocks) if ranks is None else ranks
+    src = np.zeros((len(ranks), k), dtype=np.int32)
+    blk = torch.zeros((len(ranks), k, b, b), dtype=torch.float32, device=dev)
+    for row, d in enumerate(ranks):
         lo, hi = int(syn.indptr[d]), int(syn.indptr[d + 1])
-        src[d, : hi - lo] = syn.src_ids[lo:hi]
+        src[row, : hi - lo] = syn.src_ids[lo:hi]
         for j in range(hi - lo):
-            blk[d, j].copy_(torch.from_numpy(syn.blocks[lo + j]))
+            blk[row, j].copy_(torch.from_numpy(syn.blocks[lo + j]))
     return torch.as_tensor(src, device=dev), blk
 
 

@@ -1,6 +1,7 @@
 """Brain-simulation substrate of the port: model generator, neuron
-dynamics, single-device reference engine, the loopback communicator and
-the distributed engine whose spike exchange follows the paper's routing."""
+dynamics, single-device reference engine, the communicators (loopback, and
+one rank per process over ``torch.distributed``) and the distributed engine
+whose spike exchange follows the paper's routing."""
 from repro_torch.snn.model import BrainModel, generate_brain_model
 from repro_torch.snn.neuron import (
     IzhikevichParams,
@@ -30,10 +31,11 @@ from repro_torch.snn.ragged import (
     build_ragged_plan,
     build_ragged_plan_from_mask,
 )
-from repro_torch.snn.comm import LoopbackComm
+from repro_torch.snn.comm import LoopbackComm, ProcessGroupComm
 from repro_torch.snn.distributed import (
     DistributedSNN,
     PlanBuffer,
+    gather_raster,
     group_mesh_permutation,
     partition_permutation,
 )
@@ -62,8 +64,10 @@ __all__ = [
     "build_ragged_plan",
     "build_ragged_plan_from_mask",
     "LoopbackComm",
+    "ProcessGroupComm",
     "DistributedSNN",
     "PlanBuffer",
+    "gather_raster",
     "group_mesh_permutation",
     "partition_permutation",
 ]

@@ -22,15 +22,24 @@ All four deliver the same effective global spike vector; what changes is
 the collective schedule — message counts and bytes, which the
 communicator's ledger records per step.
 
-The ranks live on one device as rank-stacked tensors ``[n_dev, ...]``
-behind :class:`~repro_torch.snn.comm.LoopbackComm`, and every step
-updates all ranks at once.  Synaptic accumulation: ``flat``/``two_level``
-multiply ``s_global @ w_block`` with ``torch.matmul`` (the reference
-leaves that product to XLA outside any kernel); ``sparse``/``ragged`` run
-the block-CSR ``I = Σ_k s_blk[src_ids[k]] @ blocks[k]`` through
+An engine runs the ranks its communicator holds (:mod:`repro_torch.snn.comm`),
+as tensors stacked over them ``[len(comm.ranks), ...]``, and every step
+updates them all at once: behind a
+:class:`~repro_torch.snn.comm.LoopbackComm` (the default) every rank of
+the mesh on one device; behind a
+:class:`~repro_torch.snn.comm.ProcessGroupComm` one rank per process over
+``torch.distributed`` (NCCL, or gloo), where :meth:`DistributedSNN.run`
+returns that rank's raster and :func:`gather_raster` assembles the global
+one.  Rank ``d`` draws its noise from the ``d``-th generator of
+``make_generators(seed, n_dev)`` wherever it runs, so both give one raster.
+Synaptic accumulation: ``flat``/``two_level`` multiply ``s_global @
+w_block`` with ``torch.matmul`` (the reference leaves that product to XLA
+outside any kernel); ``sparse``/``ragged`` run the block-CSR ``I = Σ_k
+s_blk[src_ids[k]] @ blocks[k]`` through
 :func:`repro_torch.kernels.spike_currents_blocks`, one launch per step for
-all ranks.  There is no policy flag: on a CUDA device that is the
-hand-written ``spike_accum_blocks`` kernel, on the CPU its plain version.
+the ranks held, on their own tiles only.  There is no policy flag: on a
+CUDA device that is the hand-written ``spike_accum_blocks`` kernel, on the
+CPU its plain version.
 
 A step updates the rank-stacked state in place and writes its raster row
 through a device step counter, so it can be captured: on the card the
@@ -40,7 +49,12 @@ over ``lax.scan``), one capture per run.  The graph binds the synapse
 tiles, the drive and the index rows by address, so a plan swap
 (:meth:`DistributedSNN.with_plan`, :meth:`PlanBuffer.flip`) is captured
 anew by the next run; the tiles are never copied.  ``graph=False`` runs
-every step eagerly.
+every step eagerly.  A communicator whose collectives a graph cannot
+capture (gloo, and NCCL across ranks: ``ProcessGroupComm.capturable``)
+needs ``graph=False``: ``graph=True`` raises.
+
+:meth:`DistributedSNN.trace_step` runs eager steps through a recording
+communicator for planlint Layer 2 (:mod:`repro_torch.analysis.traced`).
 """
 from __future__ import annotations
 
@@ -48,6 +62,7 @@ import dataclasses
 import functools
 import time
 from collections.abc import Callable
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,7 +72,7 @@ from repro_torch.core.routing import pool_block_mask
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import spike_currents_blocks
 from repro_torch.obs import trace as obs
-from repro_torch.snn.comm import LoopbackComm
+from repro_torch.snn.comm import Comm, LoopbackComm
 from repro_torch.snn.ragged import RaggedPlan, build_ragged_plan
 from repro_torch.snn.sparse import BlockSynapses, exchange_schedule, exchange_volume
 from repro_torch.snn.neuron import (
@@ -74,6 +89,7 @@ from repro_torch.snn.neuron import (
 __all__ = [
     "DistributedSNN",
     "PlanBuffer",
+    "gather_raster",
     "partition_permutation",
     "group_mesh_permutation",
 ]
@@ -118,11 +134,13 @@ def _step_fn(params):
     return lif_step if isinstance(params, LIFParams) else izhikevich_step
 
 
-def _init(params, n_dev: int, n_loc: int, seed: int, dev: torch.device):
-    """Rank-stacked initial state ``[n_dev, n_loc]``; one noise generator
-    per rank, seeded from ``seed`` (only when the model is noisy)."""
-    gens = make_generators(seed, n_dev, dev) if params.noise_sigma else None
-    return init_state((n_dev, n_loc), params, gens, device=dev)
+def _init(params, ranks: range, n_dev: int, n_loc: int, seed: int, dev: torch.device):
+    """Initial state ``[len(ranks), n_loc]`` of the ranks held; rank ``d``'s
+    noise generator is the ``d``-th of the mesh's ``n_dev``, seeded from
+    ``seed`` (only when the model is noisy)."""
+    gens = (make_generators(seed, n_dev, dev)[ranks.start:ranks.stop]
+            if params.noise_sigma else None)
+    return init_state((len(ranks), n_loc), params, gens, device=dev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,9 +170,12 @@ class DistributedSNN:
       plan: an explicit ragged plan (the double-buffered swap path).
       tiles: ``(src_ids, blocks)``, the padded device tiles of the synapses
         (:func:`repro_torch.convert.padded_tiles`), to share one device copy
-        between engines over the same synapses; built from them on first
-        use when omitted, and owned by the engine from then on (edits to
-        ``syn.blocks`` made after that are not seen).
+        between engines over the same synapses: the rows of the ranks
+        ``tile_ranks``; built from them on first use when omitted, and
+        owned by the engine from then on (edits to ``syn.blocks`` made
+        after that are not seen).
+      tile_ranks: the ranks whose rows ``tiles`` holds, in order (``None``:
+        every rank of the mesh).  A run must hold ranks among them.
       device: where the ranks live; ``None`` means ``"cuda"``, and a
         missing card raises unless ``"cpu"`` is asked for.
       graph: replay the steps from a CUDA graph (``None``: on the card yes,
@@ -171,6 +192,7 @@ class DistributedSNN:
     ragged_scatter: str = "fused"
     plan: RaggedPlan | None = None
     tiles: tuple[torch.Tensor, torch.Tensor] | None = None
+    tile_ranks: range | None = None
     device: str | torch.device | None = None
     graph: bool | None = None
 
@@ -197,10 +219,17 @@ class DistributedSNN:
                 f"syn has {self.syn.n_blocks} blocks for {self.n_devices} devices"
             )
         if self.tiles is not None:
-            syn = self._block_synapses()
+            syn, held = self._block_synapses(), self._tile_ranks
             shape = tuple(self.tiles[1].shape)
-            if shape[0] != self.n_devices or shape[2:] != (syn.block_size,) * 2:
-                raise ValueError(f"tiles {shape} do not hold these synapses")
+            if (not isinstance(held, range) or held.step != 1 or not held
+                    or held.start < 0 or held.stop > self.n_devices):
+                raise ValueError(f"tile_ranks {held!r}: a run of the mesh's "
+                                 f"{self.n_devices} ranks")
+            if shape[0] != len(held) or shape[2:] != (syn.block_size,) * 2:
+                raise ValueError(f"tiles {shape} do not hold these synapses "
+                                 f"(ranks {held.start}..{held.stop - 1})")
+        elif self.tile_ranks is not None:
+            raise ValueError("tile_ranks names the rows of tiles=")
         if self.plan is not None:
             if self.exchange != "ragged":
                 raise ValueError("plan= only applies to exchange='ragged'")
@@ -218,8 +247,9 @@ class DistributedSNN:
         """``(G, R)``: slow-axis size and ranks per group (1-D: R = 1)."""
         return (self.mesh[0], 1) if len(self.mesh) == 1 else (self.mesh[0], self.mesh[1])
 
-    def _drive(self, n_loc: int) -> float | torch.Tensor:
-        """The external drive as a scalar or rank-stacked ``[n_dev, n_loc]``."""
+    def _drive(self, n_loc: int, ranks: range) -> float | torch.Tensor:
+        """The external drive as a scalar or stacked over the ranks held,
+        ``[len(ranks), n_loc]``."""
         if np.ndim(self.i_ext) == 0:
             return float(self.i_ext)
         drive = torch.as_tensor(self.i_ext, dtype=torch.float32, device=self.device)
@@ -227,14 +257,38 @@ class DistributedSNN:
             raise ValueError(
                 f"i_ext has {drive.numel()} values for {self.n_devices * n_loc} neurons"
             )
-        return drive.reshape(self.n_devices, n_loc)
+        return drive.reshape(self.n_devices, n_loc)[ranks.start:ranks.stop]
+
+    @property
+    def _tile_ranks(self) -> range:
+        return range(self.n_devices) if self.tile_ranks is None else self.tile_ranks
 
     @functools.cached_property
     def _device_tiles(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The padded synapse tiles on the device, staged once per engine."""
-        if self.tiles is not None:
-            return self.tiles
+        """Every rank's padded synapse tiles on the device, staged once per
+        engine."""
         return convert.padded_tiles(self._block_synapses(), self.device)
+
+    def _tiles_for(self, ranks: range) -> tuple[torch.Tensor, torch.Tensor]:
+        """The padded tiles of the ranks held: the rows of ``tiles`` (which
+        must hold these ranks), or staged for every rank or for these ranks
+        alone, once per engine."""
+        if self.tiles is not None:
+            held = self._tile_ranks
+            if ranks.start < held.start or ranks.stop > held.stop:
+                raise ValueError(f"tiles hold ranks {held.start}..{held.stop - 1}, "
+                                 f"not {ranks.start}..{ranks.stop - 1}")
+            if ranks == held:
+                return self.tiles
+            lo = ranks.start - held.start
+            return tuple(t[lo:lo + len(ranks)] for t in self.tiles)
+        if len(ranks) == self.n_devices:
+            return self._device_tiles
+        cache = self.__dict__.setdefault("_local_tiles", {})
+        key = (ranks.start, ranks.stop)
+        if key not in cache:
+            cache[key] = convert.padded_tiles(self._block_synapses(), self.device, ranks=ranks)
+        return cache[key]
 
     def _dense_w(self) -> torch.Tensor:
         return torch.as_tensor(self.w_syn, dtype=torch.float32, device=self.device)
@@ -271,7 +325,9 @@ class DistributedSNN:
         step (the :func:`_sparse_step` cache); without new tiles the new
         engine takes over this engine's device tiles."""
         if syn is not None:
-            return dataclasses.replace(self, plan=plan, syn=syn, tiles=None)
+            return dataclasses.replace(self, plan=plan, syn=syn, tiles=None, tile_ranks=None)
+        if self.tiles is not None:
+            return dataclasses.replace(self, plan=plan)
         return dataclasses.replace(self, plan=plan, tiles=self._device_tiles)
 
     def step_signature(self) -> tuple:
@@ -315,17 +371,28 @@ class DistributedSNN:
         n_steps: int,
         *,
         seed: int = 0,
-        comm: LoopbackComm | None = None,
+        comm: Comm | None = None,
         probe: Callable[[int, torch.Tensor], None] | None = None,
     ) -> torch.Tensor:
-        """Simulate; returns the global spike raster ``[T, M]`` on the
-        engine's device.  ``comm`` (optional) is the communicator to run
-        on — pass one to read its per-step byte ledger afterwards.
-        ``probe`` (optional) is called as ``probe(t, i)`` at each step with
-        the synaptic current ``i`` ``[M]`` (global order, drive excluded)."""
+        """Simulate the ranks ``comm`` holds; returns their spike raster
+        ``[T, len(comm.ranks)·n_loc]`` on the engine's device — the global
+        ``[T, M]`` one behind the default :class:`LoopbackComm`
+        (:func:`gather_raster` assembles it from process ranks).  Pass
+        ``comm`` to read its per-step byte ledger afterwards.  ``probe``
+        (optional) is called as ``probe(t, i)`` at each step with the
+        synaptic current ``i`` of the ranks held (global order, drive
+        excluded)."""
         comm = LoopbackComm(self.mesh, self.device) if comm is None else comm
+        if (comm.g, comm.r) != self._mesh_groups():
+            raise ValueError(f"communicator mesh {comm.mesh_shape} != engine mesh {self.mesh}")
+        if self.graph and not comm.capturable:
+            raise ValueError(
+                f"graph=True: a CUDA graph cannot capture {type(comm).__name__}"
+                f"({getattr(comm, 'backend', '')}) collectives; pass graph=False"
+            )
+        ranks = comm.ranks
         if self.exchange in ("sparse", "ragged"):
-            fn, args = self._sparse_callable_and_args()
+            fn, args = self._sparse_callable_and_args(ranks)
             return fn(*args, n_steps=n_steps, seed=seed, comm=comm, probe=probe,
                       graph=self.graph)[0]
         w = self._dense_w()
@@ -333,34 +400,35 @@ class DistributedSNN:
         n_dev = self.n_devices
         if m % n_dev:
             raise ValueError("neuron count must divide the device count")
-        n_loc = m // n_dev
+        n_loc, n_held = m // n_dev, len(ranks)
         # rank d holds the incoming-weight column block W[:, d·n_loc:(d+1)·n_loc]
-        w_block = w.reshape(m, n_dev, n_loc).permute(1, 0, 2).contiguous()
+        w_block = w.reshape(m, n_dev, n_loc).permute(1, 0, 2)[ranks.start:ranks.stop]
+        w_block = w_block.contiguous()
         step = _step_fn(self.params)
         exchange = self.exchange
-        drive = self._drive(n_loc)
+        drive = self._drive(n_loc, ranks)
 
         def gather(spikes_loc):
             if exchange == "flat":
                 return comm.all_gather(spikes_loc, "joint")
             return comm.all_gather(comm.all_gather(spikes_loc, "inner"), "slow")
 
-        state = _init(self.params, n_dev, n_loc, seed, self.device)
-        prev = torch.zeros((n_dev, n_loc), dtype=torch.float32, device=self.device)
-        raster = torch.empty((n_steps, n_dev, n_loc), dtype=torch.float32,
+        state = _init(self.params, ranks, n_dev, n_loc, seed, self.device)
+        prev = torch.zeros((n_held, n_loc), dtype=torch.float32, device=self.device)
+        raster = torch.empty((n_steps, n_held, n_loc), dtype=torch.float32,
                              device=self.device)
         t_dev = torch.zeros((1,), dtype=torch.long, device=self.device)
 
         def one_step():
             comm.new_step()
-            s_global = gather(prev)  # [n_dev, M]
+            s_global = gather(prev)  # [n_held, M]
             cur = torch.matmul(s_global[:, None, :], w_block)[:, 0]
             _advance(step, state, prev, raster, t_dev, cur + drive, self.params)
             return cur
 
         graphs.run_steps(one_step, n_steps, self.device, self.graph, ledger=comm,
                          generators=generators(state.key), probe=_global(probe))
-        return raster.reshape(n_steps, m)
+        return raster.reshape(n_steps, n_held * n_loc)
 
     def step_profile(self, n_steps: int = 2, *, seed: int = 0) -> dict[str, float]:
         """Opt-in blocked per-phase host profile of one sparse/ragged run.
@@ -387,7 +455,7 @@ class DistributedSNN:
                       args={"exchange": self.exchange, "n_steps": n_steps}):
             t = time.perf_counter()
             with obs.span("snn.prepare", cat="exec", tid="snn"):
-                fn, args = self._sparse_callable_and_args()
+                fn, args = self._sparse_callable_and_args(range(self.n_devices))
                 sync()
             prof["prepare_s"] = time.perf_counter() - t
             for phase in ("first_call", "steady_call"):
@@ -410,6 +478,22 @@ class DistributedSNN:
         prof["step_cache_misses"] = float(ci.misses)
         return prof
 
+    def trace_step(self, n_steps: int = 2, *, comm: Comm | None = None):
+        """Run ``n_steps`` eager sparse/ragged steps through a recording
+        communicator (over ``comm``, by default a :class:`LoopbackComm`)
+        and return what they did — the input of planlint's Layer-2 lints
+        (:mod:`repro_torch.analysis.traced`): the collective calls of each
+        step and the ops that read the device from the host.  On the CPU
+        (the tests) nothing waits on a card; an engine on the card traces
+        there."""
+        if self.exchange not in ("sparse", "ragged"):
+            raise ValueError("trace_step covers exchange='sparse'/'ragged'")
+        from repro_torch.analysis.traced import trace_run
+
+        eng = dataclasses.replace(self, graph=False) if self.graph else self
+        comm = LoopbackComm(self.mesh, self.device) if comm is None else comm
+        return trace_run(lambda rec: eng.run(n_steps, comm=rec), comm)
+
     def _step_key(self) -> "_StepKey":
         return _StepKey(
             mesh=self.mesh,
@@ -419,18 +503,18 @@ class DistributedSNN:
             device=str(self.device),
         )
 
-    def _sparse_callable_and_args(self) -> tuple:
-        """The prepared sparse/ragged step plus its device inputs — padded
-        synapse tiles, the drive and, for ``'ragged'``, the per-round
-        (send, recv) index rows.  Swapping to a plan with an equal
-        :meth:`step_signature` reuses the prepared step."""
-        src, blocks = self._device_tiles  # [n_dev, K], [n_dev, K, B, B]
+    def _sparse_callable_and_args(self, ranks: range) -> tuple:
+        """The prepared sparse/ragged step plus the device inputs of the
+        ranks held — padded synapse tiles, the drive and, for ``'ragged'``,
+        the per-round (send, recv) index rows.  Swapping to a plan with an
+        equal :meth:`step_signature` reuses the prepared step."""
+        src, blocks = self._tiles_for(ranks)  # [n_held, K], [n_held, K, B, B]
         if self.exchange == "ragged":
             idx_rows = tuple(
                 torch.as_tensor(
-                    np.stack([rnd.send_idx, rnd.recv_idx], axis=1),
+                    np.stack([rnd.send_idx, rnd.recv_idx], axis=1)[ranks.start:ranks.stop],
                     dtype=torch.long, device=self.device,
-                )  # [n_dev, 2, K_r]
+                )  # [n_held, 2, K_r]
                 for rnd in self._ragged_plan().rounds
                 if rnd.pairs
             )
@@ -442,7 +526,7 @@ class DistributedSNN:
             obs.metric_inc("snn.step_cache_misses")
         else:
             obs.metric_inc("snn.step_cache_hits")
-        return fn, (src, blocks, self._drive(blocks.shape[-1]), idx_rows)
+        return fn, (src, blocks, self._drive(blocks.shape[-1], ranks), idx_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -475,106 +559,127 @@ class _SparseStep:
 
     Unneeded blocks and columns never cross the slow axis; their slots
     stay zero and the block-CSR storage holds no weight for them, so the
-    raster equals the dense oracle's.
+    raster equals the dense oracle's.  A step runs the ranks its
+    communicator holds (:class:`_Held`).
     """
 
     def __init__(self, key: _StepKey):
         g = key.mesh[0]
         r = key.mesh[1] if len(key.mesh) == 2 else 1
-        dev = torch.device(key.device)
         self.key = key
         self.g, self.r, self.n_dev = g, r, g * r
         self.kind, self.schedule = key.signature
         self.step = _step_fn(key.params)
-        rank = torch.arange(self.n_dev, device=dev)
-        self.rank = rank
-        self.gid = rank // r
         # the slot of the group each round's payload came from: (gid - shift) % G
         if self.kind == "ragged":
-            shifts = [shift for shift, _w, _perm in self.schedule]
+            self.shifts = [shift for shift, _w, _perm in self.schedule]
         else:
-            shifts = [s for s, pairs in enumerate(self.schedule, start=1) if pairs]
-        self.src_row = {s: (self.gid - s) % g for s in shifts}
+            self.shifts = [s for s, pairs in enumerate(self.schedule, start=1) if pairs]
+        self._held: dict[tuple, _Held] = {}
 
-    def _gather_blocks(self, comm, s_grp):
-        """Sparse level-2: ``[n_dev, R·B]`` group blocks → ``[n_dev, n_dev, B]``
-        global blocks (zeros where the schedule skipped a transfer)."""
+    def held(self, ranks: range, dev: torch.device) -> "_Held":
+        """The index tensors of the ranks held, made once per range."""
+        key = (ranks.start, ranks.stop, str(dev))
+        if key not in self._held:
+            rank = torch.arange(ranks.start, ranks.stop, device=dev)
+            gid = rank // self.r
+            self._held[key] = _Held(
+                local=torch.arange(len(ranks), device=dev), gid=gid,
+                src_row={s: (gid - s) % self.g for s in self.shifts},
+            )
+        return self._held[key]
+
+    def _gather_blocks(self, comm, s_grp, held):
+        """Sparse level-2: ``[n_held, R·B]`` group blocks → ``[n_held, n_dev,
+        B]`` global blocks (zeros where the schedule skipped a transfer)."""
         g, n_dev = self.g, self.n_dev
-        rb = s_grp.shape[1]
-        buf = s_grp.new_zeros((n_dev, g, rb))
-        buf[self.rank, self.gid] = s_grp
+        n_held, rb = s_grp.shape
+        buf = s_grp.new_zeros((n_held, g, rb))
+        buf[held.local, held.gid] = s_grp
         for shift, pairs in enumerate(self.schedule, start=1):
             if not pairs:
                 continue
             recv = comm.ppermute(s_grp, pairs, "slow")
             # untargeted receivers got zeros and write zeros into an
             # otherwise-untouched slot
-            buf[self.rank, self.src_row[shift]] = recv
-        return buf.reshape(n_dev, n_dev, rb // self.r)
+            buf[held.local, held.src_row[shift]] = recv
+        return buf.reshape(n_held, n_dev, rb // self.r)
 
-    def _gather_blocks_ragged(self, comm, s_grp, idx_rows):
+    def _gather_blocks_ragged(self, comm, s_grp, idx_rows, held):
         """Ragged level-2: packed bridge-only ``ppermute`` + fast-axis
         broadcast + scatter into block slots, in one ``index_add_`` over
         every round (``'fused'``) or one ``scatter_add_`` per round."""
         g, r, n_dev = self.g, self.r, self.n_dev
-        rb = s_grp.shape[1]
+        n_held, rb = s_grp.shape
         width = g * (rb + 1)  # one [G, rb + 1] buffer per rank
         fused = self.key.ragged_scatter == "fused"
         if fused:
-            own = (self.rank * width + self.gid * (rb + 1))[:, None]
+            own = (held.local * width + held.gid * (rb + 1))[:, None]
             parts = [s_grp.reshape(-1)]
             flat_idx = [(own + torch.arange(rb, device=s_grp.device)).reshape(-1)]
         else:
-            buf = s_grp.new_zeros((n_dev, g, rb + 1))
-            buf[self.rank, self.gid, :rb] = s_grp
-            buf = buf.reshape(n_dev, width)
+            buf = s_grp.new_zeros((n_held, g, rb + 1))
+            buf[held.local, held.gid, :rb] = s_grp
+            buf = buf.reshape(n_held, width)
         for (shift, _width, perm), idx in zip(self.schedule, idx_rows):
-            send_idx, recv_idx = idx[:, 0], idx[:, 1]  # [n_dev, K_r] each
+            send_idx, recv_idx = idx[:, 0], idx[:, 1]  # [n_held, K_r] each
             payload = torch.gather(s_grp, 1, send_idx)
             recv = comm.ppermute(payload, perm, "joint")
             if r > 1:
                 # only the receiving bridge got data; everyone else holds
                 # zeros, so a psum is the intra-group broadcast
                 recv = comm.psum(recv)
-            slot = (self.src_row[shift] * (rb + 1))[:, None] + recv_idx
+            slot = (held.src_row[shift] * (rb + 1))[:, None] + recv_idx
             if fused:
                 parts.append(recv.reshape(-1))
-                flat_idx.append((self.rank[:, None] * width + slot).reshape(-1))
+                flat_idx.append((held.local[:, None] * width + slot).reshape(-1))
             else:
                 buf.scatter_add_(1, slot, recv)
         if fused:
-            buf = s_grp.new_zeros((n_dev * width,)).index_add_(
+            buf = s_grp.new_zeros((n_held * width,)).index_add_(
                 0, torch.cat(flat_idx), torch.cat(parts)
             )
-        buf = buf.reshape(n_dev, g, rb + 1)[:, :, :rb]
-        return buf.reshape(n_dev, n_dev, rb // r)
+        buf = buf.reshape(n_held, g, rb + 1)[:, :, :rb]
+        return buf.reshape(n_held, n_dev, rb // r)
 
     def __call__(self, src, blocks, drive, idx_rows, *, n_steps, seed, comm, probe=None,
                  graph=False):
-        """Run ``n_steps`` (replayed from a CUDA graph with ``graph``);
-        returns the raster ``[T, n_dev·B]`` and the capture's seconds."""
+        """Run ``n_steps`` of the ranks ``comm`` holds (replayed from a CUDA
+        graph with ``graph``); returns their raster ``[T, n_held·B]`` and
+        the capture's seconds."""
         key = self.key
-        n_dev, b = self.n_dev, blocks.shape[-1]
+        ranks, b = comm.ranks, blocks.shape[-1]
         dev = blocks.device
-        state = _init(key.params, n_dev, b, seed, dev)
-        prev = torch.zeros((n_dev, b), dtype=torch.float32, device=dev)
-        raster = torch.empty((n_steps, n_dev, b), dtype=torch.float32, device=dev)
+        held = self.held(ranks, dev)
+        state = _init(key.params, ranks, self.n_dev, b, seed, dev)
+        prev = torch.zeros((len(ranks), b), dtype=torch.float32, device=dev)
+        raster = torch.empty((n_steps, len(ranks), b), dtype=torch.float32, device=dev)
         t_dev = torch.zeros((1,), dtype=torch.long, device=dev)
 
         def one_step():
             comm.new_step()
             s_grp = comm.all_gather(prev, "inner") if self.r > 1 else prev
             if self.kind == "ragged":
-                s_blocks = self._gather_blocks_ragged(comm, s_grp, idx_rows)
+                s_blocks = self._gather_blocks_ragged(comm, s_grp, idx_rows, held)
             else:
-                s_blocks = self._gather_blocks(comm, s_grp)
+                s_blocks = self._gather_blocks(comm, s_grp, held)
             cur = spike_currents_blocks(s_blocks, src, blocks)
             _advance(self.step, state, prev, raster, t_dev, cur + drive, key.params)
             return cur
 
         capture_s = graphs.run_steps(one_step, n_steps, dev, graph, ledger=comm,
                                      generators=generators(state.key), probe=_global(probe))
-        return raster.reshape(n_steps, n_dev * b), capture_s
+        return raster.reshape(n_steps, len(ranks) * b), capture_s
+
+
+class _Held(NamedTuple):
+    """Index tensors of the ranks a step holds: their positions in the
+    stack (``local``), their groups (``gid``) and, per round shift, the
+    slot of the group a payload came from (``src_row``)."""
+
+    local: torch.Tensor
+    gid: torch.Tensor
+    src_row: dict[int, torch.Tensor]
 
 
 def _advance(step, state: NeuronState, prev, raster, t_dev, i_syn, params) -> None:
@@ -590,8 +695,18 @@ def _advance(step, state: NeuronState, prev, raster, t_dev, i_syn, params) -> No
 
 
 def _global(probe):
-    """``probe(t, i)`` on the global current ``[M]`` from a rank-stacked one."""
+    """``probe(t, i)`` on the current of the ranks held, ``[n_held·n_loc]``
+    in global order, from a rank-stacked one."""
     return None if probe is None else (lambda t, cur: probe(t, cur.reshape(-1)))
+
+
+def gather_raster(raster: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """The global raster ``[T, M]``, on every rank, from the raster of the
+    ranks ``comm`` holds (what :meth:`DistributedSNN.run` returns).  A
+    collective outside the timed steps: not charged to the ledger."""
+    t = raster.shape[0]
+    held = raster.reshape(t, len(comm.ranks), -1).transpose(0, 1).contiguous()
+    return comm.collect(held).transpose(0, 1).reshape(t, -1)
 
 
 @functools.lru_cache(maxsize=32)
