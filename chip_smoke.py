@@ -84,6 +84,29 @@ nonzero.
    errors, cross-shard conservation, conserved bytes and the reference's
    counts, or the run fails; host seconds per stage and every count beside
    the reference's value.
+``recovery`` (after phase 4; replanning and recovery on phase 4's network
+   and device tiles, nothing expanded again): the network laid out as
+   phase 4's routing table groups it (``group_mesh_permutation``, the
+   tiles moved on the card by ``permute_ranks``) runs the table's ragged
+   plan; then (a) ``replan`` of an edit batch (``_edit_batch(tb, 0, 16)``)
+   and (b) the fault path (a bridge of the table evacuated,
+   ``replan(dead=[d])``, PL170/PL171 silent on the fault table) are each
+   planned on the new table's bridges, staged in a ``PlanBuffer`` and
+   flipped into the running engine (a device that changes group moves the
+   layout, the tiles and the drive with it), and run 200 replayed steps:
+   the raster equals an engine built from scratch on that plan and those
+   tiles, the ledger the plan's ``exchange_volume`` on every step, one K1
+   launch and one capture a run, and after the fault no round makes rank
+   ``d`` carry a payload across the slow axis; whether each raster also
+   equals phase 4's is printed.  (c) ``benchmarks/fault_bench.py``'s
+   supervised LIF trajectory with its state on the card under the port's
+   ``Supervisor``, ``Checkpointer`` and chaos ``supervisor_hook``: the
+   committed raster bit-equal to a failure-free run, ``steps_lost`` and
+   availability the reference's, every kept checkpoint verified and
+   restored onto the card; beside it fault_bench's recovery
+   (``evacuate_devices`` + ``replan(dead=...)``) against a rebuild, host
+   seconds.  (d) ``python -m repro_torch.analysis --all --stats`` exits 0
+   and ``--rules-md`` equals ``docs/RULES.md``.
 ``comm`` (after phase 4; the spike exchange across real processes, one
    rank each over ``torch.distributed``, phase 4's host tiles shared with
    them through ``share_memory_()``): (a) phase 4's network on 8 gloo
@@ -156,6 +179,7 @@ import contextlib
 import hashlib
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -928,6 +952,7 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
     import torch
 
     from repro_torch import convert
+    from repro_torch.analysis._support import paper_fabric
     from repro_torch.core import (
         device_traffic_csr, estimate, greedy_partition, multilevel_partition, p2p_routing,
         step_latency, two_level_routing,
@@ -1113,7 +1138,7 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     if keep is not None:
         keep.update(syn=syn, drive=drive, mesh=mesh, params=params, steps=steps,
-                    plan=plan, ledgers=ledgers,
+                    plan=plan, ledgers=ledgers, table=tb, device_weights=wg, tiles=tiles,
                     rasters={tag: r.to(torch.uint8).cpu().numpy() for tag, r in rasters.items()},
                     ms_per_step={tag: run["ms_per_step"] for tag, run in runs.items()})
     del w, tiles
@@ -1400,6 +1425,357 @@ def phase_comm(dev, kept: dict) -> dict:
     return out
 
 
+# -- phase recovery ----------------------------------------------------------
+
+#: ``benchmarks/fault_bench.py``'s fixed disaster (a 256-device, 16-group
+#: planted deployment; crashes of devices 37 and 121 at steps 3 and 7, a
+#: leaf uplink down, device 200 four times slower) and the trajectory gates
+#: its CPU run prints with the JAX package: ``fault/steps_lost`` 2 and
+#: ``fault/availability`` 12 committed steps of 14 attempted
+FAULT_N, FAULT_G, FAULT_STEPS = 256, 16, 12
+FAULT_REFERENCE = {"steps_lost": 2, "attempts": 14}
+
+
+def fault_bench_setup():
+    """fault_bench's seed table, device weights, fat tree and schedule,
+    built by the port: ``(tm, wg, tb, topo, outage_link, schedule)``."""
+    import numpy as np
+
+    from repro_torch.chaos import FaultEvent, FaultSchedule
+    from repro_torch.core import TrafficMatrix, planted_partition_graph, two_level_routing
+    from repro_torch.netsim import fat_tree
+
+    graph, _ = planted_partition_graph(FAULT_N, n_blocks=FAULT_G, avg_degree=32,
+                                       p_in_frac=0.9, seed=0)
+    tm = TrafficMatrix.from_coo(graph.rows(), graph.indices, graph.edge_traffic(),
+                                FAULT_N).symmetrized(halve=True)
+    wg = np.ones(FAULT_N)
+    tb = two_level_routing(tm, wg, FAULT_G, seed=0)
+    topo = fat_tree(FAULT_N, FAULT_N // FAULT_G)
+    link = int(topo.params["leaf_up"][37 // (FAULT_N // FAULT_G)][0])
+    schedule = FaultSchedule(events=(
+        FaultEvent("device_crash", step=3, device=37),
+        FaultEvent("device_crash", step=7, device=121),
+        FaultEvent("link_down", step=5, link=link, t_down=0.0, t_up=4.0e-5),
+        FaultEvent("straggler", step=0, device=200, slowdown=4.0),
+    ), seed=0)
+    return tm, wg, tb, topo, link, schedule
+
+
+def lif_trajectory(schedule, ckpt_dir: str, device, n_steps: int = FAULT_STEPS):
+    """fault_bench's toy LIF membrane loop (``_lif_run``: 64 neurons,
+    float64, a checkpoint every 2 steps) under the port's ``Supervisor``,
+    its state tensors on ``device``; ``schedule`` (or ``None``) drives the
+    chaos ``supervisor_hook``.  Returns ``(raster, history, states)``:
+    ``raster[step]`` the spikes the step committed (a replay overwrites),
+    ``states[step]`` the membrane after ``step`` steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.chaos import supervisor_hook
+    from repro_torch.train import Supervisor, SupervisorConfig
+
+    dev = torch.device(device)
+    n = 64
+    w = torch.as_tensor(np.random.default_rng(42).uniform(-0.2, 0.5, (n, n)), device=dev)
+    raster: dict = {}
+    states: dict = {0: torch.zeros(n, dtype=torch.float64, device=dev)}
+
+    def data_iter(step):
+        # per-step input current, recomputable after a rollback
+        g = np.random.default_rng(1000 + step)
+        return {"i_ext": torch.as_tensor(g.uniform(0.0, 1.2, n), device=dev), "step": step}
+
+    def train_step(params, opt_state, batch):
+        v = params["v"]
+        spikes = (v >= 1.0).double()
+        v = torch.where(spikes > 0, 0.0, v)
+        v = 0.9 * v + batch["i_ext"] + 0.3 * (w @ spikes)
+        raster[batch["step"]] = spikes
+        states[batch["step"] + 1] = v
+        return float(spikes.sum()), {"v": v}, opt_state, None
+
+    sup = Supervisor(
+        train_step, {"v": states[0].clone()},
+        {"t": torch.zeros(1, dtype=torch.float64, device=dev)}, data_iter,
+        SupervisorConfig(ckpt_dir=ckpt_dir, ckpt_every=2, seed=0),
+        failure_hook=None if schedule is None else supervisor_hook(schedule),
+        evacuate_hook=lambda devs: True,
+    )
+    return raster, sup.run(n_steps), states
+
+
+def _slots_of(perm, n: int):
+    """Inverse of a rank layout: ``out[device]`` is its mesh slot."""
+    import numpy as np
+
+    out = np.empty(n, dtype=np.int64)
+    out[perm] = np.arange(n)
+    return out
+
+
+def _natural(raster, perm):
+    """A raster in a layout's slot order put back in device order."""
+    import torch
+
+    t, m = raster.shape
+    slots = raster.reshape(t, len(perm), m // len(perm))
+    out = torch.empty_like(slots)
+    out[:, torch.as_tensor(perm, device=raster.device)] = slots
+    return out.reshape(t, m)
+
+
+def _recovery_network(device, kept: dict) -> dict:
+    """(a) and (b) of phase ``recovery`` on phase 4's network: the table's
+    layout, an incremental replan and the fault path, each plan staged and
+    flipped into the running engine and run as the main path runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import PlanContext, run_lints
+    from repro_torch.analysis._support import _edit_batch
+    from repro_torch.core import evacuate_device, replan
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.snn import (
+        DistributedSNN, LoopbackComm, PlanBuffer, bridge_inner_from_table,
+        build_ragged_plan, group_mesh_permutation, permute_ranks,
+    )
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    syn, drive, mesh, params = kept["syn"], kept["drive"], kept["mesh"], kept["params"]
+    steps, tb, wg = kept["steps"], kept["table"], kept["device_weights"]
+    n_dev = syn.n_blocks
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    phase4 = torch.as_tensor(kept["rasters"]["ragged_fused"], device=dev).float()
+    state = {"perm": np.arange(n_dev), "syn": syn, "tiles": kept["tiles"], "drive": drive}
+
+    def relayout(table) -> dict:
+        """The rank layout ``table`` asks for (``group_mesh_permutation``);
+        when it differs from the running one, the synapses, their tiles
+        (moved on the card) and the drive follow it."""
+        perm, shape = group_mesh_permutation(table)
+        check(shape == tuple(mesh), f"table's mesh {shape} != the engine's {mesh}")
+        info = {"layout": perm.tolist(), "moved_ranks": 0, "relayout_s": 0.0}
+        if not np.array_equal(perm, state["perm"]):
+            t0 = time.perf_counter()
+            rel = _slots_of(state["perm"], n_dev)[perm]
+            state["syn"], state["tiles"] = permute_ranks(state["syn"], rel, state["tiles"])
+            state["drive"] = drive.reshape(n_dev, -1)[perm].ravel()
+            state["perm"] = perm
+            sync()
+            info.update(moved_ranks=int(np.count_nonzero(rel != np.arange(n_dev))),
+                        relayout_s=time.perf_counter() - t0)
+        return info
+
+    def plan_for(table):
+        t0 = time.perf_counter()
+        plan = build_ragged_plan(state["syn"], tuple(mesh),
+                                 bridge_inner=bridge_inner_from_table(table))
+        return plan, time.perf_counter() - t0
+
+    def counted_run(eng) -> tuple:
+        """A main-path run: one K1 launch a step, one capture on the card,
+        the executed ledger equal to the plan's bytes on every step."""
+        comm = LoopbackComm(mesh, dev)
+        before = LAUNCHES["spike_accum_blocks"]
+        sync()
+        t0 = time.perf_counter()
+        with captures() as caps:
+            raster = eng.run(steps, comm=comm)
+        sync()
+        wall = time.perf_counter() - t0
+        launched = LAUNCHES["spike_accum_blocks"] - before
+        vol = eng.exchange_stats()["ragged"]
+        check(launched == (steps if on_card else 0), f"{launched} K1 launches in {steps} steps")
+        check(comm.step_bytes == [vol] * steps,
+              f"executed bytes {set(comm.step_bytes)} != exchange_volume {vol}")
+        if on_card:
+            check(eng.graph and len(caps) == 1, f"{len(caps)} captures: the run did not replay")
+        return raster, {"ms_per_step": (wall - sum(caps)) / steps * 1e3,
+                        "capture_s": sum(caps), "graph": eng.graph, "K1_launches": launched,
+                        "bytes_per_step": vol}
+
+    def from_scratch(plan):
+        with uncounted():
+            return DistributedSNN(mesh=mesh, params=params, exchange="ragged",
+                                  i_ext=state["drive"], syn=state["syn"], plan=plan,
+                                  tiles=state["tiles"], device=dev).run(steps)
+
+    def flip_in(buf, table, tag: str, out: dict):
+        """Stage ``table``'s ragged plan beside the running engine, flip it
+        in, run it, and hold it to an engine built from scratch on it."""
+        old_syn = state["syn"]
+        out.update(relayout(table))
+        plan, plan_s = plan_for(table)
+        if state["syn"] is old_syn:  # same layout: the running engine's tiles
+            reuse = buf.stage(plan)
+        else:
+            reuse = buf.stage(plan, syn=state["syn"], tiles=state["tiles"],
+                              i_ext=state["drive"])
+        eng = buf.flip()
+        check(eng.tiles[1] is state["tiles"][1], f"{tag}: the flipped engine re-staged its tiles")
+        raster, run = counted_run(eng)
+        check(torch.equal(raster, from_scratch(plan)),
+              f"{tag}: flipped raster != an engine built from scratch on its plan")
+        out.update(plan_s=plan_s, stage_reuses_step=reuse, run=run,
+                   equals_from_scratch=True, bridge_inner=bridge_inner_from_table(table).tolist(),
+                   equals_phase4=bool(torch.equal(_natural(raster, state["perm"]), phase4)))
+        return plan, raster
+
+    out: dict = {"steps": steps, "mesh": list(mesh), "groups": tb.group_of.tolist(),
+                 "bridge": tb.bridge.tolist()}
+    # the running engine: phase 4's network on the table phase 4 planned
+    # (phase 4 itself ran the ranks in device order with round-robin bridges)
+    base = out["base"] = relayout(tb)
+    plan0, base["plan_s"] = plan_for(tb)
+    buf = PlanBuffer(DistributedSNN(mesh=mesh, params=params, exchange="ragged",
+                                    i_ext=state["drive"], syn=state["syn"], plan=plan0,
+                                    tiles=state["tiles"], device=dev))
+    raster0, base["run"] = counted_run(buf.engine)
+    base["equals_phase4"] = bool(torch.equal(_natural(raster0, state["perm"]), phase4))
+
+    # (a) an incremental replan of an edit batch, flipped in
+    t0 = time.perf_counter()
+    res = replan(tb, wg, _edit_batch(tb, 0, 16))
+    edit = out["replan"] = {"host_s": time.perf_counter() - t0,
+                            "moved_devices": res.moved_devices,
+                            "reelected_groups": res.reelected_groups.tolist(),
+                            "groups": res.table.group_of.tolist(),
+                            "bridge": res.table.bridge.tolist()}
+    _, raster1 = flip_in(buf, res.table, "replan", edit)
+    edit["case"] = ("a device changed group: layout, tiles and drive followed the table"
+                    if edit["moved_ranks"] else "no device changed group: tiles taken over")
+    edit["equals_base"] = bool(torch.equal(_natural(raster1, state["perm"]),
+                                           _natural(raster0, base["layout"])))
+
+    # (b) the fault path: a bridge of the table dies
+    d = int(tb.bridge[tb.bridge >= 0].ravel()[0])
+    slot0 = int(_slots_of(np.asarray(base["layout"]), n_dev)[d])
+    check(any(slot0 in pair for rnd in plan0.rounds for pair in rnd.perm),
+          f"device {d} carried no slow-axis payload before the fault")
+    t0 = time.perf_counter()
+    delta, wg2, host = evacuate_device(tb, wg, d)
+    fault = replan(tb, wg2, delta, dead=[d]).table
+    fb = out["fault"] = {"dead": d, "host": int(host), "host_s": time.perf_counter() - t0,
+                         "groups": fault.group_of.tolist(), "bridge": fault.bridge.tolist()}
+    check(not np.any(fault.bridge == d), f"the fault table keeps device {d} as a bridge")
+    findings = run_lints(PlanContext.from_table(fault, name="recovery.fault", wg=wg2, dead=[d]))
+    check(not [f for f in findings if f.rule_id in ("PL170", "PL171")],
+          f"PL170/PL171 fired on the fault table: {[str(f) for f in findings]}")
+    fb["lint"] = {"findings": len(findings), "PL170_PL171": 0,
+                  "errors": sum(f.severity == "error" for f in findings)}
+    plan_f, _ = flip_in(buf, fault, "fault", fb)
+    slot = int(_slots_of(state["perm"], n_dev)[d])
+    check(not any(slot in pair for rnd in plan_f.rounds for pair in rnd.perm),
+          f"a round of the fault plan makes rank {d} forward a payload across the slow axis")
+    fb["dead_rank_off_bridge_duty"] = True
+    return out
+
+
+def _recovery_supervised(device) -> dict:
+    """(c) of phase ``recovery``: fault_bench's supervised trajectory with
+    its state on ``device``, and its recover-vs-rebuild host seconds."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import evacuate_devices, replan, two_level_routing
+    from repro_torch.train import restore, verify_checkpoint
+
+    dev = torch.device(device)
+    tm, wg, tb, _topo, _link, schedule = fault_bench_setup()
+    dead = list(schedule.dead_devices())
+    out: dict = {"dead": dead}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d_fault, tempfile.TemporaryDirectory() as d_clean:
+        raster_f, hist, states = lif_trajectory(schedule, d_fault, dev)
+        raster_c, _, _ = lif_trajectory(None, d_clean, dev)
+        out["trajectory_s"] = time.perf_counter() - t0
+        check(sorted(raster_f) == sorted(raster_c) == list(range(FAULT_STEPS)),
+              "the supervised run committed other steps than the failure-free one")
+        check(all(raster_f[s].device.type == dev.type and torch.equal(raster_f[s], raster_c[s])
+                  for s in raster_c), "supervised raster != failure-free raster")
+        steps_lost, availability = len(hist) - FAULT_STEPS, FAULT_STEPS / len(hist)
+        check(steps_lost == FAULT_REFERENCE["steps_lost"]
+              and len(hist) == FAULT_REFERENCE["attempts"],
+              f"steps_lost {steps_lost}, availability {availability} != the reference's")
+        kept = sorted(int(n.split("_")[1]) for n in os.listdir(d_fault)
+                      if n.startswith("step_") and not n.endswith(".tmp"))
+        for s in kept:
+            check(verify_checkpoint(d_fault, s), f"checkpoint {s}: manifest does not verify")
+            like = {"v": torch.empty(64, dtype=torch.float64, device=dev)}
+            params, opt, manifest = restore(d_fault, s, like,
+                                            {"t": torch.empty(1, dtype=torch.float64)},
+                                            device=dev)
+            check(params["v"].device.type == dev.type and opt["t"].device.type == dev.type
+                  and manifest["step"] == s and torch.equal(params["v"], states[s]),
+                  f"checkpoint {s} did not restore the committed state onto {dev}")
+    out.update(trajectory_bit_equal=True, steps_lost=steps_lost, availability=availability,
+               attempts=len(hist), retried_steps=[h.step for h in hist if h.restarted],
+               checkpoints_restored=kept,
+               spikes=int(sum(float(r.sum()) for r in raster_c.values())))
+
+    # fault_bench's recovery vs rebuild, host seconds, best of 3
+    def best(fn):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = fn()
+            ts.append(time.perf_counter() - t0)
+        return res, min(ts)
+
+    def recover():
+        ev = evacuate_devices(tb, wg, dead)
+        return replan(tb, ev.wg_after, ev.delta, dead=dead), ev
+
+    (res, ev), t_rec = best(recover)
+    _, t_reb = best(lambda: two_level_routing(tm.apply_delta(*ev.delta), ev.wg_after,
+                                               FAULT_G, seed=0))
+    tmd = res.table.device_traffic
+    check(not np.any(np.isin(tmd.rows(), dead)) and not np.any(np.isin(tmd.indices, dead))
+          and not np.any(np.isin(res.table.bridge, dead)), "the recovered plan uses a dead device")
+    out["recover_vs_rebuild"] = {"recover_host_ms": t_rec * 1e3, "rebuild_host_ms": t_reb * 1e3,
+                                 "speedup": t_reb / t_rec}
+    return out
+
+
+def _recovery_cli() -> dict:
+    """(d) of phase ``recovery``: the planlint CLI as a user runs it."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    out = {}
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--all", "--stats"],
+                         capture_output=True, text=True, env=env, timeout=300, cwd=root)
+    check(run.returncode == 0, f"planlint --all --stats exited {run.returncode}: "
+          f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+    lines = run.stdout.splitlines()
+    out["all_stats"] = {"rc": 0, "s": time.perf_counter() - t0,
+                        "contexts_ok": sum(ln.startswith("ok [") for ln in lines),
+                        "summary": [ln for ln in lines if "error(s)" in ln]}
+    run = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--rules-md"],
+                         capture_output=True, text=True, env=env, timeout=120, cwd=root)
+    check(run.returncode == 0 and run.stdout == (root / "docs" / "RULES.md").read_text(),
+          "planlint --rules-md differs from docs/RULES.md")
+    out["rules_md_equals_docs"] = True
+    return out
+
+
+def phase_recovery(device, kept: dict) -> dict:
+    """Replanning and recovery (see the module's docstring): (a)-(b) on
+    phase 4's network and tiles, (c) the supervised trajectory, (d) the
+    planlint CLI."""
+    t0 = time.perf_counter()
+    out = _recovery_network(device, kept)
+    out["network_s"] = time.perf_counter() - t0
+    out["supervised"] = _recovery_supervised(device)
+    out["cli"] = _recovery_cli()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 # -- plan_paper_scale --------------------------------------------------------
 
 #: the paper-scale plan's deterministic outputs as the JAX package's
@@ -1410,17 +1786,6 @@ PAPER_SCALE_REFERENCE = {
     "closed_ratio_p2p_over_two_level": 6.217, "wire_ratio_p2p_over_two_level": 1.146,
     "peak_dense_frac": 0.01,
 }
-
-
-def paper_fabric(n_devices: int):
-    """The reference benchmarks' two-tier fabric: pods of about 1 % of the
-    devices, snapped down to a divisor; one switch when none divides."""
-    from repro_torch import netsim
-
-    pod = max(n_devices // 100, 2)
-    while pod > 1 and n_devices % pod:
-        pod -= 1
-    return netsim.two_tier(n_devices, pod) if pod >= 2 else netsim.single_switch(n_devices)
 
 
 def phase_plan_paper_scale() -> dict:
@@ -1923,6 +2288,9 @@ def main() -> int:
     path(("spike_accum_blocks", "spike_accum"),
          ("launcher", lambda: phase_launcher("cuda")),
          ("real_size", lambda: phase_real_size("cuda", keep=kept)))
+    # replanned plans flipped into phase 4's network, on its device tiles
+    path(("spike_accum_blocks",), ("recovery", lambda: phase_recovery(dev, kept)))
+    del kept["tiles"]
     # the spike exchange across processes, phase 4's tiles shared with them:
     # each process rank counts its own kernel launches
     results["comm"] = phase_comm(dev, kept)

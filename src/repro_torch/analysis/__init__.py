@@ -9,8 +9,9 @@ topology — bundled in a :class:`~repro_torch.analysis.context.PlanContext`.
 synapses delegate to.  Layer 2 (:mod:`repro_torch.analysis.traced`) lints
 the :class:`~repro_torch.snn.distributed.DistributedSNN` step, run eagerly
 through a recording communicator, against what the schedule says it
-should emit.  The seeded scenarios and the ``python -m`` CLI are not
-ported yet.
+should emit.  ``python -m repro_torch.analysis`` lints the seeded
+benchmark scenarios (:mod:`repro_torch.analysis.scenarios`), a saved
+routing table or prints the rule catalog (:mod:`repro_torch.analysis.cli`).
 """
 from repro_torch.analysis.context import PlanContext
 from repro_torch.analysis.rules import RULES, Finding, Rule, catalog, run_lints

@@ -38,6 +38,7 @@ from repro_torch.snn.distributed import (
     gather_raster,
     group_mesh_permutation,
     partition_permutation,
+    permute_ranks,
 )
 
 __all__ = [
@@ -69,5 +70,6 @@ __all__ = [
     "PlanBuffer",
     "gather_raster",
     "group_mesh_permutation",
+    "permute_ranks",
     "partition_permutation",
 ]

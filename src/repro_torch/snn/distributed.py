@@ -92,6 +92,7 @@ __all__ = [
     "gather_raster",
     "partition_permutation",
     "group_mesh_permutation",
+    "permute_ranks",
 ]
 
 
@@ -113,6 +114,52 @@ def group_mesh_permutation(tb) -> tuple[np.ndarray, tuple[int, int]]:
         )
     perm = np.argsort(tb.group_of, kind="stable")
     return perm, (tb.n_groups, int(counts[0]))
+
+
+def permute_ranks(
+    syn: BlockSynapses, perm: np.ndarray,
+    tiles: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[BlockSynapses, tuple[torch.Tensor, torch.Tensor] | None]:
+    """Lay the synapses out with mesh slot ``k`` holding device
+    ``perm[k]`` (e.g. :func:`group_mesh_permutation` of a new table).
+
+    Returns ``(syn, tiles)``: the relabelled block-CSR, each destination's
+    tiles sorted by their new source label, and — given the padded device
+    tiles of ``syn`` over every rank (:func:`repro_torch.convert.padded_tiles`)
+    — the same tiles moved on their device into the new layout, tile by
+    tile (never staged again from the host); ``None`` without them.  The
+    drive moves with the blocks: ``i_ext.reshape(n, -1)[perm]``.
+    """
+    perm = np.asarray(perm, dtype=np.int64)
+    n = syn.n_blocks
+    if not np.array_equal(np.sort(perm), np.arange(n)):
+        raise ValueError(f"perm is not a permutation of the {n} ranks")
+    inv = np.empty(n, dtype=np.int64)
+    inv[perm] = np.arange(n)
+    old_dst = syn.dst_of()
+    dst, src = inv[old_dst], inv[syn.src_ids]
+    order = np.lexsort((src, dst))
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    indptr[1:] = np.cumsum(np.bincount(dst, minlength=n))
+    out = BlockSynapses(indptr=indptr, src_ids=src[order], blocks=syn.blocks[order],
+                        n_blocks=n)
+    if tiles is None:
+        return out, None
+    src_t, blk = tiles
+    if blk.shape[0] != n:
+        raise ValueError(f"tiles hold {blk.shape[0]} ranks, not the mesh's {n}")
+    k, b = blk.shape[1], syn.block_size
+    # flat slots of each stored tile in the padded [n, K] grid, then and now
+    old_pos = (old_dst * k + np.arange(syn.nnzb) - syn.indptr[old_dst])[order]
+    new_dst = dst[order]
+    new_pos = new_dst * k + np.arange(syn.nnzb) - indptr[new_dst]
+    moved = torch.zeros_like(blk)
+    flat_old, flat_new = blk.view(n * k, b, b), moved.view(n * k, b, b)
+    for i, j in zip(old_pos.tolist(), new_pos.tolist()):
+        flat_new[j].copy_(flat_old[i])
+    new_src = np.zeros((n, k), dtype=np.int32)  # padding points at source 0
+    new_src.reshape(-1)[new_pos] = out.src_ids
+    return out, (torch.as_tensor(new_src, device=src_t.device), moved)
 
 
 def partition_permutation(assign: np.ndarray, n_devices: int) -> np.ndarray:
@@ -317,18 +364,26 @@ class DistributedSNN:
         )
 
     def with_plan(
-        self, plan: RaggedPlan, *, syn: BlockSynapses | None = None
+        self, plan: RaggedPlan, *, syn: BlockSynapses | None = None,
+        tiles: tuple[torch.Tensor, torch.Tensor] | None = None,
+        i_ext: float | np.ndarray | torch.Tensor | None = None,
     ) -> "DistributedSNN":
         """New engine executing ``plan`` (and optionally edited synapse
         tiles) — the flip half of the double-buffered plan swap.  A plan
         with the active plan's :meth:`step_signature` reuses the prepared
         step (the :func:`_sparse_step` cache); without new tiles the new
-        engine takes over this engine's device tiles."""
+        engine takes over this engine's device tiles.  A plan on another
+        rank layout (:func:`permute_ranks`) comes with its synapses, their
+        device ``tiles`` (staged from ``syn`` when omitted) and the drive
+        ``i_ext`` in that layout."""
+        changes = {"plan": plan} if i_ext is None else {"plan": plan, "i_ext": i_ext}
         if syn is not None:
-            return dataclasses.replace(self, plan=plan, syn=syn, tiles=None, tile_ranks=None)
+            return dataclasses.replace(self, syn=syn, tiles=tiles, tile_ranks=None, **changes)
+        if tiles is not None:
+            raise ValueError("tiles= comes with the synapses they hold (syn=)")
         if self.tiles is not None:
-            return dataclasses.replace(self, plan=plan)
-        return dataclasses.replace(self, plan=plan, tiles=self._device_tiles)
+            return dataclasses.replace(self, **changes)
+        return dataclasses.replace(self, tiles=self._device_tiles, **changes)
 
     def step_signature(self) -> tuple:
         """Static signature of the prepared sparse/ragged step: for
@@ -745,14 +800,17 @@ class PlanBuffer:
         return self._staged
 
     def stage(
-        self, plan: RaggedPlan, *, syn: BlockSynapses | None = None
+        self, plan: RaggedPlan, *, syn: BlockSynapses | None = None,
+        tiles: tuple[torch.Tensor, torch.Tensor] | None = None,
+        i_ext: float | np.ndarray | torch.Tensor | None = None,
     ) -> bool:
-        """Park ``plan`` (+ optional new tiles) in the back buffer.
+        """Park ``plan`` (+ optional new tiles, or a new rank layout: see
+        :meth:`DistributedSNN.with_plan`) in the back buffer.
 
         Returns True when flipping will reuse the active prepared step
         (equal static signatures).
         """
-        self._staged = self._active.with_plan(plan, syn=syn)
+        self._staged = self._active.with_plan(plan, syn=syn, tiles=tiles, i_ext=i_ext)
         return self._staged.step_signature() == self._active.step_signature()
 
     def flip(self) -> DistributedSNN:

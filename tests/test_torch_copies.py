@@ -16,11 +16,21 @@ unless an allowance is listed for it:
 * ``numpy half`` — the listed numpy functions are copied, each equal to
   the reference's function, docstring included; beside them the module
   defines only the ported collective half (over a communicator where the
-  reference uses ``jax.lax``), and it imports nothing.
+  reference uses ``jax.lax``), and it imports nothing;
+* ``support`` — code-equal (as ``docstrings``) once each import from the
+  port's ``analysis/_support.py`` is read back as the import from the
+  ``benchmarks`` module it was copied from (the port imports no
+  ``benchmarks``); the support module itself holds only those functions,
+  each code-equal to its source.
+
+A ``docstrings`` copy listed in ``RENAMED`` also renames one keyword
+inside one function (``restore``'s ``shardings=`` is the port's
+``device=``): its code is compared with the port's name read back.
 """
 from __future__ import annotations
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -29,7 +39,18 @@ ROOT = Path(__file__).resolve().parents[1]
 REF, PORT = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
 
 #: package ``__init__``s that leave out modules not ported yet
-NOT_PORTED: dict[str, set[str]] = {}
+NOT_PORTED: dict[str, set[str]] = {
+    "train/__init__.py": {"repro.train.optimizer", "repro.train.compression",
+                          "repro.train.train_step"},
+}
+#: ``docstrings`` copies with a keyword renamed in one function:
+#: (function, {port's name: reference's name})
+RENAMED: dict[str, tuple[str, dict[str, str]]] = {
+    "train/fault_tolerance.py": ("resume_with", {"device": "shardings"}),
+}
+#: the port's copies of the benchmark helpers the scenarios import, by source module
+SUPPORT = {"build_device_traffic": "benchmarks.common", "paper_fabric": "benchmarks.common",
+           "_edit_batch": "benchmarks.replan_bench"}
 HIERARCHICAL_NUMPY = ("dispatch_bytes", "dispatch_messages", "dispatch_rounds",
                       "dispatch_messages_from_table")
 HIERARCHICAL_COLLECTIVE = ("flat_all_to_all", "two_level_all_to_all", "two_level_all_gather",
@@ -67,6 +88,18 @@ COPIES = {
     "analysis/context.py": None,
     "analysis/rules.py": None,
     "analysis/__init__.py": "docstrings",
+    # replanning and recovery
+    "core/replan.py": None,
+    "core/placement.py": None,
+    "core/__init__.py": "docstrings",
+    "train/fault_tolerance.py": "docstrings",
+    "train/__init__.py": "exports",
+    "chaos/schedule.py": None,
+    "chaos/inject.py": "docstrings",
+    "chaos/__init__.py": "docstrings",
+    "analysis/scenarios.py": "support",
+    "analysis/cli.py": "docstrings",
+    "analysis/__main__.py": None,
 }
 
 
@@ -90,8 +123,32 @@ def _strip_docstrings(tree: ast.AST) -> ast.AST:
     return tree
 
 
-def _code(src: str) -> str:
-    return ast.dump(_strip_docstrings(ast.parse(src)))
+def _renamed(tree: ast.AST, rel: str) -> ast.AST:
+    func, names = RENAMED.get(rel, (None, {}))
+    for fn in ast.walk(tree):
+        if isinstance(fn, ast.FunctionDef) and fn.name == func:
+            for node in ast.walk(fn):
+                if isinstance(node, (ast.arg, ast.keyword)) and node.arg in names:
+                    node.arg = names[node.arg]
+                elif isinstance(node, ast.Name) and node.id in names:
+                    node.id = names[node.id]
+    return tree
+
+
+def _code(src: str, rel: str = "") -> str:
+    return ast.dump(_renamed(_strip_docstrings(ast.parse(src)), rel))
+
+
+def _from_support(src: str) -> str:
+    """``src`` with each import from ``analysis/_support.py`` read back as
+    the import from the benchmark module it was copied from."""
+    def source(m: re.Match) -> str:
+        mods = {SUPPORT[n.strip()] for n in m.group(2).split(",")}
+        assert len(mods) == 1, m.group(0)
+        return f"{m.group(1)}from {mods.pop()} import {m.group(2)}"
+
+    return re.sub(r"^( *)from repro\.analysis\._support import (.+)$", source, src,
+                  flags=re.M)
 
 
 def _without_modules(src: str, modules: set[str]) -> str:
@@ -111,6 +168,11 @@ def _without_modules(src: str, modules: set[str]) -> str:
     return ast.dump(tree)
 
 
+def _code_only(src: str) -> str:
+    """``src`` without its docstrings (comments never reach the ``ast``)."""
+    return ast.unparse(_strip_docstrings(ast.parse(src)))
+
+
 def _functions(src: str) -> dict[str, str]:
     return {node.name: ast.dump(node) for node in ast.parse(src).body
             if isinstance(node, ast.FunctionDef)}
@@ -128,7 +190,10 @@ def test_copy_equals_reference(rel):
     if allowance is None:
         assert port == ref, f"{rel} drifted from src/repro/{rel}"
     elif allowance == "docstrings":
-        assert _code(port) == _code(ref), f"{rel}: code drifted from src/repro/{rel}"
+        assert _code(port, rel) == _code(ref), f"{rel}: code drifted from src/repro/{rel}"
+    elif allowance == "support":
+        assert _code(_from_support(port)) == _code(ref), (
+            f"{rel}: code drifted from src/repro/{rel}")
     elif allowance == "exports":
         assert _code(port) == _without_modules(ref, NOT_PORTED[rel]), (
             f"{rel}: code drifted from src/repro/{rel}")
@@ -143,3 +208,17 @@ def test_copy_equals_reference(rel):
         ns: dict = {}
         exec(compile(port, rel, "exec"), ns)  # needs neither jax nor torch
         assert sorted(ns["__all__"]) == sorted(both)
+
+
+def test_support_module_holds_only_the_copied_helpers():
+    src = (PORT / "analysis" / "_support.py").read_text(encoding="utf-8")
+    assert sorted(_functions(src)) == sorted(SUPPORT)
+
+
+@pytest.mark.parametrize("name", list(SUPPORT))
+def test_support_function_equals_benchmark_source(name):
+    port = (PORT / "analysis" / "_support.py").read_text(encoding="utf-8")
+    bench = ROOT / (SUPPORT[name].replace(".", "/") + ".py")
+    mine = _functions(_code_only(port.replace("repro_torch", "repro")))[name]
+    theirs = _functions(_code_only(bench.read_text(encoding="utf-8")))[name]
+    assert mine == theirs, f"{name}: code drifted"

@@ -772,3 +772,31 @@ def test_replayed_decode_equals_eager(dev, arch):
     got, want = logits[True][..., :cfg.vocab_size], logits[False][..., :cfg.vocab_size]
     rms = float(want.double().pow(2).mean().sqrt())
     assert float(((got - want).abs() - 2**-6 * want.abs()).max()) <= 2**-6 * rms
+
+
+def test_checkpoint_restores_onto_the_card_bit_for_bit(dev, tmp_path):
+    """A checkpoint of card state (f32, bf16, int and f64 leaves) restored
+    with ``device="cuda"`` and into card targets equals the saved tensors;
+    ``save_async`` snapshots the card state before an in-place write."""
+    from repro_torch.train import Checkpointer, restore, save
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = {"w": [torch.randn(3, 5, generator=gen, device=dev),
+                   torch.randn(7, generator=gen, device=dev).to(torch.bfloat16)],
+             "ids": (torch.arange(9, device=dev, dtype=torch.int32),),
+             "v": torch.randn(4, generator=gen, device=dev, dtype=torch.float64)}
+    want = {"w": [t.clone() for t in state["w"]], "ids": (state["ids"][0].clone(),),
+            "v": state["v"].clone()}
+    save(str(tmp_path / "a"), 1, state)
+    cpu_like = {"w": [torch.zeros(3, 5), torch.zeros(7, dtype=torch.bfloat16)],
+                "ids": (torch.zeros(9, dtype=torch.int32),), "v": torch.zeros(4, dtype=torch.float64)}
+    ckpt = Checkpointer(str(tmp_path / "b"))
+    ckpt.save_async(2, state)
+    state["v"].add_(1.0)  # the card state is written in place right after
+    ckpt.wait()
+    for d, step, like in ((tmp_path / "a", 1, cpu_like), (tmp_path / "b", 2, cpu_like),
+                          (tmp_path / "a", 1, state)):
+        got, _ = restore(str(d), step, like, device=None if like is state else "cuda")
+        for a, b in ((got["w"][0], want["w"][0]), (got["w"][1], want["w"][1]),
+                     (got["ids"][0], want["ids"][0]), (got["v"], want["v"])):
+            assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)

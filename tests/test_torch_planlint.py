@@ -2,10 +2,15 @@
 the same clean contexts lint silent in both, and each planted fault (the
 mutations of ``tests/test_planlint.py``, applied to each package's own
 artifacts) gives the same findings — rule id, severity and message — in
-both, including the rule the fault is planted for."""
+both, including the rule the fault is planted for.  The command line
+(``python -m repro_torch.analysis``): ``--rules-md`` equals
+``docs/RULES.md``, each seeded scenario gives the reference's findings
+and exits 0, and ``--table`` files round-trip between the packages."""
 from __future__ import annotations
 
+import collections
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -219,3 +224,86 @@ def test_catalog_matches_reference():
     ref, port = ([(r.id, r.severity, r.summary, r.fix_hint) for r in a.catalog()]
                  for a in both("analysis"))
     assert port == ref and len(port) > 20
+
+
+# ---------------------------------------------------------------------------
+# the command line
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+SCENARIOS = ("fig3a", "fig3b", "table2", "snn_throughput", "replan_bench", "outofcore")
+
+
+def test_rules_md_equals_the_committed_catalog(capsys):
+    from repro_torch.analysis import cli
+
+    assert cli.main(["--rules-md"]) == 0
+    assert capsys.readouterr().out == (ROOT / "docs" / "RULES.md").read_text(encoding="utf-8")
+
+
+def test_list_rules_prints_the_reference_catalog(capsys):
+    outs = []
+    for cli in both("analysis.cli"):
+        assert cli.main(["--list-rules"]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and outs[1].count("\n") > 20
+
+
+def _counts(contexts, run_lints) -> list:
+    """Per context: its name and its findings as (rule id, severity, count)."""
+    out = []
+    for ctx in contexts:
+        c = collections.Counter((f.rule_id, f.severity) for f in run_lints(ctx))
+        out.append((ctx.name, sorted((rule, sev, n) for (rule, sev), n in c.items())))
+    return out
+
+
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_scenario_gives_the_reference_findings(name, capsys):
+    got, printed = [], []
+    for scenarios, analysis, cli in zip(both("analysis.scenarios"), both("analysis"),
+                                        both("analysis.cli")):
+        got.append(_counts(scenarios.build_scenario(name), analysis.run_lints))
+        assert cli.main(["--scenario", name, "--stats"]) == 0
+        printed.append(capsys.readouterr().out)
+    assert got[0] == got[1] and got[1]
+    assert printed[0] == printed[1]
+
+
+def test_scenario_names_and_unknown_name_match_reference():
+    msgs = []
+    for scenarios in both("analysis.scenarios"):
+        assert scenarios.scenario_names() == list(SCENARIOS)
+        with pytest.raises(ValueError) as err:
+            scenarios.build_scenario("nope")
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
+
+
+@pytest.mark.parametrize("which", ["base", "edited", "fault"])
+def test_table_npz_round_trips_between_the_packages(which, tmp_path, capsys):
+    """Each package saves the replan scenario's table; each file loads in
+    both as the same table, and ``--table`` lints it as the reference does."""
+    tables, files = [], []
+    for pkg, scenarios, cli in zip(("repro", "repro_torch"), both("analysis.scenarios"),
+                                   both("analysis.cli")):
+        ctx = {c.name.split("/")[1]: c for c in scenarios.build_scenario("replan_bench")}[which]
+        tables.append(ctx.table)
+        path = str(tmp_path / f"{pkg}.npz")
+        cli.save_table_npz(ctx.table, path)
+        files.append(path)
+    with np.load(files[0]) as ref, np.load(files[1]) as port:
+        assert sorted(ref.files) == sorted(port.files)
+        for k in ref.files:
+            np.testing.assert_array_equal(ref[k], port[k])
+    rcs, printed = [], []
+    for cli in both("analysis.cli"):
+        for path, table in zip(files, tables):
+            loaded = cli.load_table_npz(path)
+            np.testing.assert_array_equal(loaded.group_of, table.group_of)
+            np.testing.assert_array_equal(loaded.bridge, table.bridge)
+            np.testing.assert_array_equal(loaded.device_traffic.data, table.device_traffic.data)
+            assert loaded.method == table.method
+        rcs.append(cli.main(["--table", files[1]]))
+        printed.append(capsys.readouterr().out)
+    assert rcs[0] == rcs[1] and printed[0] == printed[1]
