@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port (``src/repro_torch``) on the card, with nothing of JAX or
-of the JAX package ``repro``: the brain simulation (phases 3-4) and LM
-serving of three architectures (phase 5).  Every main path runs as a user's
+of the JAX package ``repro``: the brain simulation (phases 3-4), LM
+serving of three architectures (phase 5) and LM training (phase
+``train``).  Every main path runs as a user's
 call runs it on the card: each step after the first replays a CUDA graph
 of one step (``repro_torch.graphs``); the same run op by op
 (``graph=False``, the launchers' ``--eager``) is its check.  Each phase
@@ -157,6 +158,30 @@ nonzero.
    reported); capture seconds and the peak memory of each.  (c) the
    serving launcher ``python -m repro_torch.launch.serve`` at its
    defaults.
+``train`` (after phase 5; three lines, ``train_phi4``, ``train_mamba2`` and
+   ``train_serve``): the training path (``repro_torch.data``, ``lm.loss_fn``,
+   ``repro_torch.train``) on the card.  (a) phi4-mini-3.8b at full width,
+   16 of its 32 layers (full depth's params, AdamW state and gradient sums
+   alone are 76.8 GB; the reckoning is printed), and (b) mamba2-1.3b whole:
+   ``SyntheticLM`` batches of 4 × 1,024 tokens (seed 0) in 2 microbatches,
+   3 steps of ``make_train_step`` ((a) under the ``Supervisor`` with one
+   checkpoint, step 0's; (b) in a plain loop timed the same way, so the
+   script writes one multi-GB checkpoint, not two): the loss finite and
+   lower at step 3 than at step 1, no gradient leaf None, all zero or
+   non-finite at any step, no hand-written kernel launched (the training
+   route, as the reference's training forward calls no Pallas kernel); ms
+   a step (eager), tokens/s, the model-FLOP share of the bf16 dense peak,
+   peak memory, (a)'s checkpoint bytes and wait, and one more step under
+   the profiler.
+   (c) ``examples/train_lm.py``'s 100m preset trained 30 steps, then served
+   greedy from its trained params on the card through K3 and K4 (counted):
+   the card's tokens under float32 compute equal the CPU's.  In every part
+   the hand-written kernels refuse a grad-requiring input (a
+   ``RuntimeError`` naming the training route, nothing launched), and step
+   1's loss on the card (bf16) is within 2e-2 relative of the same params
+   and batch on the CPU under float32 compute (computed in a thread while
+   the Supervisor waits for its last checkpoint write: (a)'s and (b)'s in
+   (a)'s wait).
 6. The launches of ``rglru_scan`` on recurrentgemma-9b's main path by
    input shape and by batch; a ``kernels`` line (all six kernels; K2 at 1 %
    firing on W f32[32768, 4096] and at the oracle's shape, K3 and K4 at
@@ -164,9 +189,10 @@ nonzero.
    wave and the batch-1 prefill of 1,024 tokens), the card's name and power
    limit, and the last line, ``{"ok": true, "device": {...}}``.
 
-Each main path (phases 3-4, and each model of phase 5) runs with the
-launch counts set to 0 just before it and read just after, and must have
-launched each of its kernels; the ``kernels`` line sums them.  A process
+Each main path (phases 3-4, each model of phase 5, each part of phase
+``train``) runs with the launch counts set to 0 just before it and read
+just after, and must have launched each of its kernels (the training
+parts (a) and (b) none); the ``kernels`` line sums them.  A process
 rank of phase ``comm`` counts its own launches the same way, and K1's
 row of the ``kernels`` line gives them per rank.  Runs made
 only to check (probed currents, planted faults, the card-vs-CPU and
@@ -197,7 +223,14 @@ F32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores (data sheet
 TF32_PEAK = 494.7e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """Print one JSON line; a phase's line also gets ``at_s``, the
+    script's seconds when it ended."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -856,21 +889,25 @@ def phase_brainsim(device: str, per_run_launches: bool) -> dict:
 # -- phase 4 ---------------------------------------------------------------
 
 
-def _device_profile(run, steps: int, match: tuple[str, ...] = ()) -> dict:
-    """Where ``run(steps)``'s time goes: device time by kernel under
-    ``torch.profiler`` and the device's busy share of the run's wall time
-    (the profiler's own cost is inside that wall time; a CUDA-graph capture
-    made inside is not: ``capture_s``), CUDA kernels and graph launches
-    (``cudaGraphLaunch`` calls).  With ``match``, also the device time and
-    calls of every kernel whose name contains one of its strings."""
+def _device_profile(run, steps: int, match: tuple[str, ...] = (), warmup: int = 2,
+                    cpu: bool = True) -> dict:
+    """Where ``run(steps)``'s time goes, after ``run(warmup)``: device time
+    by kernel under ``torch.profiler`` and the device's busy share of the
+    run's wall time (the profiler's own cost is inside that wall time; a
+    CUDA-graph capture made inside is not: ``capture_s``), CUDA kernels and
+    graph launches (``cudaGraphLaunch`` calls; 0 without ``cpu``, which
+    leaves the host's ops out of the trace: a train step has some 10⁵).
+    With ``match``, also the device time and calls of every kernel whose
+    name contains one of its strings."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    run(2)
+    if warmup:
+        run(warmup)
     torch.cuda.synchronize()
-    with captures() as caps, profile(activities=[ProfilerActivity.CPU,
-                                                 ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with captures() as caps, profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(steps)
         torch.cuda.synchronize()
@@ -2232,6 +2269,381 @@ def phase_serve_launcher() -> dict:
     return {"wall_s": time.perf_counter() - t0, "lines": lines}
 
 
+# -- phase train -----------------------------------------------------------
+
+BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES, TRAIN_STEPS = 4, 1024, 2, 3
+TRAIN_PHI4_LAYERS = 16  # of 32: full depth's AdamW state does not fit 80 GB
+TRAIN_LOSS_RTOL = 2e-2  # the card's bf16 step-1 loss against the CPU's float32
+# examples/train_lm.py's 100m preset and its optimizer, 30 steps, then served
+TRAIN_SERVE_PRESET = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4, head_dim=64,
+                          d_ff=3072, vocab_size=32768, seq=256, batch=8)
+TRAIN_SERVE_STEPS = 30
+TRAIN_SERVE_PROMPTS = [[1, 2, 3], [10, 20]]
+
+
+def _refuses_grad(dev) -> dict:
+    """The hand-written kernels refuse an input that requires grad (their
+    results would be cut from the autograd graph): each dispatch raises,
+    naming the training route, and launches nothing."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, ops
+
+    q = torch.randn((1, 2, 64, 64), device=dev, dtype=torch.bfloat16).requires_grad_()
+    kv = torch.randn((1, 1, 64, 64), device=dev, dtype=torch.bfloat16)
+    x, b = torch.randn((1, 64, 2, 16), device=dev), torch.randn((1, 64, 1, 8), device=dev)
+    a = torch.full((1, 64, 2), 0.9, device=dev)
+    ra = torch.full((1, 64, 32), 0.9, device=dev)
+    calls = {"flash_attention": lambda: ops.attention(q, kv, kv),
+             "decode_attention": lambda: ops.decode_attention(q[:, :, 0], kv, kv),
+             "ssd_scan": lambda: ops.ssd(x, a, b, b.clone().requires_grad_(), chunk=64),
+             "rglru_scan": lambda: ops.rglru(ra, ra.clone().requires_grad_())}
+    before = dict(LAUNCHES)
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as err:
+            check("training route" in str(err), f"{name}: {err}")
+        else:
+            raise AssertionError(f"{name}: a grad-requiring input reached the kernel")
+    check(dict(LAUNCHES) == before, "a refused call launched a kernel")
+    return {"refused": sorted(calls)}
+
+
+def _tree_cpu(tree):
+    return {k: _tree_cpu(v) if isinstance(v, dict) else v.detach().cpu() for k, v in tree.items()}
+
+
+def _train_sizes(cfg) -> dict:
+    """Parameter counts from the parameter tree and what AdamW training
+    holds per parameter: bf16 (or f32) params, the f32 m, v and master
+    (12 B), the f32 microbatch sum (4 B) and one microbatch's grads (the
+    param's dtype)."""
+    from repro_torch.models import lm
+
+    tree = lm.abstract_params(cfg)
+    n = sum(t.numel() for t in _leaves(tree))
+    pbytes = sum(t.numel() * t.element_size() for t in _leaves(tree))
+    embed = tree["embed"]["tok"].numel()
+    return {"params": n, "embed_params": embed, "param_bytes": pbytes,
+            "state_bytes": 2 * pbytes + 16 * n,
+            "layer_params": (n - embed - (0 if cfg.tie_embeddings else embed) - cfg.d_model)
+            / cfg.n_layers}
+
+
+@contextlib.contextmanager
+def _checked_grads():
+    """Counts, per call of ``adamw_update`` from the train step, the
+    gradient leaves that are all zero or non-finite (a None leaf fails at
+    once); yields the list of counts, one a step."""
+    import torch
+
+    from repro_torch.train import train_step as train_step_mod
+    from repro_torch.train.optimizer import tree_leaves
+
+    real, counts = train_step_mod.adamw_update, []
+
+    def checked(params, grads, opt_state, cfg_):
+        leaves = tree_leaves(grads)
+        check(all(g is not None for g in leaves), "a gradient leaf is None")
+        amax = torch.stack([g.detach().abs().amax().float() for g in leaves])
+        counts.append(int(((amax == 0) | ~torch.isfinite(amax)).sum()))
+        return real(params, grads, opt_state, cfg_)
+
+    train_step_mod.adamw_update = checked
+    try:
+        yield counts
+    finally:
+        train_step_mod.adamw_update = real
+
+
+def _cpu_job(cfg, seed: int = 0, *, dev, data) -> tuple:
+    """What the CPU's loss needs: ``init_params(cfg, seed)`` drawn on the
+    card (the params step 1 starts from), copied to the host, and batch 0."""
+    from repro_torch.models import lm
+
+    return cfg, _tree_cpu(lm.init_params(cfg, seed, device=dev)), data(0)
+
+
+def _train_supervised(dev, cfg, data, ts, steps: int, ckpt_every: int, cpu_jobs: dict):
+    """``make_train_step`` under the ``Supervisor`` for ``steps`` steps from
+    ``init_params(cfg, 0)`` on the card, batches from ``data`` (a
+    ``SyntheticLM``), every step's gradients checked.  ``cpu_jobs`` (name →
+    ``_cpu_job``) are computed in a thread started after the last step,
+    while the Supervisor waits for its checkpoint write.  Returns (the
+    supervisor, its history, a record: each job's CPU loss and seconds, the
+    checkpoints, the wait)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.train import Supervisor, SupervisorConfig, init_opt_state, make_train_step
+    from repro_torch.train import checkpoint as ck
+
+    params = lm.init_params(cfg, 0, device=dev)
+    record: dict = {"cpu": {}}
+    threads: list = []
+    step = make_train_step(cfg, ts)
+
+    def cpu_losses():
+        for name, job in cpu_jobs.items():
+            t0 = time.perf_counter()
+            record["cpu"][name] = (_cpu_loss(*job), time.perf_counter() - t0)
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    with _checked_grads() as bad:
+
+        def counted_step(params, opt_state, batch):
+            out = step(params, opt_state, batch)
+            if len(bad) == steps:  # the last step: the card is done with the run
+                torch.cuda.synchronize()
+                record["t_last_step"] = time.perf_counter()
+                threads.append(threading.Thread(target=cpu_losses))
+                threads[0].start()
+            return out
+
+        try:
+            sup = Supervisor(counted_step, params, init_opt_state(params),
+                             lambda s: {k: torch.from_numpy(v).to(dev) for k, v in data(s).items()},
+                             SupervisorConfig(ckpt_dir=ckpt_dir, ckpt_every=ckpt_every))
+            del params
+            hist = sup.run(steps)
+            record["checkpoint_wait_s"] = time.perf_counter() - record.pop("t_last_step")
+            for th in threads:
+                th.join()
+            kept = sorted(ck._steps(ckpt_dir))
+            check(bool(kept) and kept[-1] == steps // ckpt_every * ckpt_every,
+                  f"checkpoints written: {kept}")
+            record["checkpoints"] = {"steps": kept, "bytes": sum(
+                os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(ckpt_dir)
+                for f in files), "disk_free_bytes": shutil.disk_usage(ckpt_dir).free}
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(len(bad) == steps and not any(bad),
+          f"gradient leaves all zero or non-finite, by step: {bad}")
+    check(sorted(record["cpu"]) == sorted(cpu_jobs), "a CPU loss was not computed")
+    return sup, hist, record
+
+
+def _train_loop(dev, cfg, data, ts, steps: int):
+    """``make_train_step`` in a plain loop for ``steps`` steps from
+    ``init_params(cfg, 0)`` on the card, each step timed as the Supervisor
+    times one (the batch to the card, the step, its loss read back), every
+    step's gradients checked.  Returns (params, opt_state, history)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.train import StepResult, init_opt_state, make_train_step
+
+    params = lm.init_params(cfg, 0, device=dev)
+    opt_state, step, hist = init_opt_state(params), make_train_step(cfg, ts), []
+    with _checked_grads() as bad:
+        for s in range(steps):
+            t0 = time.perf_counter()
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in data(s).items()}
+            loss, params, opt_state, _ = step(params, opt_state, batch)
+            hist.append(StepResult(s + 1, float(loss), time.perf_counter() - t0))
+    check(len(bad) == steps and not any(bad),
+          f"gradient leaves all zero or non-finite, by step: {bad}")
+    return params, opt_state, hist
+
+
+def _cpu_loss(cfg, host_params, batch) -> float:
+    """The loss of the same params and batch on the CPU, float32 compute."""
+    import torch
+
+    from repro_torch.models import lm
+
+    with compute_dtype(torch.float32), torch.no_grad():
+        return float(lm.loss_fn(host_params, {k: torch.from_numpy(v) for k, v in batch.items()},
+                                cfg))
+
+
+def _train_record(hist, cfg, sizes: dict, batch: int, seq: int, falls: bool = True) -> dict:
+    """Losses (finite; with ``falls`` the last below the first), wall ms a
+    step, tokens/s and the model-FLOP share of the bf16 dense peak:
+    6 · (matmul params) · tokens plus causal attention's 6 · B · S² · Hq ·
+    hd a layer (forward 2, backward 4; the scans of the recurrent mixers
+    are not counted)."""
+    import numpy as np
+
+    losses = [h.loss for h in hist]
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(not falls or losses[-1] < losses[0], f"loss did not fall: {losses}")
+    ms = [h.wall_time * 1e3 for h in hist]
+    steady = float(np.mean(ms[1:])) if len(ms) > 1 else ms[0]
+    tokens = batch * seq
+    matmul = sizes["params"] - (0 if cfg.tie_embeddings else sizes["embed_params"])
+    n_attn = sum(m in ("full", "swa", "local") for m in cfg.layer_pattern)
+    flops = 6 * matmul * tokens + 6 * batch * seq**2 * cfg.n_heads * cfg.head_dim * n_attn
+    return {"losses": losses, "ms_per_step": ms, "steady_ms_per_step": steady,
+            "tokens_per_step": tokens, "tokens_per_s": tokens / (steady / 1e3),
+            "model_flops_per_step": flops, "bf16_peak_flops": BF16_PEAK,
+            "model_flop_share": flops / (steady / 1e3) / BF16_PEAK,
+            "restarts": sum(h.restarted for h in hist)}
+
+
+def _loss_vs_cpu(card: float, cpu: tuple) -> dict:
+    """Step 1's loss on the card (bf16 compute) against the CPU's (float32
+    compute) on the same params and batch, within ``TRAIN_LOSS_RTOL``."""
+    loss, seconds = cpu
+    rel = abs(card - loss) / abs(loss)
+    check(rel <= TRAIN_LOSS_RTOL, f"step-1 loss {card} vs the CPU's {loss}")
+    return {"step1_loss_vs_cpu_float32": {"cpu": loss, "rel_diff": rel, "bound": TRAIN_LOSS_RTOL,
+                                          "cpu_s": seconds}}
+
+
+def _profiled_step(dev, cfg, ts, data, params, opt_state) -> dict:
+    """Where a step's time goes: one more step (off the run's record, on
+    batch ``TRAIN_STEPS``) under the profiler; the five longest kernels."""
+    import torch
+
+    from repro_torch.train import make_train_step
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data(TRAIN_STEPS).items()}
+    step, state = make_train_step(cfg, ts), [params, opt_state]
+
+    def one(n):
+        for _ in range(n):
+            _, state[0], state[1], _ = step(state[0], state[1], batch)
+
+    t0 = time.perf_counter()
+    prof = _per_step(_device_profile(one, 1, warmup=0, cpu=False), 1)
+    prof["profiler_s"] = time.perf_counter() - t0
+    prof["kernels"] = prof["kernels"][:5]
+    return prof
+
+
+def _train_part(dev, arch: str, shared: dict) -> dict:
+    """(a) phi4-mini-3.8b at full width, 16 of 32 layers, under the
+    Supervisor with one checkpoint (step 0's), or (b) mamba2-1.3b whole, in
+    a plain loop of the same step: batch 4 × 1,024 tokens in 2
+    microbatches, 3 steps.  The CPU's float32 losses of both run in (a)'s
+    checkpoint wait (``shared`` carries (b)'s to (b))."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train import AdamWConfig, TrainStepConfig
+
+    full = ARCHS[arch]
+    cfg = full
+    out: dict = {"arch": arch, "grad_refusal": _refuses_grad(dev)}
+    if arch == "phi4-mini-3.8b":
+        cfg = dataclasses.replace(full, n_layers=TRAIN_PHI4_LAYERS,
+                                  layer_pattern=full.layer_pattern[:TRAIN_PHI4_LAYERS])
+        whole, cut = _train_sizes(full), _train_sizes(cfg)
+        out["depth_cut"] = {
+            "layers": f"{TRAIN_PHI4_LAYERS} of {full.n_layers}",
+            "full_depth": whole, "cut": cut,
+            "why": f"full depth: {whole['state_bytes'] / 1e9:.1f} GB of params, AdamW state and "
+                   f"gradient sums before activations, of 80 GB; "
+                   f"{TRAIN_PHI4_LAYERS} layers: {cut['state_bytes'] / 1e9:.1f} GB"}
+    sizes = _train_sizes(cfg)
+    out.update(n_layers=cfg.n_layers, sizes=sizes, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               microbatches=TRAIN_MICROBATCHES)
+    ts = TrainStepConfig(n_microbatches=TRAIN_MICROBATCHES,
+                         adamw=AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS))
+
+    def data_of(c):
+        return SyntheticLM(c, DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+
+    data = data_of(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    if arch == "phi4-mini-3.8b":
+        mamba2 = ARCHS["mamba2-1.3b"]
+        jobs = {arch: _cpu_job(cfg, dev=dev, data=data),
+                mamba2.name: _cpu_job(mamba2, dev=dev, data=data_of(mamba2))}
+        torch.cuda.empty_cache()
+        sup, hist, rec = _train_supervised(dev, cfg, data, ts, TRAIN_STEPS,
+                                           ckpt_every=TRAIN_STEPS + 1, cpu_jobs=jobs)
+        params, opt_state = sup.params, sup.opt_state
+        del sup
+        shared["cpu"] = rec.pop("cpu")
+        out.update(rec)
+    else:
+        params, opt_state, hist = _train_loop(dev, cfg, data, ts, TRAIN_STEPS)
+    out["train_s"] = time.perf_counter() - t0
+    out["peak_memory"] = torch.cuda.max_memory_allocated(dev)
+    out.update(_train_record(hist, cfg, sizes, TRAIN_BATCH, TRAIN_SEQ))
+    out.update(_loss_vs_cpu(out["losses"][0], shared["cpu"].pop(arch)))
+    out["step_profile"] = _profiled_step(dev, cfg, ts, data, params, opt_state)
+    del params, opt_state, hist
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_prompt(cfg):
+    """A 2 × 64 prompt of uniform tokens (numpy, seeded)."""
+    import numpy as np
+
+    return np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+
+
+def _train_then_serve(dev) -> dict:
+    """(c) ``examples/train_lm.py``'s 100m preset trained 30 steps, then
+    served greedy from the trained params on the card (K3 and K4, counted),
+    its tokens held to the same params served on the CPU under float32
+    compute, and the prefill logits of a 64-token prompt within the
+    card-vs-CPU bound of phase 5 (the card's float32 runs uncounted).  The
+    synthetic stream is i.i.d. Zipf, so a trained model's greedy token is
+    the most frequent one: the logits are the finer check."""
+    import torch
+
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import AdamWConfig, TrainStepConfig
+
+    pre = TRAIN_SERVE_PRESET
+    cfg = ArchConfig(name="demo-lm", family="dense", n_layers=pre["n_layers"],
+                     d_model=pre["d_model"], n_heads=pre["n_heads"],
+                     n_kv_heads=pre["n_kv_heads"], head_dim=pre["head_dim"], d_ff=pre["d_ff"],
+                     vocab_size=pre["vocab_size"], layer_pattern=("full",) * pre["n_layers"])
+    out: dict = {"arch": "train_lm 100m", "grad_refusal": _refuses_grad(dev),
+                 "params": cfg.param_count(), "batch": pre["batch"], "seq": pre["seq"]}
+    ts = TrainStepConfig(n_microbatches=2, adamw=AdamWConfig(
+        peak_lr=6e-4, warmup_steps=20, total_steps=TRAIN_SERVE_STEPS))
+    torch.cuda.reset_peak_memory_stats(dev)
+    data = SyntheticLM(cfg, DataConfig(seq_len=pre["seq"], global_batch=pre["batch"]))
+    sup, hist, rec = _train_supervised(
+        dev, cfg, data, ts, TRAIN_SERVE_STEPS, ckpt_every=max(TRAIN_SERVE_STEPS // 4, 10),
+        cpu_jobs={"100m": _cpu_job(cfg, dev=dev, data=data)})
+    run = _train_record(hist, cfg, _train_sizes(cfg), pre["batch"], pre["seq"], falls=False)
+    out.update({k: run[k] for k in ("ms_per_step", "steady_ms_per_step", "tokens_per_s",
+                                     "restarts")},
+               losses_first_last=[run["losses"][0], run["losses"][-1]])
+    out.update(_loss_vs_cpu(run["losses"][0], rec.pop("cpu")["100m"]), **rec)
+    trained = sup.params
+    del sup
+    new = 12
+    tokens = ServeEngine(cfg, trained, device=dev).generate(TRAIN_SERVE_PROMPTS, new)
+    on_cpu = _tree_cpu(trained)
+    prompt = torch.from_numpy(_serve_prompt(cfg)).to(dev)
+    with uncounted(), compute_dtype(torch.float32), torch.inference_mode():
+        card32 = ServeEngine(cfg, trained, device=dev).generate(TRAIN_SERVE_PROMPTS, new)
+        cpu32 = ServeEngine(cfg, on_cpu, device="cpu").generate(TRAIN_SERVE_PROMPTS, new)
+        logits = [lm.prefill(p, {"tokens": prompt.to(where)}, cfg)[0].cpu()
+                  for p, where in ((trained, dev), (on_cpu, "cpu"))]
+    check(card32 == cpu32, f"trained params served: card {card32} != CPU {cpu32} (float32)")
+    err = float((logits[0] - logits[1])[:, : cfg.vocab_size].abs().max())
+    check(err <= 1e-3, f"trained params, prefill logits card vs CPU (float32): {err}")
+    out.update(tokens_bf16=tokens, tokens_float32=card32, bf16_equals_float32=tokens == card32,
+               prefill_logits_card_vs_cpu_float32={"max_abs_diff": err, "bound": 1e-3},
+               peak_memory=torch.cuda.max_memory_allocated(dev))
+    del trained
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2320,6 +2732,12 @@ def main() -> int:
           "launches_by_shape": {"x".join(map(str, k)): n for k, n in sorted(shapes.items())},
           "launches_by_batch": by_batch})
     emit({"phase": "serve_launcher", **phase_serve_launcher()})
+    # training: (a) and (b) take the training route, which launches no
+    # hand-written kernel; (c) serves the trained params through K3 and K4
+    shared: dict = {}
+    path((), ("train_phi4", lambda: _train_part(dev, "phi4-mini-3.8b", shared)),
+         ("train_mamba2", lambda: _train_part(dev, "mamba2-1.3b", shared)))
+    path(("flash_attention", "decode_attention"), ("train_serve", lambda: _train_then_serve(dev)))
 
     csrc = "src/repro_torch/kernels/csrc/"
     comm_real = results["comm"]["real_size"]

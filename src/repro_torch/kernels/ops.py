@@ -7,6 +7,15 @@ tensor takes the hand-written kernel (:mod:`repro_torch.kernels.spike_accum`,
 raises.  There is no fallback from
 the kernel to the plain version.  The signatures and layouts are those of
 ``repro/kernels/ops.py``.
+
+The hand-written kernels have no backward (nor have the reference's
+Pallas kernels): a wrapper fills its output through ``ctypes``, so the
+result would be cut from the autograd graph without a word.  On the card,
+``attention``, ``decode_attention``, ``ssd`` and ``rglru`` therefore raise
+``RuntimeError`` when grad mode is on and an input requires grad; training
+takes the model's training route (``train=True``), which calls none of
+them.  The CPU branch keeps its plain versions, which autograd
+differentiates.
 """
 from __future__ import annotations
 
@@ -22,6 +31,15 @@ __all__ = [
 ]
 
 
+def _refuse_grad(name: str, *xs: torch.Tensor | None) -> None:
+    """Raise if a kernel launch would cut the autograd graph."""
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward and an input requires grad; train "
+            "through the model's training route (lm.loss_fn / forward(train=True)), or run "
+            "under torch.no_grad()")
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -35,6 +53,7 @@ def attention(
     ``[B, Hkv, Sk, D]``, any strides with the last dim contiguous."""
     if q.device.type == "cpu":
         return _ref.attention_ref(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
+    _refuse_grad("flash_attention", q, k, v)
     return _attn.flash_attention(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
 
 
@@ -56,6 +75,7 @@ def decode_attention(
     if q.device.type == "cpu":
         return _ref.decode_attention_ref(q, k, v, seq_lens=seq_lens, sm_scale=sm_scale,
                                          slot_pos=slot_pos, slot_lo=slot_lo)
+    _refuse_grad("decode_attention", q, k, v)
     return _attn.decode_attention(q, k, v, seq_lens=seq_lens, sm_scale=sm_scale,
                                   slot_pos=slot_pos, slot_lo=slot_lo)
 
@@ -70,6 +90,7 @@ def ssd(
     ``[B, H, N, P]``."""
     if x.device.type == "cpu":
         return _ref.ssd_chunked(x, a, b, c, chunk=chunk, return_state=return_state)
+    _refuse_grad("ssd_scan", x, a, b, c)
     return _scan.ssd_scan(x, a, b, c, chunk=chunk, return_state=return_state)
 
 
@@ -78,6 +99,7 @@ def rglru(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     trace."""
     if a.device.type == "cpu":
         return _ref.rglru_ref(a, b)
+    _refuse_grad("rglru_scan", a, b)
     return _scan.rglru_scan(a, b)
 
 

@@ -1,8 +1,9 @@
 """Model zoo of the port: text LMs without experts — dense attention
 (full or windowed), Mamba-2 (ssm) and RG-LRU + local-attention hybrids —
-for the serving path, assembled by :mod:`repro_torch.models.lm`."""
+for serving and training, assembled by :mod:`repro_torch.models.lm`."""
 from repro_torch.models.lm import (
     PDef,
+    abstract_params,
     check_supported,
     decode_step,
     embed_inputs,
@@ -10,6 +11,7 @@ from repro_torch.models.lm import (
     init_cache,
     init_params,
     lm_logits,
+    loss_fn,
     padded_vocab,
     param_defs,
     prefill,
@@ -18,6 +20,7 @@ from repro_torch.models.lm import (
 
 __all__ = [
     "PDef",
+    "abstract_params",
     "check_supported",
     "decode_step",
     "embed_inputs",
@@ -25,6 +28,7 @@ __all__ = [
     "init_cache",
     "init_params",
     "lm_logits",
+    "loss_fn",
     "padded_vocab",
     "param_defs",
     "prefill",

@@ -16,6 +16,19 @@ fp32.  Decode updates the caches in place (they are views into the model's
 stacked caches; the reference returns new ones) at a position held on the
 device, so one decode step captured in a CUDA graph serves every position.
 There is no sharding on one card.  MoE waits for its own slice (ROADMAP.md §1).
+
+Training takes another route through the mixers, chosen by the caller
+(``train=True``, passed down by :func:`repro_torch.models.lm.forward` and
+``loss_fn``), never from ``requires_grad`` or the grad mode: the reference's
+training forward calls no Pallas kernel, and none has a backward, so the
+port's calls none of the hand-written ones either.  Attention goes through
+:func:`blocked_attention` (``repro/models/layers.py:73``), the Mamba-2 scan
+through :func:`ssd_chunked` (``_ssd_chunked_jnp``, ``repro/kernels/ops.py:136``)
+and the RG-LRU recurrence through :func:`rglru_trace` (``rglru_ref``,
+``repro/kernels/ref.py:117``) — torch ops that autograd differentiates, each
+building its result with ``torch.stack`` rather than writing slices of a
+preallocated tensor (whose backward would copy the whole tensor once a
+slice).
 """
 from __future__ import annotations
 
@@ -29,6 +42,7 @@ __all__ = [
     "rms_norm",
     "rope",
     "device_position",
+    "blocked_attention",
     "attention_block",
     "attention_decode",
     "swiglu_mlp",
@@ -38,8 +52,11 @@ __all__ = [
     "mamba2_decode",
     "rglru_block",
     "rglru_decode",
+    "ssd_chunked",
+    "rglru_trace",
 ]
 
+_MASK = -1.0e30
 COMPUTE_DTYPE = torch.bfloat16
 
 
@@ -99,6 +116,59 @@ def _qkv(xb: torch.Tensor, p: dict, cfg: ArchConfig):
     return q, k, v
 
 
+def blocked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    kv_chunk: int = 1024,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks, the training route's
+    attention (``repro/models/layers.py:73``).
+
+    q: [B, Sq, Hq, hd]; k/v: [B, Skv, Hkv, hd].  Scores, the running max,
+    the normalizer and the accumulator in float32; masked scores are
+    -1e30.  The chunk is the largest divisor of Skv not above
+    ``kv_chunk``, so memory is bounded by one [B, Sq, Hq, chunk] score
+    block.  Written in torch ops, so autograd differentiates it.
+    """
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / (hd**0.5)
+    kv_chunk = min(kv_chunk, skv)
+    while skv % kv_chunk:  # largest divisor of skv <= requested chunk
+        kv_chunk -= 1
+    qf = q.reshape(b, sq, hkv, group, hd).float() * sm_scale
+    q_pos = torch.arange(sq, device=q.device)
+    m = torch.full((b, sq, hkv, group, 1), _MASK, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, sq, hkv, group, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, hkv, group, hd), dtype=torch.float32, device=q.device)
+    for j in range(skv // kv_chunk):
+        kb = k[:, j * kv_chunk : (j + 1) * kv_chunk].float()
+        vb = v[:, j * kv_chunk : (j + 1) * kv_chunk].float()
+        k_pos = j * kv_chunk + torch.arange(kv_chunk, device=q.device)
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qf, kb)
+        mask = torch.ones((sq, kv_chunk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        s = torch.where(mask[None, :, None, None, :], s, _MASK)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(dim=-1, keepdim=True)
+        acc = corr * acc + torch.einsum("bqhgk,bkhd->bqhgd", p, vb)
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    return (acc / l).reshape(b, sq, hq, hd).to(q.dtype)
+
+
 def attention_block(
     x: torch.Tensor,
     p: dict,
@@ -107,12 +177,15 @@ def attention_block(
     *,
     positions: torch.Tensor | None = None,
     return_kv: bool = False,
+    train: bool = False,
 ):
-    """GQA attention over a full sequence (prefill).  x: [B, S, D].
+    """GQA attention over a full sequence (prefill, or training with
+    ``train``).  x: [B, S, D].
 
-    The attention itself is :func:`repro_torch.kernels.ops.attention` on
+    Prefill: the attention is :func:`repro_torch.kernels.ops.attention` on
     ``[B, H, S, hd]`` views of the projections (nothing is copied for the
-    kernel); its output comes back with the same strides.
+    kernel); its output comes back with the same strides.  Training:
+    :func:`blocked_attention` on the ``[B, S, H, hd]`` projections.
     """
     b, s, _ = x.shape
     if positions is None:
@@ -120,9 +193,13 @@ def attention_block(
     q, k, v = _qkv(_bf(x), p, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                      causal=True, window=_window(cfg, mixer))
-    of = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    if train:
+        of = blocked_attention(q, k, v, causal=True, window=_window(cfg, mixer))
+    else:
+        o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          causal=True, window=_window(cfg, mixer))
+        of = o.transpose(1, 2)
+    of = of.reshape(b, s, cfg.n_heads * cfg.head_dim)
     out = _bf(of) @ _bf(p["wo"])
     if return_kv:
         return out, (k, v)
@@ -244,15 +321,64 @@ def _ssm_gates(dt_raw: torch.Tensor, p: dict):
     return delta, a
 
 
+def ssd_chunked(
+    x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128
+) -> torch.Tensor:
+    """The training route's Mamba-2 scan: the chunked SSD of
+    ``_ssd_chunked_jnp`` (``repro/kernels/ops.py:136``) in float32, in torch
+    ops that autograd differentiates.  x ``[B, S, H, P]``, a ``[B, S, H]``,
+    b/c ``[B, S, G, N]``; ``chunk = min(chunk, S)`` must divide S
+    (``ValueError`` otherwise, where the reference's reshape fails).
+
+    Within a chunk ``((C Bᵀ) ⊙ causal decay) X``, across chunks the
+    ``[N, P]`` states carried in order.  All heads at once (the reference
+    maps over heads to bound its ``[B, nc, L, L]`` decay matrices; at a
+    microbatch of a training step the ``[B, nc, H, L, L]`` block is a few
+    hundred MB and is freed layer by layer); the decay is masked before its
+    ``exp``, so no ``inf`` reaches the backward."""
+    bs, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep = h // g
+    chunk = min(chunk, s)
+    if chunk <= 0 or s % chunk:
+        raise ValueError(f"S={s} is not a multiple of chunk={chunk}")
+    nc = s // chunk
+    xc = x.float().reshape(bs, nc, chunk, h, p)
+    bh = b.float().reshape(bs, nc, chunk, g, n).repeat_interleave(rep, dim=3)  # [B,nc,L,H,N]
+    ch = c.float().reshape(bs, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+    cum = torch.cumsum(torch.log(a.float().reshape(bs, nc, chunk, h)), dim=2)  # [B,nc,L,H]
+    tpos = torch.arange(chunk, device=x.device)
+    causal = tpos[:, None] >= tpos[None, :]  # [L, L]
+    cum_t = cum.transpose(2, 3)  # [B,nc,H,L]
+    diff = torch.where(causal, cum_t[..., :, None] - cum_t[..., None, :], -torch.inf)
+    cb = torch.einsum("bkthn,bkshn->bkhts", ch, bh)  # [B,nc,H,L,L]
+    y_intra = torch.einsum("bkhts,bkshp->bkthp", cb * torch.exp(diff), xc)
+    decay_end = torch.exp(cum[:, :, -1:] - cum)  # [B,nc,L,H]
+    states = torch.einsum("bkthn,bkth,bkthp->bkhnp", bh, decay_end, xc)  # [B,nc,H,N,P]
+    chunk_decay = torch.exp(cum[:, :, -1])  # [B,nc,H]
+    carry = torch.zeros((bs, h, n, p), dtype=torch.float32, device=x.device)
+    h_prev = []
+    for k in range(nc):
+        h_prev.append(carry)
+        carry = chunk_decay[:, k, :, None, None] * carry + states[:, k]
+    y_inter = torch.einsum("bkthn,bkhnp,bkth->bkthp", ch, torch.stack(h_prev, dim=1),
+                           torch.exp(cum))
+    return (y_intra + y_inter).reshape(bs, s, h, p).to(x.dtype)
+
+
 def mamba2_block(
-    x: torch.Tensor, p: dict, cfg: ArchConfig, *, ssd_chunk: int = 128, return_state: bool = False
+    x: torch.Tensor, p: dict, cfg: ArchConfig, *, ssd_chunk: int = 128, return_state: bool = False,
+    train: bool = False,
 ):
-    """Mamba-2 mixer (prefill).  x: [B, S, D].  The SSD scan is
-    :func:`repro_torch.kernels.ops.ssd` with ``chunk = min(ssd_chunk, S)``,
-    which must divide S (the reference's quirk: S above 128 and not a
-    multiple of it raises).  With ``return_state``, also the decode state
+    """Mamba-2 mixer (prefill, or training with ``train``).  x: [B, S, D].
+    The SSD scan is :func:`repro_torch.kernels.ops.ssd` (training:
+    :func:`ssd_chunked`) with ``chunk = min(ssd_chunk, S)``, which must
+    divide S (the reference's quirk: S above 128 and not a multiple of it
+    raises).  With ``return_state`` (prefill only), also the decode state
     {"ssm": [B, H, N, P] f32, "conv": {x, b, c: [B, K-1, ·]}}, the SSD
     scan's final state."""
+    if train and return_state:
+        raise ValueError("the training route returns no decode state")
     b, s, _ = x.shape
     di, nh, hp = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     g, n = cfg.ssm_groups, cfg.ssm_state
@@ -268,8 +394,11 @@ def mamba2_block(
     delta, a = _ssm_gates(dt, p)  # [B, S, H]
     xh = xr.view(b, s, nh, hp) * delta[..., None]  # Δ-scaled input
     bmat, cmat = bc.view(b, s, g, n), cc.view(b, s, g, n)
-    y = ops.ssd(xh, a, bmat, cmat, chunk=min(ssd_chunk, s), return_state=return_state)
-    y, state = y if return_state else (y, None)
+    if train:
+        y, state = ssd_chunked(xh, a, bmat, cmat, chunk=ssd_chunk), None
+    else:
+        y = ops.ssd(xh, a, bmat, cmat, chunk=min(ssd_chunk, s), return_state=return_state)
+        y, state = y if return_state else (y, None)
     y = y + xr.view(b, s, nh, hp) * p["d_skip"].float()[:, None]
     y = y.reshape(b, s, di)
     # gated RMSNorm then output projection
@@ -336,16 +465,34 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
-def rglru_block(x: torch.Tensor, p: dict, cfg: ArchConfig, *, return_state: bool = False):
+def rglru_trace(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The training route's RG-LRU recurrence: ``h_t = a_t ⊙ h_{t-1} + b_t``
+    from ``h_0 = 0`` in float32, step by step as ``rglru_ref``
+    (``repro/kernels/ref.py:117``), the trace ``[B, S, D]`` stacked once in
+    a's dtype, so autograd differentiates it."""
+    af, bf = a.float(), b.float()
+    h = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32, device=a.device)
+    hs = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(a.dtype)
+
+
+def rglru_block(x: torch.Tensor, p: dict, cfg: ArchConfig, *, return_state: bool = False,
+                train: bool = False):
     """Griffin recurrent block: W_out(GeLU(W_g x) ⊙ RGLRU(conv(W_x x))).
-    x: [B, S, D].  The recurrence is :func:`repro_torch.kernels.ops.rglru`.
-    With ``return_state``, also the decode state {"h": [B, W] f32, "conv":
+    x: [B, S, D].  The recurrence is :func:`repro_torch.kernels.ops.rglru`
+    (training, with ``train``: :func:`rglru_trace`).  With ``return_state``
+    (prefill only), also the decode state {"h": [B, W] f32, "conv":
     [B, K-1, W]}."""
+    if train and return_state:
+        raise ValueError("the training route returns no decode state")
     xb = _bf(x)
     gate_branch = _gelu((xb @ _bf(p["wg"])).float())
     u_raw = xb @ _bf(p["wx"])
     a, bb = _rglru_gates(causal_conv1d(u_raw, p["conv"]), p)
-    h = ops.rglru(a, bb)  # [B, S, W] f32 trace
+    h = rglru_trace(a, bb) if train else ops.rglru(a, bb)  # [B, S, W] f32 trace
     out = _bf(h * gate_branch) @ _bf(p["wo"])
     if not return_state:
         return out

@@ -1,5 +1,5 @@
 """LM assembly of the port: the layer stack as segments of repeated units,
-parameter construction, forward, prefill and decode steps.
+parameter construction, forward, loss, prefill and decode steps.
 
 Port of ``repro/models/lm.py`` for text models without experts: every
 mixer (``full``, ``swa``, ``local``, ``ssm``, ``rglru``), so dense
@@ -10,6 +10,12 @@ converted checkpoint maps one to one (:func:`repro_torch.convert.lm_params`).
 A Python loop over layers takes the place of ``lax.scan``; there is no
 sharding on one card.  Experts and other modalities raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
+
+Training (:func:`loss_fn`, :func:`forward` with ``train=True``) runs every
+layer under ``torch.utils.checkpoint.checkpoint`` — the counterpart of the
+reference's ``jax.checkpoint`` around its scanned body: only each layer's
+input is kept for the backward — and takes the mixers' training route
+(:mod:`repro_torch.models.layers`), which launches no hand-written kernel.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -30,9 +37,11 @@ __all__ = [
     "padded_vocab",
     "param_defs",
     "init_params",
+    "abstract_params",
     "embed_inputs",
     "forward",
     "lm_logits",
+    "loss_fn",
     "init_cache",
     "decode_step",
     "prefill",
@@ -239,9 +248,35 @@ def init_params(
     return build(param_defs(cfg))
 
 
+def abstract_params(cfg: ArchConfig) -> dict:
+    """The parameter tree as tensors on the ``meta`` device (shape and
+    dtype, no storage): the counterpart of the reference's
+    ``ShapeDtypeStruct`` tree without a mesh (one card has no sharding)."""
+
+    def build(node):
+        if isinstance(node, PDef):
+            return torch.empty(node.shape, dtype=node.dtype, device="meta")
+        return {k: build(node[k]) for k in sorted(node)}
+
+    return build(param_defs(cfg))
+
+
 def _layer(tree: dict, li: int) -> dict:
     """Views of layer ``li`` of a segment's stacked tree."""
     return {k: _layer(v, li) if isinstance(v, dict) else v[li] for k, v in tree.items()}
+
+
+def _unbound(tree: dict, r: int) -> list[dict]:
+    """Every layer's views of a segment's stacked tree, from one
+    ``unbind`` per leaf: its backward stacks the r layers' gradients once,
+    where a view per layer (``v[li]``) would add r full-size ``[r, ...]``
+    gradients."""
+    out: list[dict] = [{} for _ in range(r)]
+    for k, v in tree.items():
+        parts = _unbound(v, r) if isinstance(v, dict) else torch.unbind(v, 0)
+        for li in range(r):
+            out[li][k] = parts[li]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -259,26 +294,40 @@ def _mlp_apply(h: torch.Tensor, lp: dict, j: int) -> torch.Tensor:
     return L.swiglu_mlp(L.rms_norm(h, lp[f"ln2_{j}"]), lp[f"mlp{j}"])
 
 
-def _mixer_apply(y: torch.Tensor, p: dict, mixer: str, cfg: ArchConfig) -> torch.Tensor:
+def _mixer_apply(y: torch.Tensor, p: dict, mixer: str, cfg: ArchConfig,
+                 train: bool = False) -> torch.Tensor:
     if mixer in ATTENTION:
-        return L.attention_block(y, p, cfg, mixer)
+        return L.attention_block(y, p, cfg, mixer, train=train)
     if mixer == "ssm":
-        return L.mamba2_block(y, p, cfg)
+        return L.mamba2_block(y, p, cfg, train=train)
     if mixer == "rglru":
-        return L.rglru_block(y, p, cfg)
+        return L.rglru_block(y, p, cfg, train=train)
     raise ValueError(mixer)
 
 
-def forward(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Residual stream through all layers.  x: [B, S, D] → [B, S, D]."""
+def _unit_apply(x: torch.Tensor, lp: dict, unit: tuple[str, ...], cfg: ArchConfig,
+                train: bool) -> torch.Tensor:
+    """One layer of a segment: each mixer of the unit, then its MLP."""
+    for j, mixer in enumerate(unit):
+        x = x + _mixer_apply(L.rms_norm(x, lp[f"ln1_{j}"]), lp[f"m{j}"], mixer, cfg, train)
+        if _has_mlp(cfg):
+            x = x + _mlp_apply(x, lp, j)
+    return x
+
+
+def forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
+            train: bool = False) -> torch.Tensor:
+    """Residual stream through all layers.  x: [B, S, D] → [B, S, D].
+
+    ``train`` takes the mixers' training route and recomputes each layer
+    in the backward from its input (``checkpoint(..., use_reentrant=False)``)."""
     check_supported(cfg)
     for i, (unit, r) in enumerate(segments(cfg)):
-        for li in range(r):
-            lp = _layer(params[f"seg{i}"], li)
-            for j, mixer in enumerate(unit):
-                x = x + _mixer_apply(L.rms_norm(x, lp[f"ln1_{j}"]), lp[f"m{j}"], mixer, cfg)
-                if _has_mlp(cfg):
-                    x = x + _mlp_apply(x, lp, j)
+        for lp in _unbound(params[f"seg{i}"], r):
+            if train:
+                x = checkpoint(_unit_apply, x, lp, unit, cfg, True, use_reentrant=False)
+            else:
+                x = _unit_apply(x, lp, unit, cfg, False)
     return L.rms_norm(x, params["final_norm"])
 
 
@@ -289,6 +338,25 @@ def lm_logits(params: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if padded_vocab(cfg) != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy over the batch (labels pre-shifted
+    upstream), on the training route: the mean of ``logsumexp(logits) −
+    logits[label]`` over [B, S], logits in float32 with the padded
+    vocabulary at -1e30.  ``batch``: ``tokens`` and ``labels`` [B, S]
+    integer tensors (int32 from the data pipeline)."""
+    check_supported(cfg)
+    x = embed_inputs(params, batch, cfg)
+    h = forward(params, x, cfg, train=True)
+    logits = lm_logits(params, h, cfg)
+    labels = batch["labels"]
+    if cfg.modality == "vlm":
+        # loss over the text region only (vision prefix has no labels)
+        logits = logits[:, -labels.shape[1] :]
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - ll)
 
 
 # ---------------------------------------------------------------------------

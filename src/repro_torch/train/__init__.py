@@ -1,6 +1,7 @@
-"""Training substrate of the port: checkpointing and the fault-tolerant
-supervisor (the optimizer, gradient compression and train step of the
-reference's ``repro.train`` are not ported yet)."""
+"""Training substrate: AdamW, microbatched train step, gradient
+compression (error feedback), checkpointing, fault-tolerant supervisor."""
+from repro_torch.train.optimizer import AdamWConfig, adamw_update, cosine_lr, init_opt_state
+from repro_torch.train.train_step import TrainStepConfig, make_grad_fn, make_train_step
 from repro_torch.train.checkpoint import (
     Checkpointer,
     CheckpointCorruptError,
@@ -19,6 +20,8 @@ from repro_torch.train.fault_tolerance import (
 )
 
 __all__ = [
+    "AdamWConfig", "adamw_update", "cosine_lr", "init_opt_state",
+    "TrainStepConfig", "make_grad_fn", "make_train_step",
     "Checkpointer", "latest_step", "restore", "save",
     "verify_checkpoint", "CheckpointCorruptError",
     "Supervisor", "SupervisorConfig", "StepResult", "DeviceFailure",

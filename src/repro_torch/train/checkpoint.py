@@ -107,7 +107,10 @@ def _snapshot(tree: Any) -> Any:
 
 
 def _flatten(tree: Any) -> dict[str, np.ndarray]:
-    return {_key(path): _host(leaf) for path, leaf in _leaves(tree)}
+    """``{npz key: host array}``; a numpy leaf (``save_async``'s snapshot)
+    is written as it is, not copied again."""
+    return {_key(path): leaf if isinstance(leaf, np.ndarray) else _host(leaf)
+            for path, leaf in _leaves(tree)}
 
 
 def save(

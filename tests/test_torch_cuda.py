@@ -620,6 +620,78 @@ def test_attention_wrappers_reject_bad_inputs(dev):
         k.decode_attention(q[:, :, 0], q, q.bfloat16())
 
 
+def test_kernels_refuse_inputs_that_require_grad(dev):
+    """A kernel has no backward: on the card each dispatch raises on an
+    input that requires grad (naming the training route) instead of
+    returning a tensor cut from the graph; under ``torch.no_grad()`` it
+    launches."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import ops
+
+    q = torch.randn((1, 2, 64, 64), device=dev, dtype=torch.bfloat16)
+    kv = torch.randn((1, 1, 64, 64), device=dev, dtype=torch.bfloat16)
+    x, b = torch.randn((1, 64, 2, 16), device=dev), torch.randn((1, 64, 1, 8), device=dev)
+    a = 0.9 + 0.05 * torch.rand((1, 64, 2), device=dev)
+    ra, rb = 0.9 + 0.05 * torch.rand((1, 64, 32), device=dev), torch.randn((1, 64, 32), device=dev)
+    calls = {
+        "flash_attention": lambda t: ops.attention(t, kv, kv),
+        "decode_attention": lambda t: ops.decode_attention(t[:, :, 0], kv, kv),
+        "ssd_scan": lambda t: ops.ssd(x, a, b, t, chunk=64),
+        "rglru_scan": lambda t: ops.rglru(ra, t),
+    }
+    grad_inputs = {"flash_attention": q, "decode_attention": q, "ssd_scan": b, "rglru_scan": rb}
+    for name, call in calls.items():
+        t = grad_inputs[name].clone().requires_grad_()
+        before = LAUNCHES[name]
+        with pytest.raises(RuntimeError, match="training route"):
+            call(t)
+        assert LAUNCHES[name] == before
+        with torch.no_grad():
+            call(t)
+        torch.cuda.synchronize()
+        assert LAUNCHES[name] == before + 1
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b"])
+def test_train_step_on_the_card(dev, arch):
+    """Two train steps of the reduced config on the card launch no kernel
+    (the training route) and give the CPU's losses under float32 compute;
+    every gradient reaches its parameter."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.train import TrainStepConfig, init_opt_state, make_grad_fn, make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = ARCHS[arch].reduced()
+    dl = SyntheticLM(cfg, DataConfig(seq_len=64, global_batch=4))
+    saved = L.COMPUTE_DTYPE
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        losses = {}
+        for where in (dev, "cpu"):
+            params = _to(lm.init_params(cfg, 0, device="cpu"), where)
+            step = make_train_step(cfg, TrainStepConfig(n_microbatches=2))
+            opt, before = init_opt_state(params), dict(LAUNCHES)
+            losses[str(where)] = []
+            for s in range(2):
+                batch = {k: torch.from_numpy(v).to(where) for k, v in dl(s).items()}
+                loss, params, opt, _ = step(params, opt, batch)
+                losses[str(where)].append(float(loss))
+            assert LAUNCHES == before
+            _, grads = make_grad_fn(cfg, 1)(params, batch)
+            assert all(bool(g.abs().sum() > 0) for g in tree_leaves(grads))
+        np.testing.assert_allclose(losses[str(dev)], losses["cpu"], rtol=1e-4)
+    finally:
+        L.COMPUTE_DTYPE = saved
+
+
+def _to(tree, where):
+    return {k: _to(v, where) if isinstance(v, dict) else v.to(where) for k, v in tree.items()}
+
+
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b"])
 def test_serve_engine_on_the_card(dev, arch):
     """A small ServeEngine run through the kernels: the card's greedy

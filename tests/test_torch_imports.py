@@ -57,7 +57,7 @@ def test_device_rule(no_cuda):
 
 def test_entry_points_raise_without_cuda(no_cuda):
     from repro_torch.configs import ARCHS
-    from repro_torch.launch import brainsim, run_brainsim, serve
+    from repro_torch.launch import brainsim, run_brainsim, serve, train
     from repro_torch.models import lm
     from repro_torch.serve import ServeEngine
     from repro_torch.snn import DistributedSNN, LIFParams, SNNEngine, init_state
@@ -84,6 +84,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
         ServeEngine(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "deepseek-7b", "--max-new", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "deepseek-7b", "--steps", "1"])
     # the same calls run when the CPU is asked for
     SNNEngine(w_syn=w, params=LIFParams(), device="cpu").run(2)
     DistributedSNN(mesh=(2,), w_syn=w, params=LIFParams(), device="cpu").run(2)
