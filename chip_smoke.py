@@ -5,8 +5,9 @@
 
 Drives the port (``src/repro_torch``) on the card, with nothing of JAX or
 of the JAX package ``repro``: the brain simulation (phases 3-4), LM
-serving of three architectures (phase 5) and LM training (phase
-``train``).  Every main path runs as a user's
+serving of three architectures (phase 5) and of the mixture of experts
+(phase ``serve_qwen3_moe``), the vlm and audio front ends (phase
+``frontends``) and LM training (phase ``train``).  Every main path runs as a user's
 call runs it on the card: each step after the first replays a CUDA graph
 of one step (``repro_torch.graphs``); the same run op by op
 (``graph=False``, the launchers' ``--eager``) is its check.  Each phase
@@ -29,7 +30,11 @@ nonzero.
    phi4-mini-3.8b's shapes, recurrentgemma-9b's (MQA with 16 q heads, head
    dim 256, window 2,048; decode with ``slot_pos``, also a misaligned ring
    whose valid slots are not a prefix; the window bound ``slot_lo`` a device
-   scalar, as the model passes it).  The scans against their plain
+   scalar, as the model passes it), qwen3-moe-30b-a3b's (32 q / 4 KV heads:
+   a 4-slot prefill of 1,024 tokens, decode of 4 slots at 1,040 of 1,056),
+   llava-next-mistral-7b's (32 q / 8 KV heads: 2 rows of 1,024 positions,
+   decode at 1,032 of 1,040) and musicgen-large's (32 / 32 heads of 64: 2
+   rows of 512, decode at 520 of 528).  The scans against their plain
    versions on float64 copies at the reference's ``3e-3``: ``ssd_scan`` at
    the reference's sweep, chunks of 127 and 96, and mamba2-1.3b's prefill,
    its final state too; ``rglru_scan`` at the sweep and at the four shapes
@@ -151,18 +156,43 @@ nonzero.
    compute (S = 861, 127, 4,096); no ssm layer recomputing its final state
    with the CPU path's closed form; prefill / decode times, tokens/s,
    launches and device busy share of decode steps, peak memory.  Decode
-   replays a CUDA graph per batch; the same requests eager (uncounted) give
-   the same greedy tokens under both schedulers, and a teacher-forced
+   replays a CUDA graph per batch; the same requests eager (uncounted,
+   both schedulers) give the same greedy tokens, and a teacher-forced
    window of each (profiled: device ms, kernels and graph launches per
    step, busy share) gives logits within two bf16 steps (bit-equality
    reported); capture seconds and the peak memory of each.  (c) the
    serving launcher ``python -m repro_torch.launch.serve`` at its
    defaults.
+``serve_qwen3_moe`` (after phase 5): qwen3-moe-30b-a3b, 48 layers of 128
+   experts (top-8) and 32 q / 4 KV heads with QK-norm, at full width and
+   depth (30.5 B parameters, 61 GB of bf16 made on the card from seed 0),
+   through phase 5's (b) with 32 greedy tokens a request (both schedulers
+   run again eagerly give the replayed tokens); (a) the reduced
+   qwen3-moe and mixtral-8x22b (``swa``, window 64, 8 experts: the
+   reference's TP mode; at 281 GB mixtral runs reduced only) card against
+   CPU; layer 0's ``moe_block`` at full width on the hidden state of a
+   1,000-token prompt, card against CPU under float32 compute (the same
+   experts for every token, the same kept (token, slot) pairs at the same
+   places, outputs within 1e-4 of the largest); prefill(S) + decode against
+   prefill(S + 1), which with experts holds to 0.05 only when prefill(S + 1)
+   dropped none of the last token's slots and its capacity is prefill(S)'s
+   (the drop count and both capacities are printed); the decode profile and
+   peak memory as in phase 5.
+``frontends`` (after ``serve_qwen3_moe``): llava-next-mistral-7b (576 random
+   patch embeddings before 448 text tokens, 2 rows) and musicgen-large (2 ×
+   512 steps of 4 codebooks) at full width and depth through ``lm.prefill``
+   and 16 greedy ``lm.decode_step`` calls (the engine serves text archs, as
+   the reference's): one K3 launch a layer in the prefill, one K4 launch a
+   layer a step and nothing else, finite logits of the front end's shape
+   (musicgen ``[B, 4, Vp]``), prefill(S) + decode against prefill(S + 1)
+   within 0.05 under float32 compute, and each reduced config card against
+   CPU.
 ``train`` (after phase 5; three lines, ``train_phi4``, ``train_mamba2`` and
    ``train_serve``): the training path (``repro_torch.data``, ``lm.loss_fn``,
    ``repro_torch.train``) on the card.  (a) phi4-mini-3.8b at full width,
-   16 of its 32 layers (full depth's params, AdamW state and gradient sums
-   alone are 76.8 GB; the reckoning is printed), and (b) mamba2-1.3b whole:
+   8 of its 32 layers (full depth's params, AdamW state and gradient sums
+   alone are 76.8 GB; the reckoning is printed), and (b) mamba2-1.3b at full
+   width, 24 of its 48 layers (both cut for the script's clock):
    ``SyntheticLM`` batches of 4 × 1,024 tokens (seed 0) in 2 microbatches,
    3 steps of ``make_train_step`` ((a) under the ``Supervisor`` with one
    checkpoint, step 0's; (b) in a plain loop timed the same way, so the
@@ -185,12 +215,12 @@ nonzero.
 6. The launches of ``rglru_scan`` on recurrentgemma-9b's main path by
    input shape and by batch; a ``kernels`` line (all six kernels; K2 at 1 %
    firing on W f32[32768, 4096] and at the oracle's shape, K3 and K4 at
-   phi4-mini-3.8b's and at recurrentgemma-9b's shapes, K6 at the batch-4
+   phi4-mini-3.8b's, recurrentgemma-9b's and qwen3-moe's shapes, K6 at the batch-4
    wave and the batch-1 prefill of 1,024 tokens), the card's name and power
    limit, and the last line, ``{"ok": true, "device": {...}}``.
 
-Each main path (phases 3-4, each model of phase 5, each part of phase
-``train``) runs with the launch counts set to 0 just before it and read
+Each main path (phases 3-4, each model of phase 5, ``serve_qwen3_moe``,
+``frontends``, each part of phase ``train``) runs with the launch counts set to 0 just before it and read
 just after, and must have launched each of its kernels (the training
 parts (a) and (b) none); the ``kernels`` line sums them.  A process
 rank of phase ``comm`` counts its own launches the same way, and K1's
@@ -535,7 +565,9 @@ def _zero_tile(v, start: int):
 # (tests/test_kernels.py:23-44), then phi4-mini-3.8b's prefill (a 4-slot wave
 # padded to 1,024 tokens) and recurrentgemma-9b's local layers (MQA, head
 # dim 256, window 2,048: a 4-slot wave of 1,024 tokens, and the batch-1
-# 4,096-token prompt)
+# 4,096-token prompt), then qwen3-moe-30b-a3b's (GQA group 8: a 4-slot wave
+# padded to 1,024 tokens), llava-next-mistral-7b's (2 rows of 576 patch
+# embeddings and 448 tokens) and musicgen-large's (2 rows of 512 steps)
 FLASH_CASES = [
     ("gqa", 2, 4, 2, 256, 256, 64, True, None),
     ("mqa", 1, 8, 1, 128, 128, 32, True, None),
@@ -545,6 +577,9 @@ FLASH_CASES = [
     ("phi4_prefill", 4, 24, 8, 1024, 1024, 128, True, None),
     ("rg_prefill", 4, 16, 1, 1024, 1024, 256, True, 2048),
     ("rg_prefill_4096", 1, 16, 1, 4096, 4096, 256, True, 2048),
+    ("qwen3_prefill", 4, 32, 4, 1024, 1024, 128, True, None),
+    ("llava_prefill", 2, 32, 8, 1024, 1024, 128, True, None),
+    ("musicgen_prefill", 2, 32, 32, 512, 512, 64, True, None),
 ]
 # (name, b, hq, hkv, s, d, valid): valid rows None for all, "ragged", a
 # prefix length, or slot_pos handed to the kernel with slot_lo = pos -
@@ -555,7 +590,10 @@ FLASH_CASES = [
 # them valid half-way through the wave), recurrentgemma-9b's local decode
 # (the same wave: window 2,048 > 1,088, so its slot_pos is a prefix) and its
 # ring after a misaligned 3,000-token prefill (slot 952 holds position
-# 3,000; slot 0 holds 952, outside the window)
+# 3,000; slot 0 holds 952, outside the window), then qwen3-moe-30b-a3b's
+# decode (4 slots, cache 1,056 = 1,024 + 32 rows, 1,040 valid half-way),
+# llava's (2 rows, cache 1,040 = 1,024 + 16, 1,032 valid half-way) and
+# musicgen's (2 rows, cache 528 = 512 + 16, 520 valid half-way)
 DECODE_CASES = [
     ("full_cache", 2, 4, 2, 1024, 64, None),
     ("ragged_g4", 3, 8, 2, 512, 32, "ragged"),
@@ -563,6 +601,9 @@ DECODE_CASES = [
     ("phi4_decode", 4, 24, 8, 1088, 128, 1056),
     ("rg_decode", 4, 16, 1, 1088, 256, ("prefix", 1056)),
     ("rg_ring_misaligned", 1, 16, 1, 2048, 256, ("ring", 3000)),
+    ("qwen3_decode", 4, 32, 4, 1056, 128, 1040),
+    ("llava_decode", 2, 32, 8, 1040, 128, 1032),
+    ("musicgen_decode", 2, 32, 32, 528, 64, 520),
 ]
 RG_WINDOW = 2048
 
@@ -616,7 +657,7 @@ def phase_attention(dev, rate: float) -> dict:
         bound_ms, bound_by = _bound(nbytes, flops, rate,
                                     BF16_PEAK if dtype == "bfloat16" else F32_PEAK)
         table[key] = {"max_abs_err": err, "bit_identical_rerun": True, **extra,
-                      **timings(kern, plain, lib, key.startswith(("phi4", "rg_"))),
+                      **timings(kern, plain, lib, key.startswith(("phi4", "rg_", "qwen3", "llava", "musicgen"))),
                       "bound_ms": bound_ms, "bound_by": bound_by}
 
     for dtype in ("float32", "bfloat16"):
@@ -1914,17 +1955,25 @@ def phase_plan_paper_scale() -> dict:
 # -- phase 5 ---------------------------------------------------------------
 
 SERVE_ARCH = "phi4-mini-3.8b"
-SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW = 8, 4, 64
+MOE_ARCH = "qwen3-moe-30b-a3b"
+SERVE_REQUESTS, SERVE_SLOTS = 8, 4
 F32_LOGIT_BOUND = 0.05  # tests/test_models.py:94-114, float32 compute
+MOE_F32_REL = 1e-4  # one full-width MoE layer, card vs CPU, float32 compute
+_TEXT = {"kv": None, "consistency_len": None, "first_wave": False, "new": 64, "reduced": None}
 # per serving path: n_kv_heads of the reduced config checked card vs CPU (phi4
 # with 2 for GQA), the prompt length S + 1 of the prefill(S) + decode vs
 # prefill(S + 1) check (None: the first request's prompt plus one token;
-# mamba2: S = 127, since prefill(S) needs min(128, S) to divide S), and
-# whether the first wave's tokens must agree between the schedulers
+# mamba2: S = 127, since prefill(S) needs min(128, S) to divide S), whether
+# the first wave's tokens must agree between the schedulers, the greedy
+# tokens a request, and the reduced configs held card against CPU (None:
+# the arch's own)
 SERVE_PATHS = {
-    "phi4-mini-3.8b": {"kv": 2, "consistency_len": None, "first_wave": True},
-    "mamba2-1.3b": {"kv": None, "consistency_len": 128, "first_wave": False},
-    "recurrentgemma-9b": {"kv": None, "consistency_len": LONG_PROMPT + 1, "first_wave": False},
+    "phi4-mini-3.8b": {**_TEXT, "kv": 2, "first_wave": True},
+    "mamba2-1.3b": {**_TEXT, "consistency_len": 128},
+    "recurrentgemma-9b": {**_TEXT, "consistency_len": LONG_PROMPT + 1},
+    # mixtral-8x22b (281 GB of bf16) runs reduced only: swa, window 64, 8
+    # experts in the reference's TP mode
+    MOE_ARCH: {**_TEXT, "new": 32, "reduced": (MOE_ARCH, "mixtral-8x22b")},
 }
 
 
@@ -1962,13 +2011,29 @@ def _numpy_params(cfg, seed: int) -> dict:
     return to_np(lm.init_params(cfg, seed, device="cpu"))
 
 
+def _front_end_batch(cfg, b: int, s: int, seed: int) -> tuple[dict, int]:
+    """Numpy inputs of ``cfg``'s front end: ``tokens`` [b, s] (audio: [b,
+    s, ncb]) and for vlm ``vision_embed`` [b, Nv, D] (the data pipeline's
+    standard normal); and Nv, where the text's positions start."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (b, s, cfg.n_codebooks) if cfg.modality == "audio" else (b, s)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, shape).astype(np.int32)}
+    if cfg.modality != "vlm":
+        return batch, 0
+    batch["vision_embed"] = rng.standard_normal((b, cfg.vision_tokens, cfg.d_model),
+                                                dtype=np.float32)
+    return batch, cfg.vision_tokens
+
+
 def _card_vs_cpu(dev, arch: str, kv) -> dict:
-    """(a) ``arch`` reduced: prefill of 64 tokens and 8 teacher-forced
-    decode steps, on the card (kernels) and on the CPU (plain versions),
-    from one set of numpy parameters; bf16 and float32 compute."""
+    """(a) ``arch`` reduced: prefill of 64 tokens (a vlm's after its patch
+    embeddings; audio's of 4 codebooks) and 8 teacher-forced decode steps,
+    on the card (kernels) and on the CPU (plain versions), from one set of
+    numpy parameters; bf16 and float32 compute."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from repro_torch import convert
@@ -1979,19 +2044,21 @@ def _card_vs_cpu(dev, arch: str, kv) -> dict:
     if kv:
         cfg = dataclasses.replace(cfg, n_kv_heads=kv)
     tree = _numpy_params(cfg, 0)
-    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 72)).astype(np.int32)
+    batch, nv = _front_end_batch(cfg, 2, 72, 1)
     out = {}
     for dtype, label in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
         logits = {}
         with compute_dtype(dtype):
             for where in (str(dev), "cpu"):
                 params = convert.lm_params(tree, cfg, where)
-                t = torch.from_numpy(toks).to(where)
-                lg, cache = lm.prefill(params, {"tokens": t[:, :64]}, cfg, max_len=72)
+                bt = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+                t = bt.pop("tokens")
+                lg, cache = lm.prefill(params, {**bt, "tokens": t[:, :64]}, cfg,
+                                       max_len=nv + 72)
                 steps = [lg]
                 for i in range(8):
                     lg, cache = lm.decode_step(params, cache, {"tokens": t[:, 64 + i : 65 + i]},
-                                               64 + i, cfg)
+                                               nv + 64 + i, cfg)
                     steps.append(lg)
                 logits[where] = torch.stack(steps).cpu()
         card, cpu = logits[str(dev)], logits["cpu"]
@@ -2011,35 +2078,137 @@ def _card_vs_cpu(dev, arch: str, kv) -> dict:
     return out
 
 
-def _prefill_decode_consistency(params, cfg, prompt: list[int], dev) -> dict:
+@contextlib.contextmanager
+def moe_routes():
+    """The routing (``layers.moe_route``'s result) of every ``moe_block``
+    call made inside, in order: one a layer per forward."""
+    from repro_torch.models import layers
+
+    real, seen = layers.moe_route, []
+
+    def recorded(*args, **kw):
+        seen.append(real(*args, **kw))
+        return seen[-1]
+
+    layers.moe_route = recorded
+    try:
+        yield seen
+    finally:
+        layers.moe_route = real
+
+
+def _prefill_decode_consistency(params, cfg, batch: dict, dev, nv: int = 0) -> dict:
     """prefill(S) then decode_step(token S) against the last logits of
     prefill(S + 1): the prefill kernels held against the decode path at
-    full width.  float32 compute holds to the reference's 0.05; bf16 is
-    reported."""
+    full width.  ``batch``: tensors on the card, ``tokens`` [B, S + 1] (audio
+    [B, S + 1, ncb]) after ``nv`` patch embeddings (vlm's
+    ``vision_embed``).  float32 compute holds to the reference's 0.05; bf16
+    is reported.
+
+    With experts this is no identity: prefill(S + 1) drops the slots over
+    capacity (``cap = int((S + 1) · k · 1.25 / E) + 1``) and a decode step
+    none.  So the bound holds only when prefill(S + 1) dropped none of the
+    last token's slots, in any layer, and its capacity is prefill(S)'s
+    (then the first S tokens route alike in both); otherwise the difference
+    is printed beside the drop count."""
     import torch
 
     from repro_torch.models import lm
 
-    toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+    toks = batch["tokens"]
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
     s = toks.shape[1] - 1
     out = {"S": s}
+    v = cfg.vocab_size
     for dtype, label in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
-        with compute_dtype(dtype), torch.inference_mode():
-            _, cache = lm.prefill(params, {"tokens": toks[:, :s]}, cfg, max_len=s + 1)
-            dec, _ = lm.decode_step(params, cache, {"tokens": toks[:, s:]}, s, cfg)
+        with compute_dtype(dtype), torch.inference_mode(), moe_routes() as routes:
+            _, cache = lm.prefill(params, {**extra, "tokens": toks[:, :s]}, cfg,
+                                  max_len=nv + s + 1)
+            dec, _ = lm.decode_step(params, cache, {"tokens": toks[:, s:]}, nv + s, cfg)
             del cache
-            full, _ = lm.prefill(params, {"tokens": toks}, cfg)
-        check(bool(torch.isfinite(dec[:, : cfg.vocab_size]).all()
-                   and torch.isfinite(full[:, : cfg.vocab_size]).all()),
+            n_short = len(routes)
+            full, _ = lm.prefill(params, {**extra, "tokens": toks}, cfg)
+        check(bool(torch.isfinite(dec[..., :v]).all() and torch.isfinite(full[..., :v]).all()),
               f"{label}: non-finite logits")
-        err = float((dec - full)[:, : cfg.vocab_size].abs().max())
-        out[label] = {"max_abs_logit_diff": err,
-                      "max_abs_logit": float(full[:, : cfg.vocab_size].abs().max()),
-                      "same_argmax": bool(torch.equal(dec[:, : cfg.vocab_size].argmax(-1),
-                                                      full[:, : cfg.vocab_size].argmax(-1)))}
+        err = float((dec - full)[..., :v].abs().max())
+        out[label] = {"max_abs_logit_diff": err, "max_abs_logit": float(full[..., :v].abs().max()),
+                      "same_argmax": bool(torch.equal(dec[..., :v].argmax(-1),
+                                                      full[..., :v].argmax(-1)))}
+        if cfg.n_experts:
+            last = routes[n_short:]  # prefill(S + 1), one routing a layer
+            check(len(last) == cfg.n_layers, f"{len(last)} MoE layers routed")
+            out[label]["last_token_slots_dropped"] = sum(
+                int((~r["keep"][:, -1]).sum()) for r in last)
+            out[label]["prefill_S1_slots_dropped"] = sum(int((~r["keep"]).sum()) for r in last)
+            out[label]["slots"] = sum(r["keep"].numel() for r in last)
+    if cfg.n_experts:
+        caps = [int(n * cfg.top_k * 1.25 / cfg.n_experts) + 1 for n in (nv + s, nv + s + 1)]
+        out["cap_S"], out["cap_S1"] = caps
+        held = caps[0] == caps[1] and out["float32"]["last_token_slots_dropped"] == 0
+        out["bound_asserted"] = held
+        if not held:
+            return out
     check(out["float32"]["max_abs_logit_diff"] < F32_LOGIT_BOUND,
           f"prefill+decode vs prefill(S+1): {out['float32']}")
     return out
+
+
+MOE_LAYER_PROMPT = 1000
+
+
+def _moe_layer_vs_cpu(params, cfg, dev) -> dict:
+    """Layer 0's ``moe_block`` at full width on its real input (the hidden
+    state of a 1,000-token prompt after layer 0's attention and norm), on
+    the card and on the CPU from the same bf16 weights, float32 compute:
+    every token chooses the same experts, the same (token, expert) pairs
+    are kept at the same places in the experts' buffers, and the outputs
+    agree within ``MOE_F32_REL`` of the largest."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, MOE_LAYER_PROMPT)).astype(np.int32)).to(dev)
+    lp = lm._layer(params["seg0"], 0)
+    with torch.inference_mode():
+        x = lm.embed_inputs(params, {"tokens": toks}, cfg)
+        x = x + L.attention_block(L.rms_norm(x, lp["ln1_0"]), lp["m0"], cfg, "full")
+        y = L.rms_norm(x, lp["ln2_0"])
+        host = {k: v.cpu() for k, v in lp["mlp0"].items()}
+        res, t = {}, {}
+        with compute_dtype(torch.float32):
+            for where, w, yy in ((str(dev), lp["mlp0"], y), ("cpu", host, y.cpu())):
+                t0 = time.perf_counter()
+                with moe_routes() as routes:
+                    out = L.moe_block(yy, w, cfg)
+                res[where] = (out.float().cpu(), {k: v.cpu() if torch.is_tensor(v) else v
+                                                  for k, v in routes[0].items()})
+                t[where] = time.perf_counter() - t0
+
+    def by_expert(r):  # [S, E]: each (token, expert) pair's place, -1 when not chosen
+        te = torch.full((MOE_LAYER_PROMPT, cfg.n_experts), -1, dtype=torch.long)
+        te.scatter_(1, r["gate_i"][0].long(), r["pos"][0])
+        kept = torch.zeros((MOE_LAYER_PROMPT, cfg.n_experts), dtype=torch.bool)
+        kept.scatter_(1, r["gate_i"][0].long(), r["keep"][0])
+        return te, kept
+
+    (card, rc), (cpu, rh) = res[str(dev)], res["cpu"]
+    (pc, kc), (ph, kh) = by_expert(rc), by_expert(rh)
+    same_experts = torch.equal(pc >= 0, ph >= 0)
+    check(same_experts, "MoE layer: a token chose other experts on the card than on the CPU")
+    check(torch.equal(pc, ph) and torch.equal(kc, kh),
+          "MoE layer: the card kept other (token, slot) pairs than the CPU")
+    err, top = float((card - cpu).abs().max()), float(cpu.abs().max())
+    check(bool(torch.isfinite(card).all()) and err <= MOE_F32_REL * top,
+          f"MoE layer card vs CPU (float32): {err} of {top}")
+    return {"tokens": MOE_LAYER_PROMPT, "cap": rh["cap"], "slots": int(rh["keep"].numel()),
+            "slots_dropped": int((~rh["keep"]).sum()),
+            "same_experts": same_experts, "same_kept_pairs": True,
+            "same_slot_order": bool(torch.equal(rc["gate_i"], rh["gate_i"])),
+            "max_abs_diff": err, "max_abs_out": top, "bound": f"{MOE_F32_REL} of the largest",
+            "card_s": t[str(dev)], "cpu_s": t["cpu"]}
 
 
 def _launches_per_call(cfg) -> tuple[dict, dict]:
@@ -2082,9 +2251,10 @@ class _Timed:
         return out
 
 
-def _serve_timed(eng, name: str, prompts, cfg, per_call) -> dict:
-    """One scheduler of ``eng`` over ``prompts``, every prefill and decode
-    call timed and its launches held to ``per_call``."""
+def _serve_timed(eng, name: str, prompts, cfg, per_call, new: int) -> dict:
+    """One scheduler of ``eng`` over ``prompts`` (``new`` greedy tokens
+    each), every prefill and decode call timed and its launches held to
+    ``per_call``."""
     import numpy as np
     import torch
 
@@ -2097,7 +2267,7 @@ def _serve_timed(eng, name: str, prompts, cfg, per_call) -> dict:
     try:
         t0 = time.perf_counter()
         with captures() as caps:
-            toks = getattr(eng, name)(prompts, max_new_tokens=SERVE_NEW)
+            toks = getattr(eng, name)(prompts, max_new_tokens=new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -2105,13 +2275,13 @@ def _serve_timed(eng, name: str, prompts, cfg, per_call) -> dict:
     for kind, timed, want in (("prefill", pre, per_call[0]), ("decode", dec, per_call[1])):
         for i, got in enumerate(timed.launches):
             check(got == want, f"{name}: {kind} call {i} launched {got}, expected {want}")
-    check(len(toks) == len(prompts) and all(len(t) == SERVE_NEW for t in toks),
+    check(len(toks) == len(prompts) and all(len(t) == new for t in toks),
           f"{name}: {[len(t) for t in toks]} tokens per request")
     check(all(0 <= t < cfg.vocab_size for r in toks for t in r), f"{name}: token outside vocab")
     slots = eng.sc.batch_slots
     return {"tokens_out": toks, "graph": eng.graph, "captures": len(caps),
-            "capture_s": caps, "wall_s": wall, "tokens": len(prompts) * SERVE_NEW,
-            "tokens_per_s": len(prompts) * SERVE_NEW / wall,
+            "capture_s": caps, "wall_s": wall, "tokens": len(prompts) * new,
+            "tokens_per_s": len(prompts) * new / wall,
             "prefill_calls": len(pre.ms), "prefill_ms": pre.ms,
             "decode_steps": len(dec.ms), "decode_ms_per_step_mean": float(np.mean(dec.ms)),
             "decode_ms_per_step_median": float(np.median(dec.ms)),
@@ -2126,10 +2296,12 @@ def phase_serve(dev, arch: str) -> dict:
     ``generate_continuous``, every prefill and decode step launching exactly
     its layers' kernels; for recurrentgemma-9b also one batch-1 request of
     4,096 tokens.  Decode replays a CUDA graph per batch (the engine's
-    default on the card); the same requests op by op (``graph=False``) must
-    give the same greedy tokens.  (a), the eager runs, the prefill + decode
-    consistency and the profiled decode windows (eager and replayed, their
-    logits compared) run outside the launch counts."""
+    default on the card); the same requests through both schedulers op by
+    op (``graph=False``) must give the same greedy tokens.  (a),
+    the eager runs, the prefill + decode consistency, the profiled decode
+    windows (eager and replayed, their logits compared) and, with experts,
+    one full-width MoE layer card against CPU run outside the launch
+    counts."""
     import numpy as np
     import torch
 
@@ -2141,8 +2313,9 @@ def phase_serve(dev, arch: str) -> dict:
     opts = SERVE_PATHS[arch]
     out: dict = {"arch": arch}
     with uncounted():
-        out["card_vs_cpu_reduced"] = _card_vs_cpu(dev, arch, opts["kv"])
-    cfg = ARCHS[arch]
+        out["card_vs_cpu_reduced"] = {a: _card_vs_cpu(dev, a, opts["kv"])
+                                      for a in opts["reduced"] or (arch,)}
+    cfg, new = ARCHS[arch], opts["new"]
     per_call = _launches_per_call(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -2157,19 +2330,19 @@ def phase_serve(dev, arch: str) -> dict:
     eng = ServeEngine(cfg, params, ServeConfig(batch_slots=SERVE_SLOTS), device=dev)
 
     schedulers = ("generate", "generate_continuous")
-    runs = {name: _serve_timed(eng, name, prompts, cfg, per_call) for name in schedulers}
+    runs = {name: _serve_timed(eng, name, prompts, cfg, per_call, new) for name in schedulers}
     out["peak_memory_replayed"] = torch.cuda.max_memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     with uncounted():  # the same requests op by op: the replayed tokens' check
         eager = ServeEngine(cfg, params, ServeConfig(batch_slots=SERVE_SLOTS), device=dev,
                             graph=False)
-        eager_runs = {name: _serve_timed(eager, name, prompts, cfg, per_call)
+        eager_runs = {name: _serve_timed(eager, name, prompts, cfg, per_call, new)
                       for name in schedulers}
     out["peak_memory_eager"] = torch.cuda.max_memory_allocated(dev)
     for name in schedulers:
         check(eager_runs[name]["tokens_out"] == runs[name]["tokens_out"],
               f"{name}: replayed greedy tokens differ from eager")
-    out["replayed_tokens_equal_eager"] = True
+    out["replayed_tokens_equal_eager"] = list(schedulers)
     same = [runs["generate_continuous"]["tokens_out"][i] == runs["generate"]["tokens_out"][i]
             for i in range(SERVE_SLOTS)]
     if opts["first_wave"]:
@@ -2191,7 +2364,8 @@ def phase_serve(dev, arch: str) -> dict:
     if opts["consistency_len"] == LONG_PROMPT + 1:
         long_prompt = rng.integers(0, cfg.vocab_size, LONG_PROMPT).tolist()
         one = ServeEngine(cfg, params, ServeConfig(batch_slots=1), device=dev)
-        runs["long_prompt_batch1"] = _serve_timed(one, "generate", [long_prompt], cfg, per_call)
+        runs["long_prompt_batch1"] = _serve_timed(one, "generate", [long_prompt], cfg, per_call,
+                                                  new)
     for run in (*runs.values(), *eager_runs.values()):
         run.pop("tokens_out")
     out["runs"] = runs
@@ -2201,7 +2375,10 @@ def phase_serve(dev, arch: str) -> dict:
         n = opts["consistency_len"]
         prompt = (prompts[0] + [int(rng.integers(0, cfg.vocab_size))] if n is None
                   else rng.integers(0, cfg.vocab_size, n).tolist())
-        out["prefill_decode_consistency"] = _prefill_decode_consistency(params, cfg, prompt, dev)
+        out["prefill_decode_consistency"] = _prefill_decode_consistency(
+            params, cfg, {"tokens": torch.tensor([prompt], dtype=torch.int32, device=dev)}, dev)
+        if cfg.n_experts:
+            out["moe_layer_card_vs_cpu"] = _moe_layer_vs_cpu(params, cfg, dev)
         # launches and busy share of decode steps, eager and replayed, and
         # their logits: a 4-slot wave at plen 1,024, teacher-forced, each
         # mode on its own copy of the caches (the profile's steps 3-10; the
@@ -2269,11 +2446,95 @@ def phase_serve_launcher() -> dict:
     return {"wall_s": time.perf_counter() - t0, "lines": lines}
 
 
+# -- phase frontends ---------------------------------------------------------
+
+# arch -> (batch rows, text steps): llava's 576 patch embeddings come before
+# its 448 text tokens (1,024 positions), musicgen's steps are 4 codebooks each
+FRONT_ENDS = {"llava-next-mistral-7b": (2, 448), "musicgen-large": (2, 512)}
+FRONT_NEW = 16  # greedy decode steps after the prefill
+
+
+def _front_end(dev, arch: str) -> dict:
+    """``arch`` at full width and depth (bf16, random weights from a seed)
+    through ``lm.prefill`` and ``lm.decode_step`` (the engine serves text
+    archs only, as the reference's): a prefill of ``FRONT_ENDS[arch]``
+    (llava: 576 random patch embeddings, the data pipeline's standard
+    normal, then the text), then ``FRONT_NEW`` greedy decode steps (musicgen:
+    tokens [B, 1, 4], logits [B, 4, Vp]) at positions after the prefix; one
+    K3 launch a layer in the prefill and one K4 launch a layer a step,
+    nothing else; finite logits of the front end's shape.  (a) the reduced
+    config card against CPU and the prefill + decode consistency under
+    float32 compute run outside the launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+
+    cfg = ARCHS[arch]
+    b, s = FRONT_ENDS[arch]
+    out: dict = {"arch": arch, "batch": b, "text_steps": s}
+    with uncounted():
+        out["card_vs_cpu_reduced"] = _card_vs_cpu(dev, arch, None)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_params(cfg, 0, device=dev)
+    out["param_bytes"] = sum(int(t.numel() * t.element_size()) for t in _leaves(params))
+    host, nv = _front_end_batch(cfg, b, s + 1, 0)
+    batch = {k: torch.from_numpy(x).to(dev) for k, x in host.items()}
+    toks = batch.pop("tokens")
+    out["positions"] = nv + s
+    v, vp = cfg.vocab_size, lm.padded_vocab(cfg)
+    head = (b, cfg.n_codebooks, vp) if cfg.modality == "audio" else (b, vp)
+    before = dict(LAUNCHES)
+    ms, made = [], []
+    with torch.inference_mode():
+        for i in range(FRONT_NEW + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                logits, cache = lm.prefill(params, {**batch, "tokens": toks[:, :s]}, cfg,
+                                           max_len=nv + s + FRONT_NEW)
+            else:
+                logits, cache = lm.decode_step(params, cache, {"tokens": tok[:, None]},
+                                               nv + s + i - 1, cfg)
+            tok = logits[..., :v].argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(tuple(logits.shape) == head, f"{arch}: logits {tuple(logits.shape)}")
+            check(bool(torch.isfinite(logits[..., :v]).all()), f"{arch}: non-finite logits")
+            check(bool((logits[..., v:] == -1e30).all()), f"{arch}: padded vocabulary unmasked")
+            made.append(tok.cpu().tolist())
+        del cache
+    got = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    want = {k: 0 for k in LAUNCHES}
+    want.update(flash_attention=cfg.n_layers, decode_attention=FRONT_NEW * cfg.n_layers)
+    check(got == want, f"{arch}: launched {got}, expected {want}")
+    out.update(launches=got, prefill_ms=ms[0], decode_ms=ms[1:],
+               decode_ms_median=float(np.median(ms[1:])), tokens=made[1:],
+               peak_memory=torch.cuda.max_memory_allocated(dev))
+    with uncounted():
+        out["prefill_decode_consistency"] = _prefill_decode_consistency(
+            params, cfg, {**batch, "tokens": toks}, dev, nv)
+    del params, batch, toks
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_frontends(dev) -> dict:
+    """The vlm and audio front ends at full width, one model after the
+    other (each freed before the next)."""
+    return {arch.split("-")[0]: _front_end(dev, arch) for arch in FRONT_ENDS}
+
+
 # -- phase train -----------------------------------------------------------
 
 BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES, TRAIN_STEPS = 4, 1024, 2, 3
-TRAIN_PHI4_LAYERS = 16  # of 32: full depth's AdamW state does not fit 80 GB
+# layers trained of each model's depth, at full width: phi4 8 of 32 (full
+# depth's AdamW state does not fit 80 GB), mamba2 24 of 48; both cut to keep
+# the script's clock (its checkpoint and CPU losses are host work)
+TRAIN_LAYERS = {"phi4-mini-3.8b": 8, "mamba2-1.3b": 24}
 TRAIN_LOSS_RTOL = 2e-2  # the card's bf16 step-1 loss against the CPU's float32
 # examples/train_lm.py's 100m preset and its optimizer, 30 steps, then served
 TRAIN_SERVE_PRESET = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4, head_dim=64,
@@ -2518,33 +2779,37 @@ def _profiled_step(dev, cfg, ts, data, params, opt_state) -> dict:
     return prof
 
 
-def _train_part(dev, arch: str, shared: dict) -> dict:
-    """(a) phi4-mini-3.8b at full width, 16 of 32 layers, under the
-    Supervisor with one checkpoint (step 0's), or (b) mamba2-1.3b whole, in
-    a plain loop of the same step: batch 4 × 1,024 tokens in 2
-    microbatches, 3 steps.  The CPU's float32 losses of both run in (a)'s
-    checkpoint wait (``shared`` carries (b)'s to (b))."""
+def _train_cfg(arch: str):
+    """``arch`` at full width, cut to its ``TRAIN_LAYERS`` first layers."""
     import dataclasses
 
+    from repro_torch.configs import ARCHS
+
+    full, n = ARCHS[arch], TRAIN_LAYERS[arch]
+    return dataclasses.replace(full, n_layers=n, layer_pattern=full.layer_pattern[:n])
+
+
+def _train_part(dev, arch: str, shared: dict) -> dict:
+    """(a) phi4-mini-3.8b at full width, 8 of 32 layers, under the
+    Supervisor with one checkpoint (step 0's), or (b) mamba2-1.3b at full
+    width, 24 of 48 layers, in a plain loop of the same step: batch 4 ×
+    1,024 tokens in 2 microbatches, 3 steps.  The CPU's float32 losses of
+    both run in (a)'s checkpoint wait (``shared`` carries (b)'s to (b))."""
     import torch
 
     from repro_torch.configs import ARCHS
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.train import AdamWConfig, TrainStepConfig
 
-    full = ARCHS[arch]
-    cfg = full
+    full, cfg = ARCHS[arch], _train_cfg(arch)
     out: dict = {"arch": arch, "grad_refusal": _refuses_grad(dev)}
-    if arch == "phi4-mini-3.8b":
-        cfg = dataclasses.replace(full, n_layers=TRAIN_PHI4_LAYERS,
-                                  layer_pattern=full.layer_pattern[:TRAIN_PHI4_LAYERS])
-        whole, cut = _train_sizes(full), _train_sizes(cfg)
-        out["depth_cut"] = {
-            "layers": f"{TRAIN_PHI4_LAYERS} of {full.n_layers}",
-            "full_depth": whole, "cut": cut,
-            "why": f"full depth: {whole['state_bytes'] / 1e9:.1f} GB of params, AdamW state and "
-                   f"gradient sums before activations, of 80 GB; "
-                   f"{TRAIN_PHI4_LAYERS} layers: {cut['state_bytes'] / 1e9:.1f} GB"}
+    whole, cut = _train_sizes(full), _train_sizes(cfg)
+    out["depth_cut"] = {
+        "layers": f"{cfg.n_layers} of {full.n_layers}", "full_depth": whole, "cut": cut,
+        "why": f"the script's clock (host: checkpoint, CPU loss); full depth: "
+               f"{whole['state_bytes'] / 1e9:.1f} GB of params, AdamW state and gradient sums "
+               f"before activations, of 80 GB; {cfg.n_layers} layers: "
+               f"{cut['state_bytes'] / 1e9:.1f} GB"}
     sizes = _train_sizes(cfg)
     out.update(n_layers=cfg.n_layers, sizes=sizes, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                microbatches=TRAIN_MICROBATCHES)
@@ -2558,7 +2823,7 @@ def _train_part(dev, arch: str, shared: dict) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     if arch == "phi4-mini-3.8b":
-        mamba2 = ARCHS["mamba2-1.3b"]
+        mamba2 = _train_cfg("mamba2-1.3b")
         jobs = {arch: _cpu_job(cfg, dev=dev, data=data),
                 mamba2.name: _cpu_job(mamba2, dev=dev, data=data_of(mamba2))}
         torch.cuda.empty_cache()
@@ -2732,6 +2997,11 @@ def main() -> int:
           "launches_by_shape": {"x".join(map(str, k)): n for k, n in sorted(shapes.items())},
           "launches_by_batch": by_batch})
     emit({"phase": "serve_launcher", **phase_serve_launcher()})
+    # the mixture of experts served at full width and depth, then the vlm
+    # and audio front ends through lm.prefill / lm.decode_step
+    path(("flash_attention", "decode_attention"),
+         ("serve_qwen3_moe", lambda: phase_serve(dev, MOE_ARCH)))
+    path(("flash_attention", "decode_attention"), ("frontends", lambda: phase_frontends(dev)))
     # training: (a) and (b) take the training route, which launches no
     # hand-written kernel; (c) serves the trained params through K3 and K4
     shared: dict = {}
@@ -2750,9 +3020,17 @@ def main() -> int:
         ("spike_accum", "spike_accum.cu", "spike_accum.py:62", "oracle_2pct"),
         ("flash_attention", "attention.cu", "flash_attention.py:116", "phi4_prefill/bfloat16"),
         ("flash_attention", "attention.cu", "flash_attention.py:116", "rg_prefill/bfloat16"),
+        ("flash_attention", "attention.cu", "flash_attention.py:116", "qwen3_prefill/bfloat16"),
+        ("flash_attention", "attention.cu", "flash_attention.py:116", "llava_prefill/bfloat16"),
+        ("flash_attention", "attention.cu", "flash_attention.py:116",
+         "musicgen_prefill/bfloat16"),
         ("decode_attention", "attention.cu", "decode_attention.py:94", "phi4_decode/bfloat16"),
         ("decode_attention", "attention.cu", "decode_attention.py:94",
          "rg_ring_misaligned/bfloat16"),
+        ("decode_attention", "attention.cu", "decode_attention.py:94", "qwen3_decode/bfloat16"),
+        ("decode_attention", "attention.cu", "decode_attention.py:94", "llava_decode/bfloat16"),
+        ("decode_attention", "attention.cu", "decode_attention.py:94",
+         "musicgen_decode/bfloat16"),
         ("ssd_scan", "scan.cu", "ssd_scan.py:81", "mamba2_prefill"),
         ("rglru_scan", "scan.cu", "rglru_scan.py:53", "rg_prefill"),
         ("rglru_scan", "scan.cu", "rglru_scan.py:53", "rg_continuous"),

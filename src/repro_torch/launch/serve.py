@@ -9,8 +9,10 @@ device (``repro/launch/serve.py:27``).
 On the card decode steps replay a CUDA graph of one step; ``--eager`` runs
 them op by op.
 
-``--arch`` takes every text architecture without experts: the dense ones,
-``mamba2-1.3b`` and ``recurrentgemma-9b``.
+``--arch`` takes every text architecture: the dense ones, the mixtures of
+experts (``qwen3-moe-30b-a3b``, ``mixtral-8x22b``), ``mamba2-1.3b`` and
+``recurrentgemma-9b``; the engine refuses the vlm and audio configs
+(``NotImplementedError``), as the reference's does.
 """
 from __future__ import annotations
 

@@ -13,8 +13,10 @@ a checkpoint every ``--ckpt-every`` steps (and at step 0) to
 ``--ckpt-dir`` (default: ``repro_torch_ckpt`` in the system's temporary
 directory); ``--resume`` restarts from the newest intact one.
 
-``--arch`` takes every text architecture without experts: the dense ones,
-``mamba2-1.3b`` and ``recurrentgemma-9b``.
+``--arch`` takes every architecture of the zoo: the dense ones, the
+mixtures of experts, ``mamba2-1.3b``, ``recurrentgemma-9b``, and the vlm
+and audio configs (``SyntheticLM`` makes their patch embeddings and
+codebook streams).
 """
 from __future__ import annotations
 

@@ -1,10 +1,10 @@
-"""Model zoo of the port: text LMs without experts — dense attention
-(full or windowed), Mamba-2 (ssm) and RG-LRU + local-attention hybrids —
-for serving and training, assembled by :mod:`repro_torch.models.lm`."""
+"""Model zoo of the port: every config of the zoo — dense attention (full
+or windowed), Mamba-2 (ssm), RG-LRU + local-attention hybrids, mixtures of
+experts, and the vlm and audio front ends — for serving and training,
+assembled by :mod:`repro_torch.models.lm`."""
 from repro_torch.models.lm import (
     PDef,
     abstract_params,
-    check_supported,
     decode_step,
     embed_inputs,
     forward,
@@ -21,7 +21,6 @@ from repro_torch.models.lm import (
 __all__ = [
     "PDef",
     "abstract_params",
-    "check_supported",
     "decode_step",
     "embed_inputs",
     "forward",

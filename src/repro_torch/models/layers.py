@@ -1,10 +1,11 @@
 """Model building blocks of the port: norms, RoPE, GQA attention (prefill
-and decode, full or windowed), the SwiGLU MLP, and the recurrent mixers —
+and decode, full or windowed), the SwiGLU MLP, the top-k mixture of experts
+with capacity-based dispatch, and the recurrent mixers —
 Mamba-2 (SSD) and RG-LRU blocks with their causal depthwise convs —
 functions over parameter dicts, parameterized by
 :class:`repro_torch.configs.ArchConfig`.
 
-Port of ``repro/models/layers.py`` for text models without experts.  The
+Port of ``repro/models/layers.py``.  The
 hot spots go through :mod:`repro_torch.kernels.ops`: on the card the
 hand-written kernels (``flash_attention`` and ``decode_attention`` for
 attention, ``ssd_scan`` for the Mamba-2 prefill, ``rglru_scan`` for the
@@ -15,7 +16,8 @@ as in the reference; softmax, normalizers, gates and recurrent state in
 fp32.  Decode updates the caches in place (they are views into the model's
 stacked caches; the reference returns new ones) at a position held on the
 device, so one decode step captured in a CUDA graph serves every position.
-There is no sharding on one card.  MoE waits for its own slice (ROADMAP.md §1).
+There is no sharding on one card.  The experts run as batched torch
+products, as the reference's are XLA einsums (no Pallas kernel).
 
 Training takes another route through the mixers, chosen by the caller
 (``train=True``, passed down by :func:`repro_torch.models.lm.forward` and
@@ -46,6 +48,8 @@ __all__ = [
     "attention_block",
     "attention_decode",
     "swiglu_mlp",
+    "moe_route",
+    "moe_block",
     "causal_conv1d",
     "conv1d_step",
     "mamba2_block",
@@ -272,6 +276,92 @@ def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
     h = xb @ _bf(p["wi"])
     a = F.silu(g.float()).to(COMPUTE_DTYPE) * h
     return a @ _bf(p["wo"])
+
+
+def _topk_iterative(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k as k rounds of argmax and mask, the reference's order among
+    equal values: ``argmax`` takes the first maximum, where ``torch.topk``'s
+    order among ties differs.  Returns (values, int32 indices), each
+    ``[..., k]``.  The reference's mask ``cur - one_hot(i) · 1e9`` is a
+    ``scatter_add`` of -1e9 at ``i`` here: the same floats (``a - 1e9 ==
+    a + (-1e9)``, ``a - 0 == a``) in one kernel a round, with no host
+    read, so a CUDA graph can capture it."""
+    vals, idxs = [], []
+    cur = probs
+    mask = torch.full((*probs.shape[:-1], 1), -1e9, dtype=probs.dtype, device=probs.device)
+    for _ in range(k):
+        i = torch.argmax(cur, dim=-1, keepdim=True)
+        vals.append(torch.gather(cur, -1, i))
+        idxs.append(i)
+        cur = cur.scatter_add(-1, i, mask)
+    return torch.cat(vals, dim=-1), torch.cat(idxs, dim=-1).to(torch.int32)
+
+
+MOE_CHUNK = 4096  # dispatch group length of a long sequence (the reference's)
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, cfg: ArchConfig,
+              capacity_factor: float = 1.25) -> dict:
+    """The router of :func:`moe_block` over one dispatch group a batch row.
+    x: [B, S, D].  Returns ``gate_w`` float32 ``[B, S, k]`` (renormalised,
+    the sum clipped at 1e-9), ``gate_i`` int32 ``[B, S, k]``, ``pos``
+    int64 ``[B, S, k]`` (the (token, slot)'s place in its expert's buffer,
+    counted along the row's flattened ``S·k`` order), ``keep`` bool
+    ``[B, S, k]`` (``pos < cap``) and ``cap``."""
+    b, s, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    gate_w, gate_i = _topk_iterative(probs, k)
+    gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
+    cap = int(s * k * capacity_factor / e) + 1
+    flat = gate_i.reshape(b, s * k).long()
+    seen = (flat[..., None] == torch.arange(e, device=x.device)).cumsum(1)
+    pos = torch.gather(seen, -1, flat[..., None])[..., 0] - 1
+    pos = pos.reshape(b, s, k)
+    return {"gate_w": gate_w, "gate_i": gate_i, "pos": pos, "keep": pos < cap, "cap": cap}
+
+
+def moe_block(x: torch.Tensor, p: dict, cfg: ArchConfig, *,
+              capacity_factor: float = 1.25) -> torch.Tensor:
+    """Top-k MoE with capacity-based dispatch (``repro/models/layers.py:308``).
+    x: [B, S, D] → [B, S, D].
+
+    Each batch row is a dispatch group; a sequence longer than 4,096 tokens
+    and a multiple of it is cut into 4,096-token groups.  Routing in
+    float32 (:func:`moe_route`): a (token, slot) past its expert's capacity
+    is dropped.  The reference's one-hot einsums become indexing, the same
+    function without its ``[B, S, E, C]`` products: the kept rows are
+    scattered into an ``[E, B·C, D]`` buffer (dropped ones into a spare row
+    that is cut off), the experts run as batched products over E (silu in
+    float32 between bf16 products), and each token gathers its slots' rows
+    back, weighted by the bf16 gate weights, summed in float32.  The
+    sharding modes of the reference (EP, TP) compute the same function on
+    one card.  Nothing is read back to the host and every shape follows
+    from the input's, so a decode step with experts can be captured in a
+    CUDA graph; the routing indices carry no gradient, the gate weights do
+    (the reference's ``stop_gradient`` on its masks)."""
+    b, s, d = x.shape
+    chunk = min(s, MOE_CHUNK)
+    if s > chunk and s % chunk == 0:
+        y = moe_block(x.reshape(b * (s // chunk), chunk, d), p, cfg,
+                      capacity_factor=capacity_factor)
+        return y.reshape(b, s, d)
+    e, k = cfg.n_experts, cfg.top_k
+    r = moe_route(x, p["router"], cfg, capacity_factor)
+    cap = r["cap"]
+    rows = torch.arange(b, device=x.device)[:, None, None]
+    dest = torch.where(r["keep"], (r["gate_i"].long() * b + rows) * cap + r["pos"], e * b * cap)
+    dest = dest.reshape(-1)
+    src = _bf(x)[:, :, None].expand(b, s, k, d).reshape(-1, d)
+    xe = torch.zeros((e * b * cap + 1, d), dtype=src.dtype, device=x.device)
+    xe = xe.index_add(0, dest, src)[:-1].view(e, b * cap, d)  # kept rows land once each
+    h = torch.bmm(xe, _bf(p["w_in"]))
+    g = torch.bmm(xe, _bf(p["w_gate"]))
+    a = F.silu(g.float()).to(COMPUTE_DTYPE) * h
+    ye = torch.bmm(a, _bf(p["w_out"])).reshape(e * b * cap, d)
+    picked = ye[dest.clamp(max=e * b * cap - 1)].view(b, s, k, d)
+    w = torch.where(r["keep"], _bf(r["gate_w"]).float(), 0.0)
+    return (picked.float() * w[..., None]).sum(2).to(ye.dtype)
 
 
 # ---------------------------------------------------------------------------

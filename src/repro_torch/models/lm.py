@@ -1,15 +1,18 @@
 """LM assembly of the port: the layer stack as segments of repeated units,
 parameter construction, forward, loss, prefill and decode steps.
 
-Port of ``repro/models/lm.py`` for text models without experts: every
-mixer (``full``, ``swa``, ``local``, ``ssm``, ``rglru``), so dense
-attention models, mamba2-1.3b and recurrentgemma-9b.  The parameter tree is
-the reference's — ``embed/tok``, ``final_norm``, ``seg{i}/ln1_{j}``,
-``seg{i}/m{j}/wq`` ..., each leaf stacked over the segment's repeats — so a
-converted checkpoint maps one to one (:func:`repro_torch.convert.lm_params`).
-A Python loop over layers takes the place of ``lax.scan``; there is no
-sharding on one card.  Experts and other modalities raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+Port of ``repro/models/lm.py`` for every config of the zoo: every mixer
+(``full``, ``swa``, ``local``, ``ssm``, ``rglru``), the dense SwiGLU MLP or
+the mixture of experts (:func:`repro_torch.models.layers.moe_block`), and
+the three front ends: text tokens, ``vlm`` (precomputed patch embeddings
+``vision_embed`` projected by ``embed/vision_proj`` and put before the
+text) and multi-codebook ``audio`` (``tokens [B, S, ncb]``, embeddings
+summed, one head a codebook).  The parameter tree is the reference's —
+``embed/tok``, ``final_norm``, ``seg{i}/ln1_{j}``, ``seg{i}/m{j}/wq`` ...,
+each leaf stacked over the segment's repeats — so a converted checkpoint
+maps one to one (:func:`repro_torch.convert.lm_params`).  A Python loop
+over layers takes the place of ``lax.scan``; there is no sharding on one
+card, so the experts' two sharding modes are one.
 
 Training (:func:`loss_fn`, :func:`forward` with ``train=True``) runs every
 layer under ``torch.utils.checkpoint.checkpoint`` — the counterpart of the
@@ -32,7 +35,6 @@ from repro_torch.models import layers as L
 
 __all__ = [
     "PDef",
-    "check_supported",
     "segments",
     "padded_vocab",
     "param_defs",
@@ -53,17 +55,6 @@ ATTENTION = ("full", "swa", "local")
 
 def padded_vocab(cfg: ArchConfig) -> int:
     return int(math.ceil(cfg.vocab_size / VOCAB_PAD) * VOCAB_PAD)
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not serve yet:
-    other modalities and MoE."""
-    if cfg.modality != "text":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.modality} models wait for their slice (ROADMAP.md §1, M8)")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE (moe_block) waits for its slice (ROADMAP.md §1, M8)")
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +167,14 @@ def _rglru_defs(cfg: ArchConfig, r: int) -> dict[str, PDef]:
 
 def _mlp_defs(cfg: ArchConfig, r: int) -> dict[str, PDef]:
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.n_experts:  # the same shapes in the reference's EP and TP modes
+        e = cfg.n_experts
+        return {
+            "router": PDef((r, d, e)),
+            "w_in": PDef((r, e, d, f)),
+            "w_gate": PDef((r, e, d, f)),
+            "w_out": PDef((r, e, f, d), scale=0.02 / math.sqrt(2 * cfg.n_layers)),
+        }
     return {
         "wi": PDef((r, d, f)),
         "wg": PDef((r, d, f)),
@@ -184,19 +183,27 @@ def _mlp_defs(cfg: ArchConfig, r: int) -> dict[str, PDef]:
 
 
 def _has_mlp(cfg: ArchConfig) -> bool:
-    return cfg.d_ff > 0
+    return cfg.d_ff > 0 or cfg.n_experts > 0
+
+
+def _multi_codebook(cfg: ArchConfig) -> bool:
+    return cfg.modality == "audio" and cfg.n_codebooks > 1
 
 
 def param_defs(cfg: ArchConfig) -> dict[str, Any]:
     """Nested dict of PDef mirroring the param tree."""
-    check_supported(cfg)
-    d = cfg.d_model
+    d, vp = cfg.d_model, padded_vocab(cfg)
     defs: dict[str, Any] = {
-        "embed": {"tok": PDef((padded_vocab(cfg), d), scale=1.0)},
+        "embed": {"tok": PDef((vp, d), scale=1.0)},
         "final_norm": PDef((d,), init="zeros"),
     }
+    if cfg.modality == "vlm":
+        defs["embed"]["vision_proj"] = PDef((d, d), scale=1.0 / math.sqrt(d))
+    if _multi_codebook(cfg):
+        defs["embed"]["codebooks"] = PDef((cfg.n_codebooks - 1, vp, d), scale=1.0)
+        defs["unembed_codebooks"] = PDef((cfg.n_codebooks - 1, d, vp))
     if not cfg.tie_embeddings:
-        defs["unembed"] = PDef((d, padded_vocab(cfg)))
+        defs["unembed"] = PDef((d, vp))
     for i, (unit, r) in enumerate(segments(cfg)):
         seg: dict[str, Any] = {}
         for j, mixer in enumerate(unit):
@@ -285,13 +292,33 @@ def _unbound(tree: dict, r: int) -> list[dict]:
 
 
 def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    """Token embedding → [B, S, D] residual stream."""
-    x = params["embed"]["tok"][batch["tokens"]]
+    """Token embedding (and the front end's) → [B, S, D] residual stream.
+
+    ``audio``: ``tokens [B, S, ncb]``, codebook 0 through ``embed/tok``,
+    codebook c through ``embed/codebooks[c - 1]``, summed in the
+    embeddings' dtype in codebook order.  ``vlm``: with ``vision_embed``
+    ``[B, Nv, D]`` in the batch, its float32 projection by
+    ``embed/vision_proj`` comes before the text, so the text starts at
+    position Nv (a decode step carries text tokens only)."""
+    emb = params["embed"]
+    toks = batch["tokens"]
+    if _multi_codebook(cfg):
+        x = emb["tok"][toks[..., 0]]
+        for cb in range(cfg.n_codebooks - 1):
+            x = x + emb["codebooks"][cb][toks[..., cb + 1]]
+    else:
+        x = emb["tok"][toks]
+    if cfg.modality == "vlm" and "vision_embed" in batch:
+        ve = batch["vision_embed"].float() @ emb["vision_proj"].float()
+        x = torch.cat([ve.to(x.dtype), x], dim=1)
     return x.to(L.COMPUTE_DTYPE)
 
 
-def _mlp_apply(h: torch.Tensor, lp: dict, j: int) -> torch.Tensor:
-    return L.swiglu_mlp(L.rms_norm(h, lp[f"ln2_{j}"]), lp[f"mlp{j}"])
+def _mlp_apply(h: torch.Tensor, lp: dict, j: int, cfg: ArchConfig) -> torch.Tensor:
+    y = L.rms_norm(h, lp[f"ln2_{j}"])
+    if cfg.n_experts:
+        return L.moe_block(y, lp[f"mlp{j}"], cfg)
+    return L.swiglu_mlp(y, lp[f"mlp{j}"])
 
 
 def _mixer_apply(y: torch.Tensor, p: dict, mixer: str, cfg: ArchConfig,
@@ -311,7 +338,7 @@ def _unit_apply(x: torch.Tensor, lp: dict, unit: tuple[str, ...], cfg: ArchConfi
     for j, mixer in enumerate(unit):
         x = x + _mixer_apply(L.rms_norm(x, lp[f"ln1_{j}"]), lp[f"m{j}"], mixer, cfg, train)
         if _has_mlp(cfg):
-            x = x + _mlp_apply(x, lp, j)
+            x = x + _mlp_apply(x, lp, j, cfg)
     return x
 
 
@@ -321,7 +348,6 @@ def forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
 
     ``train`` takes the mixers' training route and recomputes each layer
     in the backward from its input (``checkpoint(..., use_reentrant=False)``)."""
-    check_supported(cfg)
     for i, (unit, r) in enumerate(segments(cfg)):
         for lp in _unbound(params[f"seg{i}"], r):
             if train:
@@ -332,9 +358,14 @@ def forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 def lm_logits(params: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Final-norm hidden → vocab logits [B, S, Vp] (padded vocab -1e30)."""
+    """Final-norm hidden → vocab logits [B, S, Vp], or [B, S, ncb, Vp] for
+    multi-codebook audio (codebook 0 through ``unembed``, codebook c
+    through ``unembed_codebooks[c - 1]``); the padded vocabulary at -1e30."""
     w = params["embed"]["tok"].T if cfg.tie_embeddings else params["unembed"]
     logits = (L._bf(h) @ L._bf(w)).float()
+    if _multi_codebook(cfg):
+        extra = (L._bf(h)[:, None] @ L._bf(params["unembed_codebooks"])).float()  # [B, k, S, Vp]
+        logits = torch.cat([logits[:, None], extra], dim=1).movedim(1, 2)
     if padded_vocab(cfg) != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits
@@ -343,10 +374,11 @@ def lm_logits(params: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """Mean next-token cross-entropy over the batch (labels pre-shifted
     upstream), on the training route: the mean of ``logsumexp(logits) −
-    logits[label]`` over [B, S], logits in float32 with the padded
-    vocabulary at -1e30.  ``batch``: ``tokens`` and ``labels`` [B, S]
-    integer tensors (int32 from the data pipeline)."""
-    check_supported(cfg)
+    logits[label]`` over [B, S] (audio: [B, S, ncb]), logits in float32
+    with the padded vocabulary at -1e30.  ``batch``: ``tokens`` and
+    ``labels`` integer tensors (int32 from the data pipeline), [B, S] or
+    [B, S, ncb]; for vlm also ``vision_embed``, whose positions carry no
+    label (the loss is over the text region)."""
     x = embed_inputs(params, batch, cfg)
     h = forward(params, x, cfg, train=True)
     logits = lm_logits(params, h, cfg)
@@ -406,7 +438,6 @@ def init_cache(
     ``slot_pos`` ``[R, W]`` (-1 = empty); for ssm the ``[R, B, H, N, P]``
     state and the conv histories; for rglru ``h`` ``[R, B, W]`` and the
     conv history."""
-    check_supported(cfg)
     dev = resolve_device(device)
     return [
         {str(j): _empty_cache(cfg, mixer, r, batch, max_len, dev) for j, mixer in enumerate(unit)}
@@ -434,9 +465,9 @@ def decode_step(
     Each layer updates its cache in place (see
     :mod:`repro_torch.models.layers`); nothing here reads a device value
     on the host, so the step can be captured in a CUDA graph and replayed
-    with the position and tokens changed in place.  Returns (logits
-    [B, Vp], caches)."""
-    check_supported(cfg)
+    with the position and tokens changed in place.  Audio: tokens
+    ``[B, 1, ncb]``.  vlm: text tokens, at positions after the vision
+    prefix.  Returns (logits [B, Vp] (audio [B, ncb, Vp]), caches)."""
     x = embed_inputs(params, batch, cfg)  # [B, 1, D]
     pos = L.device_position(pos, x.device)
     for i, (unit, r) in enumerate(segments(cfg)):
@@ -453,7 +484,7 @@ def decode_step(
                     y, _ = L.rglru_decode(y, lp[f"m{j}"], cache_l, cfg)
                 x = x + y
                 if _has_mlp(cfg):
-                    x = x + _mlp_apply(x, lp, j)
+                    x = x + _mlp_apply(x, lp, j, cfg)
     logits = lm_logits(params, L.rms_norm(x, params["final_norm"]), cfg)
     return logits[:, -1], caches
 
@@ -468,8 +499,8 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, *, max_len: int | None =
     holding position ``S - w + i`` (ring-aligned only when S is a multiple
     of w — the reference's rule, kept); otherwise all S rows and headroom.
     ssm and rglru layers hand over their final recurrent state and conv
-    history.  Returns (logits [B, Vp], caches)."""
-    check_supported(cfg)
+    history.  The batch is :func:`embed_inputs`' (a vlm prefix counts in
+    S).  Returns (logits [B, Vp] (audio [B, ncb, Vp]), caches)."""
     x = embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     if max_len is not None and max_len < s:
@@ -499,7 +530,7 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, *, max_len: int | None =
                     _put(c, st)
                 x = x + y
                 if _has_mlp(cfg):
-                    x = x + _mlp_apply(x, lp, j)
+                    x = x + _mlp_apply(x, lp, j, cfg)
         caches.append(seg_c)
     logits = lm_logits(params, L.rms_norm(x[:, -1:], params["final_norm"]), cfg)
     return logits[:, 0], caches

@@ -10,10 +10,11 @@ Port of ``repro/serve/engine.py``, with its two schedulers:
   prefilled (batch-1) and its cache is spliced into the batched cache
   at the freed slot.
 
-Both run under ``torch.inference_mode()``, for every architecture the LM
-serves (attention K/V caches, Mamba-2 and RG-LRU states: ``_tile_cache``
-and ``_splice_cache`` walk the nested cache and treat every ``[R, B, ...]``
-leaf alike, as the reference's do).  Prefill
+Both run under ``torch.inference_mode()``, for every text architecture the
+LM serves (attention K/V caches, Mamba-2 and RG-LRU states, dense MLPs or
+experts: ``_tile_cache`` and ``_splice_cache`` walk the nested cache and
+treat every ``[R, B, ...]`` leaf alike, as the reference's do); vlm and
+audio configs are refused, as the reference's demo engine refuses them.  Prefill
 (:func:`repro_torch.models.lm.prefill`) runs eagerly.  Decode is one
 :func:`~repro_torch.models.lm.decode_step` per step over caches that stay
 where prefill (or the tiling of the first fill) put them: the tokens and
@@ -32,7 +33,9 @@ prefilled request's cache (``_splice_cache`` into a batch-1 cache
 overwrites it whole, where the reference replaces it), a newcomer
 attends to the zero K/V its prefill left in slots ``[plen, pos)`` because
 ``slot_pos`` is shared by the batch and not spliced, left-padding tokens
-(0) enter the SSM and RG-LRU states, and both schedulers run one decode
+(0) enter the SSM and RG-LRU states and, in a mixture of experts, all
+choose the same experts and take their capacity before the prompt does
+(each batch row is a dispatch group), and both schedulers run one decode
 step past the last token they keep.  Greedy decoding matches the
 reference; ``temperature > 0`` samples with a ``torch.Generator`` seeded from
 ``ServeConfig.seed``, whose streams differ from ``jax.random``'s.
@@ -74,7 +77,9 @@ class ServeEngine:
     ):
         """``graph``: replay decode steps from CUDA graphs (``None``: on the
         card yes, on the CPU no; ``True`` on the CPU raises)."""
-        lm.check_supported(cfg)
+        if cfg.modality != "text":
+            raise NotImplementedError(f"{cfg.name}: the engine serves text archs, "
+                                      f"not {cfg.modality} (as the reference's)")
         self.device = resolve_device(device)
         self.graph = graphs.use_graph(graph, self.device)
         self._pool = torch.cuda.graph_pool_handle() if self.graph else None

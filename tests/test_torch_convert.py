@@ -122,13 +122,17 @@ def test_state_carried_across(model):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-7b", "phi4-mini-3.8b", "mamba2-1.3b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "qwen3-moe-30b-a3b", "mixtral-8x22b",
+                                  "llava-next-mistral-7b", "musicgen-large"])
 def test_lm_params_carry_the_reference_tree_bitwise(arch):
     """``lm_params`` of the JAX ``init_params`` tree (leaves handed over as
     float32: bf16 → f32 → bf16 is exact) holds the same values in the same
     dtypes, leaf for leaf — the recurrent mixers' float32 leaves (``A_log``,
-    ``dt_bias``, ``d_skip``, ``norm``, ``lam``) and bf16 ``conv*`` leaves
-    too; a tree with a missing or misshapen leaf raises."""
+    ``dt_bias``, ``d_skip``, ``norm``, ``lam``) and bf16 ``conv*`` leaves,
+    the experts' ``router``, ``w_in``, ``w_gate``, ``w_out``, and the front
+    ends' ``embed/vision_proj``, ``embed/codebooks`` and
+    ``unembed_codebooks`` too; a tree with a missing or misshapen leaf
+    raises."""
     from repro.configs import ARCHS as JAX_ARCHS
     from repro.models import lm as jlm
     from repro_torch.configs import ARCHS

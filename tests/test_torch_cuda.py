@@ -692,7 +692,8 @@ def _to(tree, where):
     return {k: _to(v, where) if isinstance(v, dict) else v.to(where) for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b",
+                                  "qwen3-moe-30b-a3b"])
 def test_serve_engine_on_the_card(dev, arch):
     """A small ServeEngine run through the kernels: the card's greedy
     tokens and logits agree with the CPU's plain path under float32
@@ -728,6 +729,99 @@ def test_serve_engine_on_the_card(dev, arch):
         assert card == cpu
     finally:
         L.COMPUTE_DTYPE = saved
+
+
+def _float32_compute():
+    from repro_torch.models import layers as L
+
+    saved = L.COMPUTE_DTYPE
+    L.COMPUTE_DTYPE = torch.float32
+    return L, saved
+
+
+@pytest.mark.parametrize("s,cf", [(1, 1.25), (4, 1.25), (300, 1.25), (300, 0.5)])
+def test_moe_block_on_the_card_matches_the_cpu(dev, s, cf):
+    """``moe_block`` at qwen3-moe's expert count (128, top-8) and a narrow
+    width, float32 compute: on the card every token picks the CPU's
+    experts, keeps the CPU's (token, slot) pairs at their places, and the
+    outputs agree to 1e-5 of the largest; a decode-sized input (S = 1)
+    keeps every slot."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    cfg = dataclasses.replace(ARCHS["qwen3-moe-30b-a3b"], d_model=256, d_ff=128)
+    gen = torch.Generator().manual_seed(s)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    p = {"router": torch.randn(d, e, generator=gen) * 0.1,
+         "w_in": torch.randn(e, d, f, generator=gen) * 0.05,
+         "w_gate": torch.randn(e, d, f, generator=gen) * 0.05,
+         "w_out": torch.randn(e, f, d, generator=gen) * 0.05}
+    p = {k: v.to(torch.bfloat16) for k, v in p.items()}
+    x = torch.randn(4, s, d, generator=gen)
+    L, saved = _float32_compute()
+    try:
+        out = {where: L.moe_block(x.to(where), {k: v.to(where) for k, v in p.items()}, cfg,
+                                  capacity_factor=cf).cpu()
+               for where in ("cpu", dev)}
+        routes = {where: L.moe_route(x.to(where), p["router"].to(where), cfg, cf)
+                  for where in ("cpu", dev)}
+    finally:
+        L.COMPUTE_DTYPE = saved
+    cpu, card = routes["cpu"], {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                                for k, v in routes[dev].items()}
+    for key in ("gate_i", "pos", "keep"):
+        assert torch.equal(card[key], cpu[key]), key
+    if s == 1:
+        assert bool(cpu["keep"].all())
+    if cf < 1:
+        assert not bool(cpu["keep"].all())
+    want = out["cpu"]
+    torch.testing.assert_close(out[dev], want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "musicgen-large"])
+def test_front_end_prefill_on_the_card_matches_the_cpu(dev, arch):
+    """vlm (patch embeddings before the text) and audio (4 codebooks)
+    reduced, float32 compute: prefill and 4 decode steps on the card
+    (K3, K4) give the CPU's logits within 1e-3."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+
+    cfg = ARCHS[arch].reduced()
+    params = lm.init_params(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    shape = (2, 36, cfg.n_codebooks) if cfg.modality == "audio" else (2, 36)
+    toks = torch.randint(0, cfg.vocab_size, shape, generator=gen, dtype=torch.int32)
+    batch = {"tokens": toks[:, :32]}
+    nv = 0
+    if cfg.modality == "vlm":
+        nv = cfg.vision_tokens
+        batch["vision_embed"] = torch.randn(2, nv, cfg.d_model, generator=gen)
+    L, saved = _float32_compute()
+    try:
+        logits = {}
+        for where in ("cpu", dev):
+            before = dict(LAUNCHES)
+            p = _to(params, where)
+            lg, cache = lm.prefill(p, {k: v.to(where) for k, v in batch.items()}, cfg,
+                                   max_len=nv + 36)
+            steps = [lg]
+            for i in range(4):
+                lg, cache = lm.decode_step(p, cache, {"tokens": toks[:, 32 + i: 33 + i].to(where)},
+                                           nv + 32 + i, cfg)
+                steps.append(lg)
+            logits[where] = torch.stack(steps).cpu()
+            n = cfg.n_layers if where == dev else 0
+            assert LAUNCHES["flash_attention"] - before["flash_attention"] == n
+            assert LAUNCHES["decode_attention"] - before["decode_attention"] == 4 * n
+    finally:
+        L.COMPUTE_DTYPE = saved
+    v = cfg.vocab_size
+    assert logits[dev].shape[-2:] == ((cfg.n_codebooks, lm.padded_vocab(cfg))
+                                      if cfg.modality == "audio" else (2, lm.padded_vocab(cfg)))
+    assert float((logits[dev] - logits["cpu"])[..., :v].abs().max()) <= 1e-3
 
 
 # -- the compiled step: CUDA graphs replayed against eager runs --------------
@@ -805,7 +899,8 @@ def test_replayed_oracle_equals_eager(dev, hook, noise):
     assert g.capture_s > 0 and e.capture_s == 0
 
 
-@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b",
+                                  "qwen3-moe-30b-a3b"])
 def test_replayed_decode_equals_eager(dev, arch):
     """bf16 decode replayed from CUDA graphs: both schedulers' greedy
     tokens equal the eager engine's (with refills spliced into the

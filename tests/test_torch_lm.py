@@ -6,8 +6,10 @@ for ``deepseek-7b`` reduced (MHA), ``phi4-mini-3.8b`` reduced with two kv
 heads (GQA, group 2), ``mamba2-1.3b`` reduced (ssm),
 ``recurrentgemma-9b`` reduced (rglru + local attention, window 64, whose
 ring-buffer decode is checked on an aligned and a misaligned prefill),
-``qwen2.5-14b`` reduced (the one served config with q/k/v biases) and
-``yi-34b`` reduced.
+``qwen2.5-14b`` reduced (the one served config with q/k/v biases),
+``yi-34b`` reduced, and the mixtures of experts (``qwen3-moe-30b-a3b``,
+``mixtral-8x22b``) and the vlm and audio front ends
+(``llava-next-mistral-7b``, ``musicgen-large``) reduced.
 
 Tolerance.  Both packages compute in bfloat16 with float32 softmax and
 norms and round at the same places, but their matmuls sum in other orders,
@@ -269,14 +271,93 @@ def test_configs_are_the_references(arch):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-30b-a3b",
-                                  "llava-next-mistral-7b", "musicgen-large"])
-def test_unsupported_configs_raise(arch):
+NEW_PATHS = ["llava-next-mistral-7b", "mixtral-8x22b", "musicgen-large", "qwen3-moe-30b-a3b"]
+
+
+@pytest.mark.parametrize("arch", sorted(JAX_ARCHS))
+def test_every_config_builds_params_and_caches(arch):
+    """Every config of the zoo, reduced, builds its parameters (keys,
+    shapes and dtypes the reference's) and its decode caches on the CPU:
+    the port refuses none (experts, vlm and audio included)."""
     cfg = ARCHS[arch].reduced()
-    for call in (lambda: lm.param_defs(cfg), lambda: lm.init_params(cfg, device=CPU),
-                 lambda: lm.init_cache(cfg, 1, 8, device=CPU)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    params = lm.init_params(cfg, 0, device=CPU)
+    ref = jlm.abstract_params(JAX_ARCHS[arch].reduced(), POL)
+    got = list(_cache_leaves(params, ref))
+    assert got and all(str(t.dtype).split(".")[-1] == str(j.dtype) for _, (t, j) in got)
+    caches = lm.init_cache(cfg, 2, 8, device=CPU)
+    want = jlm.init_cache(JAX_ARCHS[arch].reduced(), 2, 8, POL)
+    assert len(list(_cache_leaves(caches, want))) == len(jax.tree.leaves(want))
+
+
+def _batch(cfg, toks: np.ndarray, rng=None) -> tuple[dict, dict, int]:
+    """(reference batch, port batch, vision prefix length) for tokens of
+    ``cfg``'s front end; a vlm batch given ``rng`` also carries random
+    patch embeddings ``[B, Nv, D]``."""
+    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+    if cfg.modality == "vlm" and rng is not None:
+        ve = rng.normal(size=(toks.shape[0], cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+        jb["vision_embed"], tb["vision_embed"] = jnp.asarray(ve), torch.from_numpy(ve)
+        return jb, tb, cfg.vision_tokens
+    return jb, tb, 0
+
+
+def _tokens(cfg, shape, seed: int) -> np.ndarray:
+    if cfg.modality == "audio":
+        shape = (*shape, cfg.n_codebooks)
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape).astype(np.int32)
+
+
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", NEW_PATHS)
+def test_moe_and_front_ends_prefill_and_decode_match(arch, compute, monkeypatch):
+    """qwen3-moe and mixtral (experts; mixtral's layers ``swa``, window 64),
+    llava (16 patch embeddings before 48 text tokens; decode continues at
+    position 16 + 48) and musicgen (4 codebooks: tokens ``[B, S, 4]``,
+    logits ``[B, 4, Vp]``) reduced: prefill(S) and 4 teacher-forced decode
+    steps, logits and caches as the reference's — two bf16 steps under
+    bf16 compute, 1e-5 of the largest logit under float32 compute.  The
+    reference runs op by op: under ``jax.jit`` XLA fuses musicgen's bf16
+    sum of four codebook embeddings and rounds it elsewhere than its own
+    eager run, which rounds after each add, as the port does."""
+    if compute == "float32":
+        monkeypatch.setattr(JL, "COMPUTE_DTYPE", jnp.float32)
+        monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
+    jc, pc = _cfgs(arch)
+    jp, tp = _params(jc, pc)
+    b, s, extra = 2, 48, 4
+    toks = _tokens(pc, (b, s + extra), 7)
+    rng = np.random.default_rng(8)
+    jb, tb, nv = _batch(pc, toks[:, :s], rng)
+    max_len = nv + s + extra
+
+    def close(t, j, msg, vocab=True):
+        if vocab:
+            t, j = t[..., : jc.vocab_size], j[..., : jc.vocab_size]
+        if compute == "bfloat16":
+            assert_bf16_close(t, j, msg=msg)
+        else:
+            j = _f32(j)
+            np.testing.assert_allclose(_f32(t), j, rtol=1e-5, atol=1e-5 * np.abs(j).max(),
+                                       err_msg=msg)
+
+    jl, jcache = jlm.prefill(jp, jb, jc, POL, max_len=max_len)
+    tl, tcache = lm.prefill(tp, tb, pc, max_len=max_len)
+    head = (b, pc.n_codebooks, lm.padded_vocab(pc)) if pc.modality == "audio" \
+        else (b, lm.padded_vocab(pc))
+    assert tl.shape == head and (tl[..., jc.vocab_size:] == -1e30).all()
+    close(tl, jl, f"{arch} prefill")
+    for i in range(extra):
+        t = toks[:, s + i : s + i + 1]
+        jl, jcache = jlm.decode_step(jp, jcache, {"tokens": jnp.asarray(t)},
+                                     jnp.int32(nv + s + i), jc, POL)
+        tl, tcache = lm.decode_step(tp, tcache, {"tokens": torch.from_numpy(t)}, nv + s + i, pc)
+        assert tl.shape == head
+        close(tl, jl, f"{arch} decode {i}")
+    for path, (t, j) in _cache_leaves(tcache, jcache):
+        if path.endswith("slot_pos"):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=path)
+        else:
+            close(t, j, path, vocab=False)
 
 
 def test_init_params_structure_and_seed():

@@ -4,6 +4,10 @@ greedy tokens of both schedulers equal the reference's, and the
 reference's own engine tests (``tests/test_serve_placement.py:63-100``)
 hold for the port.
 
+The mixtures of experts (``qwen3-moe-30b-a3b``, ``mixtral-8x22b``) are
+served through the same schedules: their left-padding tokens take expert
+capacity before the prompt does, in both packages.
+
 Token equality is asked with ``COMPUTE_DTYPE`` float32 in both packages'
 ``layers`` modules, so that near-ties in bf16 cannot flip an argmax; the
 bf16 logits are compared by ``tests/test_torch_lm.py``.
@@ -52,7 +56,8 @@ def _models(arch: str, kv: int | None = None):
 
 
 @pytest.mark.parametrize("arch,kv", [("deepseek-7b", None), ("phi4-mini-3.8b", 2),
-                                     ("mamba2-1.3b", None), ("recurrentgemma-9b", None)])
+                                     ("mamba2-1.3b", None), ("recurrentgemma-9b", None),
+                                     ("qwen3-moe-30b-a3b", None), ("mixtral-8x22b", None)])
 def test_greedy_tokens_equal_the_reference(float32_compute, arch, kv):
     """Both schedulers, 5 prompts on 2 slots (three waves; two refills),
     6 new tokens: the same greedy tokens as ``repro.serve.ServeEngine``."""
@@ -147,16 +152,23 @@ def test_cache_tile_and_splice():
 
 
 def test_engine_rejects_what_the_slice_does_not_serve(deepseek):
+    """The engine serves text archs, experts included, and refuses the vlm
+    and audio configs as the reference's demo engine does
+    (``repro/serve/engine.py:50``)."""
     cfg, params = deepseek
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(ARCHS["mixtral-8x22b"].reduced(), params, device=CPU)
-    with pytest.raises(NotImplementedError, match="audio models"):
-        ServeEngine(ARCHS["musicgen-large"].reduced(), params, device=CPU)
+    for arch in ("llava-next-mistral-7b", "musicgen-large"):
+        with pytest.raises(NotImplementedError, match="serves text archs"):
+            ServeEngine(ARCHS[arch].reduced(), params, device=CPU)
+        with pytest.raises(NotImplementedError):
+            JaxServeEngine(JAX_ARCHS[arch].reduced(), {})
+    moe = ARCHS["mixtral-8x22b"].reduced()
+    assert ServeEngine(moe, lm.init_params(moe, 0, device=CPU), device=CPU).cfg is moe
     with pytest.raises(ValueError, match="lie on"):
         ServeEngine(cfg, {"embed": {"tok": torch.zeros(1, device="meta")}}, device=CPU)
 
 
-@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b",
+                                  "qwen3-moe-30b-a3b"])
 def test_launcher_prints_prompt_lines(capsys, arch):
     from repro_torch.launch import serve
 

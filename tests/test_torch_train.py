@@ -57,7 +57,8 @@ from repro_torch.train.optimizer import global_norm, tree_leaves, tree_map
 
 POL = ShardingPolicy()
 CPU = "cpu"
-TRAINED = ["deepseek-7b", "phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b"]
+TRAINED = ["deepseek-7b", "phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b",
+           "qwen3-moe-30b-a3b", "llava-next-mistral-7b", "musicgen-large"]
 SEQ = 32
 
 
