@@ -7,7 +7,8 @@ Drives the port (``src/repro_torch``) on the card, with nothing of JAX or
 of the JAX package ``repro``: the brain simulation (phases 3-4), LM
 serving of three architectures (phase 5) and of the mixture of experts
 (phase ``serve_qwen3_moe``), the vlm and audio front ends (phase
-``frontends``) and LM training (phase ``train``).  Every main path runs as a user's
+``frontends``), LM training (phase ``train``) and the sharding layer, DTensor
+and GPipe (phase ``sharding``).  Every main path runs as a user's
 call runs it on the card: each step after the first replays a CUDA graph
 of one step (``repro_torch.graphs``); the same run op by op
 (``graph=False``, the launchers' ``--eager``) is its check.  Each phase
@@ -43,9 +44,8 @@ nonzero.
    (``rglru_plan``), the hash of its trace and the exact traces of a = b =
    1 (t + 1) and a = 0 (b).  Kernel, plain, library-yardstick (none for
    the scans) and bound times (``ssd_scan``'s 3xTF32 products at the TF32
-   peak); at the main paths' shapes also their device times
-   (``torch.profiler``), and for every spike-accumulation case the
-   kernel's.
+   peak); at the main paths' shapes, and for every spike-accumulation
+   case, also the kernel's device time (``torch.profiler``).
 3. The launcher (``repro_torch.launch.run_brainsim.main``) for each of the
    four exchanges, at its defaults and with channel noise (``--noise 2``,
    which spreads the firing over the run so the rasters depend on the
@@ -212,6 +212,25 @@ nonzero.
    and batch on the CPU under float32 compute (computed in a thread while
    the Supervisor waits for its last checkpoint write: (a)'s and (b)'s in
    (a)'s wait).
+``sharding`` (after ``train``): the sharding layer (``repro_torch.sharding``)
+   on the card.  (a) The DTensor train step: a world-size-1 NCCL group and
+   a ``(1, 1)`` ``("data", "model")`` ``DeviceMesh``, ``make_policy``, the
+   params from ``lm.distribute_params``; phi4-mini-3.8b at full width, 4 of
+   its 32 layers (1.02 B parameters), ``SyntheticLM`` batch 4 x 1,024 in 2
+   microbatches, AdamW, 3 steps, against the unsharded step on the same
+   params and batches: every leaf and moment a DTensor whose local shard is
+   the whole leaf, losses falling, step 1's loss within 2e-2 of the
+   unsharded one (the largest loss and parameter differences and whether
+   each is bit-equal are printed), ms a step both ways (the difference is
+   DTensor's dispatch on the host) and one profiled step each way (CUDA
+   kernels a step); a DTensor sent to K3's wrapper is refused with a
+   ``TypeError`` and nothing launched.  (b) ``gpipe`` through
+   ``LoopbackComm`` on a ``(4,)`` mesh: phi4's first 8 layers at full width,
+   2 a stage, on the inference route, 4 microbatches of 2 x 1,024 tokens:
+   K3 launched once a layer, stage and tick (56, counted), the output within
+   two bf16 steps a row of the 8 layers applied in sequence to the whole
+   batch (uncounted; bit-equality printed), ms of both, and
+   ``bubble_fraction(4, 4) = 3/7``.
 6. The launches of ``rglru_scan`` on recurrentgemma-9b's main path by
    input shape and by batch; a ``kernels`` line (all six kernels; K2 at 1 %
    firing on W f32[32768, 4096] and at the oracle's shape, K3 and K4 at
@@ -220,9 +239,10 @@ nonzero.
    limit, and the last line, ``{"ok": true, "device": {...}}``.
 
 Each main path (phases 3-4, each model of phase 5, ``serve_qwen3_moe``,
-``frontends``, each part of phase ``train``) runs with the launch counts set to 0 just before it and read
-just after, and must have launched each of its kernels (the training
-parts (a) and (b) none); the ``kernels`` line sums them.  A process
+``frontends``, each part of phase ``train``, phase ``sharding``) runs with the
+launch counts set to 0 just before it and read just after, and must have
+launched each of its kernels (the training parts (a) and (b) none;
+``sharding`` K3, from its pipeline); the ``kernels`` line sums them.  A process
 rank of phase ``comm`` counts its own launches the same way, and K1's
 row of the ``kernels`` line gives them per rank.  Runs made
 only to check (probed currents, planted faults, the card-vs-CPU and
@@ -235,6 +255,7 @@ import contextlib
 import hashlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -306,31 +327,24 @@ def timings(kern, plain, lib, main: bool, device: bool = False) -> dict:
     where no single PyTorch call computes the function).  ``ms`` keys: CUDA
     events around back-to-back calls, which include the host's dispatch
     where the host is the slower side.  For a case of the main path
-    (``main``) also ``device_ms`` keys: the device time of the kernels each
-    call launches, from ``torch.profiler``; with ``device`` only the
-    kernel's.  ``device_kernels``: the kernel's time per CUDA kernel.  A
-    kernel launches each of its CUDA kernels once a call, so its
+    (``main``), or with ``device``, also the kernel's ``device_ms``: the
+    device time of the CUDA kernels a call launches, from
+    ``torch.profiler``, and ``device_kernels``, its time per CUDA kernel.
+    A kernel launches each of its CUDA kernels once a call, so its
     ``device_ms`` sums each CUDA kernel's mean over the calls the profiler
-    saw (it now and then misses some); the plain version's and the
-    library's divide their window's device time by the calls made."""
+    saw (it now and then misses some).  The plain versions and the library
+    calls are timed by events only (their profiles were cut for the
+    script's clock)."""
     out = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 5),
            "library_ms": None if lib is None else cuda_ms(lib, 5)}
     if main or device:
-        reps = 10
-        for key, fn in (("device_ms", kern), ("plain_device_ms", plain if main else None),
-                        ("library_device_ms", lib if main else None)):
-            if fn is None:
-                out[key] = None
-                continue
-            for _ in range(3):  # the profiler now and then reads no device time
-                prof = _device_profile(lambda n, fn=fn: [fn() for _ in range(n)], reps)
-                if prof["device_busy_s"] > 0:
-                    break
-            out[key] = prof["device_busy_s"] * 1e3 / reps
-            if key == "device_ms":
-                out[key] = sum(k["device_ms"] / k["calls"] for k in prof["kernels"])
-                out["device_kernels"] = [{**k, "device_ms": k["device_ms"] / k["calls"]}
-                                         for k in prof["kernels"]]
+        for _ in range(3):  # the profiler now and then reads no device time
+            prof = _device_profile(lambda n: [kern() for _ in range(n)], 10)
+            if prof["device_busy_s"] > 0:
+                break
+        out["device_ms"] = sum(k["device_ms"] / k["calls"] for k in prof["kernels"])
+        out["device_kernels"] = [{**k, "device_ms": k["device_ms"] / k["calls"]}
+                                 for k in prof["kernels"]]
     return out
 
 
@@ -2781,12 +2795,7 @@ def _profiled_step(dev, cfg, ts, data, params, opt_state) -> dict:
 
 def _train_cfg(arch: str):
     """``arch`` at full width, cut to its ``TRAIN_LAYERS`` first layers."""
-    import dataclasses
-
-    from repro_torch.configs import ARCHS
-
-    full, n = ARCHS[arch], TRAIN_LAYERS[arch]
-    return dataclasses.replace(full, n_layers=n, layer_pattern=full.layer_pattern[:n])
+    return _depth_cut(arch, TRAIN_LAYERS[arch])
 
 
 def _train_part(dev, arch: str, shared: dict) -> dict:
@@ -2909,6 +2918,212 @@ def _train_then_serve(dev) -> dict:
     return out
 
 
+# -- phase sharding -----------------------------------------------------------
+
+SHARD_ARCH = "phi4-mini-3.8b"
+SHARD_TRAIN_LAYERS = 4  # (a): phi4 at full width, 4 of its 32 layers
+SHARD_PIPE_LAYERS, SHARD_STAGES, SHARD_MICROBATCHES = 8, 4, 4  # (b): 2 layers a stage
+SHARD_PIPE_BATCH = 8  # (b): 4 microbatches of 2 x 1,024 tokens
+
+
+def _depth_cut(arch: str, n: int):
+    """``arch`` at full width, cut to its first ``n`` layers."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    full = ARCHS[arch]
+    return dataclasses.replace(full, n_layers=n, layer_pattern=full.layer_pattern[:n])
+
+
+def _timed_steps(step, params, opt_state, batches):
+    """``step`` over ``batches`` in order, each timed on the host (its loss
+    read back): (losses, ms a step, params, opt_state)."""
+    losses, ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        loss, params, opt_state, _ = step(params, opt_state, batch)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, params, opt_state
+
+
+def _sharded_train(dev, cfg=None, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH) -> dict:
+    """(a) The train step under a ``ShardingPolicy`` on a one-rank
+    ``DeviceMesh`` (1, 1) ``("data", "model")`` (NCCL on the card, gloo on
+    the CPU) against the unsharded step on the same params and batches:
+    by default phi4 at full width, 4 of 32 layers, batch 4 x 1,024 in 2
+    microbatches, AdamW, 3 steps each way; on the card also one profiled
+    step each way."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import LAUNCHES, ops
+    from repro_torch.models import lm
+    from repro_torch.sharding import ShardingPolicy, make_policy
+    from repro_torch.train import AdamWConfig, TrainStepConfig, init_opt_state, make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = cfg or _depth_cut(SHARD_ARCH, SHARD_TRAIN_LAYERS)
+    data = SyntheticLM(cfg, DataConfig(seq_len=seq, global_batch=batch))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data(s).items()}
+               for s in range(TRAIN_STEPS + 1)]  # the last one for the profiled step
+    ts = TrainStepConfig(n_microbatches=TRAIN_MICROBATCHES,
+                         adamw=AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS))
+    out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "params": sum(
+        t.numel() for t in _leaves(lm.abstract_params(cfg))), "batch": batch, "seq": seq,
+        "microbatches": TRAIN_MICROBATCHES, "steps": TRAIN_STEPS}
+    store = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    # a world-size-1 NCCL group on the card, as phase comm's (c) sets one up
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+        runs: dict = {}
+        for name, pol in (("unsharded", ShardingPolicy()), ("sharded", make_policy(mesh))):
+            params = lm.distribute_params(lm.init_params(cfg, 0, device=dev), cfg, pol)
+            opt_state = init_opt_state(params)
+            step = make_train_step(cfg, ts, pol)
+            losses, ms, params, opt_state = _timed_steps(step, params, opt_state,
+                                                         batches[:TRAIN_STEPS])
+            final = [t.to_local() if isinstance(t, DTensor) else t for t in tree_leaves(params)]
+            runs[name] = {"losses": losses, "ms_per_step": ms,
+                          "steady_ms_per_step": sum(ms[1:]) / len(ms[1:])}
+            if name == "sharded":
+                check(all(isinstance(t, DTensor) for t in tree_leaves(params))
+                      and all(isinstance(t, DTensor) for t in tree_leaves(opt_state["m"])),
+                      "sharding: a parameter or moment is not a DTensor")
+                check(all(tuple(t.to_local().shape) == tuple(t.shape)
+                          for t in tree_leaves(params)),
+                      "sharding: a one-rank mesh's local shard is not the whole leaf")
+                want = runs["unsharded"].pop("final")
+                diffs = [float((a.float() - b.float()).abs().max()) for a, b in zip(final, want)]
+                runs["params_max_abs_diff"] = max(diffs)
+                runs["params_bit_equal"] = all(torch.equal(a, b) for a, b in zip(final, want))
+                del want
+            else:
+                runs[name]["final"] = [t.clone() for t in final]
+            del final
+
+            if dev.type == "cuda":
+                def one(n, state=[params, opt_state], step=step):
+                    for _ in range(n):
+                        _, state[0], state[1], _ = step(state[0], state[1], batches[-1])
+
+                prof = _per_step(_device_profile(one, 1, warmup=0, cpu=False), 1)
+                runs[name]["step_profile"] = {k: prof[k] for k in (
+                    "device_ms_per_step", "kernels_per_step", "device_busy_share", "wall_s")}
+                del one
+                torch.cuda.empty_cache()
+            del params, opt_state, step
+        plain, shard = runs["unsharded"]["losses"], runs["sharded"]["losses"]
+        check(all(map(math.isfinite, shard)) and shard[-1] < shard[0],
+              f"sharding: sharded losses {shard}")
+        rel = abs(shard[0] - plain[0]) / abs(plain[0])
+        check(rel <= TRAIN_LOSS_RTOL, f"sharding: step-1 loss {shard[0]} vs unsharded {plain[0]}")
+        runs["loss_max_abs_diff"] = max(abs(a - b) for a, b in zip(shard, plain))
+        runs["losses_bit_equal"] = shard == plain
+        runs["step1_loss_rel_diff"] = {"value": rel, "bound": TRAIN_LOSS_RTOL}
+        runs["dtensor_dispatch_ms_per_step"] = (runs["sharded"]["steady_ms_per_step"]
+                                                - runs["unsharded"]["steady_ms_per_step"])
+        # a DTensor sent to K3's wrapper is refused, nothing launched
+        q = DTensor.from_local(torch.randn((1, 2, 64, 64), device=dev).to(torch.bfloat16),
+                               mesh, [Replicate(), Replicate()])
+        before = dict(LAUNCHES)
+        try:
+            ops.attention(q, q, q)
+        except TypeError as err:
+            check("DTensor" in str(err), f"sharding: K3's refusal: {err}")
+            runs["k3_refuses_dtensor"] = str(err)
+        else:
+            raise AssertionError("sharding: a DTensor reached K3")
+        check(dict(LAUNCHES) == before, "sharding: the refused call launched a kernel")
+        out.update(runs)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return out
+
+
+def _gpipe_on_card(dev) -> dict:
+    """(b) ``gpipe`` through ``LoopbackComm`` on a (4,) mesh: phi4's first 8
+    layers at full width, 2 a stage, on the inference route (K3 in every
+    stage, counted), 4 microbatches of 2 x 1,024 tokens, against the 8
+    layers applied in sequence to the whole batch (uncounted)."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.sharding import bubble_fraction, gpipe
+    from repro_torch.snn import LoopbackComm
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = _depth_cut(SHARD_ARCH, SHARD_PIPE_LAYERS)
+    per_stage = SHARD_PIPE_LAYERS // SHARD_STAGES
+    ((unit, r),) = lm.segments(cfg)
+    params = lm.init_params(cfg, 0, device=dev)
+    stages = tree_map(lambda t: t.reshape(SHARD_STAGES, per_stage, *t.shape[1:]),
+                      params["seg0"])
+    toks = SyntheticLM(cfg, DataConfig(seq_len=TRAIN_SEQ, global_batch=SHARD_PIPE_BATCH))(0)
+    out: dict = {"layers": f"{r} of 32", "stages": SHARD_STAGES, "layers_per_stage": per_stage,
+                 "microbatches": SHARD_MICROBATCHES,
+                 "microbatch": [SHARD_PIPE_BATCH // SHARD_MICROBATCHES, TRAIN_SEQ],
+                 "bubble_fraction": bubble_fraction(SHARD_STAGES, SHARD_MICROBATCHES)}
+    check(out["bubble_fraction"] == 3 / 7, "sharding: bubble_fraction(4, 4) != 3/7")
+
+    def layers(lps, h):
+        for lp in lm._unbound(lps, len(next(iter(_leaves(lps))))):
+            h = lm._unit_apply(h, lp, unit, cfg, False)
+        return h
+
+    run = gpipe(layers, LoopbackComm((SHARD_STAGES,), dev), axis="slow",
+                n_microbatches=SHARD_MICROBATCHES)
+    with torch.inference_mode():
+        x = lm.embed_inputs(params, {"tokens": torch.from_numpy(toks["tokens"]).to(dev)}, cfg)
+        before = LAUNCHES["flash_attention"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = run(stages, x)
+        torch.cuda.synchronize()
+        out["gpipe_ms"] = (time.perf_counter() - t0) * 1e3
+        out["k3_launches"] = LAUNCHES["flash_attention"] - before
+        ticks = SHARD_STAGES + SHARD_MICROBATCHES - 1
+        check(out["k3_launches"] == ticks * SHARD_STAGES * per_stage,
+              f"sharding: {out['k3_launches']} K3 launches, not one a layer, stage and tick")
+        with uncounted():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = layers(params["seg0"], x)
+            torch.cuda.synchronize()
+            out["sequential_ms"] = (time.perf_counter() - t0) * 1e3
+    check(tuple(y.shape) == tuple(x.shape) and bool(torch.isfinite(y).all()),
+          "sharding: gpipe output shape or finiteness")
+    excess = _bf16_row_excess(y, want)
+    check(excess <= 0, f"sharding: gpipe vs sequential, bf16 row excess {excess}")
+    out["vs_sequential"] = {"bf16_row_excess": excess, "bound": 0.0,
+                            "max_abs_diff": float((y.float() - want.float()).abs().max()),
+                            "bit_equal": bool(torch.equal(y, want))}
+    del params, stages, x, y, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharding(dev) -> dict:
+    """(a) the DTensor train step on a one-rank NCCL mesh against the
+    unsharded one, (b) GPipe over the loopback's (4,) mesh with K3."""
+    import torch
+
+    return {"torch": torch.__version__, "train_dtensor": _sharded_train(dev),
+            "gpipe": _gpipe_on_card(dev)}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3008,6 +3223,9 @@ def main() -> int:
     path((), ("train_phi4", lambda: _train_part(dev, "phi4-mini-3.8b", shared)),
          ("train_mamba2", lambda: _train_part(dev, "mamba2-1.3b", shared)))
     path(("flash_attention", "decode_attention"), ("train_serve", lambda: _train_then_serve(dev)))
+    # sharding: (a) the DTensor train step on a one-rank NCCL mesh (training
+    # route, no kernel), (b) GPipe over the loopback's (4,) mesh (K3)
+    path(("flash_attention",), ("sharding", lambda: phase_sharding(dev)))
 
     csrc = "src/repro_torch/kernels/csrc/"
     comm_real = results["comm"]["real_size"]

@@ -3,15 +3,26 @@ lines, plus ``--device``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
         --reduced --steps 50 [--resume] [--microbatches 2] [--device cpu]
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch phi4-mini-3.8b --reduced --steps 3 --device cpu
 
-The reference trains the reduced config with ``--reduced`` or on one
-device (``repro/launch/train.py:50-51``); the port runs on one device, so
-it always trains the reduced config.  Batches come from ``SyntheticLM``
-(numpy, seeded), are put on the device, and go through
-``make_train_step`` under the fault-tolerant ``Supervisor``, which writes
-a checkpoint every ``--ckpt-every`` steps (and at step 0) to
+Run as it is, the launcher trains on one device, and then always the
+reduced config, as the reference does on one device
+(``repro/launch/train.py:50-51``).  Started by ``torch.distributed.run``
+with ``WORLD_SIZE`` n > 1 (n even), it builds the reference's mesh,
+``init_device_mesh`` of ``(n // 2, 2)`` ``("data", "model")``, and
+``make_policy(mesh)``: gloo on the CPU with ``--device cpu``, NCCL on
+``cuda:LOCAL_RANK`` otherwise.  Every rank makes the same parameters and
+batches from the seed; the parameters are laid out by
+``lm.distribute_params`` (FSDP over ``data``, TP/EP over ``model``) and the
+step is ``make_train_step(cfg, ts, pol)``.  There, as in the reference, the
+full config trains unless ``--reduced`` is given.  Only rank 0 prints.
+Batches come from ``SyntheticLM`` (numpy, seeded), are put on the device,
+and go through the step under the fault-tolerant ``Supervisor``, which
+writes a checkpoint every ``--ckpt-every`` steps (and at step 0) to
 ``--ckpt-dir`` (default: ``repro_torch_ckpt`` in the system's temporary
-directory); ``--resume`` restarts from the newest intact one.
+directory; over several ranks rank 0 writes it); ``--resume`` restarts
+from the newest intact one.
 
 ``--arch`` takes every architecture of the zoo: the dense ones, the
 mixtures of experts, ``mamba2-1.3b``, ``recurrentgemma-9b``, and the vlm
@@ -25,11 +36,15 @@ import os
 import tempfile
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch.configs import ARCHS
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
+from repro_torch.multiproc import rank_device
+from repro_torch.sharding import ShardingPolicy, make_policy
 from repro_torch.train import (
     AdamWConfig,
     StepResult,
@@ -58,11 +73,36 @@ def main(argv: list[str] | None = None) -> list[StepResult]:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
-    cfg = ARCHS[args.arch].reduced()
-    print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M devices=1")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return _train(args, resolve_device(args.device), ShardingPolicy())
+    if world % 2:
+        raise ValueError(f"WORLD_SIZE {world} is odd: the mesh is (n // 2, 2) (data, model)")
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    device = rank_device(backend, args.device, int(os.environ.get("LOCAL_RANK", "0")))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    made_group = not dist.is_initialized()
+    if made_group:
+        dist.init_process_group(backend)
+    try:
+        mesh = init_device_mesh(device.type, (world // 2, 2), mesh_dim_names=("data", "model"))
+        return _train(args, device, make_policy(mesh))
+    finally:
+        if made_group:
+            dist.destroy_process_group()
 
-    params = lm.init_params(cfg, args.seed, device=device)
+
+def _train(args, device: torch.device, pol: ShardingPolicy) -> list[StepResult]:
+    lead = pol.mesh is None or dist.get_rank() == 0
+    n_dev = 1 if pol.mesh is None else pol.mesh.size()
+    cfg = ARCHS[args.arch]
+    if args.reduced or n_dev == 1:
+        cfg = cfg.reduced()
+    if lead:
+        print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M devices={n_dev}")
+
+    params = lm.distribute_params(lm.init_params(cfg, args.seed, device=device), cfg, pol)
     opt = init_opt_state(params)
     data = SyntheticLM(cfg, DataConfig(seq_len=args.seq, global_batch=args.batch, seed=args.seed))
     step = make_train_step(
@@ -72,6 +112,7 @@ def main(argv: list[str] | None = None) -> list[StepResult]:
             adamw=AdamWConfig(warmup_steps=10, total_steps=args.steps),
             compression=args.compression,
         ),
+        pol,
     )
     sup = Supervisor(
         step,
@@ -83,16 +124,19 @@ def main(argv: list[str] | None = None) -> list[StepResult]:
     if args.resume:
         try:
             sup.params, sup.opt_state, sup.step = sup.resume_with(params, opt)
-            print(f"resumed from step {sup.step}")
+            if lead:
+                print(f"resumed from step {sup.step}")
         except RuntimeError:
-            print("no checkpoint found; starting fresh")
+            if lead:
+                print("no checkpoint found; starting fresh")
     hist = sup.run(args.steps)
     losses = [h.loss for h in hist]
-    print(
-        f"steps {hist[0].step}..{hist[-1].step}: loss {losses[0]:.4f} → {losses[-1]:.4f}"
-        f"  (restarts={sum(h.restarted for h in hist)},"
-        f" stragglers={sum(h.straggler for h in hist)})"
-    )
+    if lead:
+        print(
+            f"steps {hist[0].step}..{hist[-1].step}: loss {losses[0]:.4f} → {losses[-1]:.4f}"
+            f"  (restarts={sum(h.restarted for h in hist)},"
+            f" stragglers={sum(h.straggler for h in hist)})"
+        )
     return hist
 
 

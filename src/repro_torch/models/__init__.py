@@ -5,7 +5,10 @@ assembled by :mod:`repro_torch.models.lm`."""
 from repro_torch.models.lm import (
     PDef,
     abstract_params,
+    cache_specs,
     decode_step,
+    distribute_batch,
+    distribute_params,
     embed_inputs,
     forward,
     init_cache,
@@ -14,6 +17,7 @@ from repro_torch.models.lm import (
     loss_fn,
     padded_vocab,
     param_defs,
+    param_specs,
     prefill,
     segments,
 )
@@ -21,7 +25,10 @@ from repro_torch.models.lm import (
 __all__ = [
     "PDef",
     "abstract_params",
+    "cache_specs",
     "decode_step",
+    "distribute_batch",
+    "distribute_params",
     "embed_inputs",
     "forward",
     "init_cache",
@@ -30,6 +37,7 @@ __all__ = [
     "loss_fn",
     "padded_vocab",
     "param_defs",
+    "param_specs",
     "prefill",
     "segments",
 ]

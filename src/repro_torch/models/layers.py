@@ -16,8 +16,20 @@ as in the reference; softmax, normalizers, gates and recurrent state in
 fp32.  Decode updates the caches in place (they are views into the model's
 stacked caches; the reference returns new ones) at a position held on the
 device, so one decode step captured in a CUDA graph serves every position.
-There is no sharding on one card.  The experts run as batched torch
-products, as the reference's are XLA einsums (no Pallas kernel).
+The experts run as batched torch products, as the reference's are XLA
+einsums (no Pallas kernel).
+
+Under a sharding policy with a mesh (``pol``, :mod:`repro_torch.sharding`)
+the blocks of the training route take DTensors and ``pol.shard`` them
+where the reference's blocks constrain their activations: attention's
+context-parallel layout (either ``attn_mode``), SwiGLU's hidden over
+``tp``, the MoE's EP and TP modes, the recurrent mixers' channels over
+``tp``.  The constants a block makes meet DTensors as replicated ones
+(``pol.constants()``).  DTensor has a sharding rule for every op the route
+runs (``scatter_add``, ``cumsum``, ``index_add``, the index gathers, the
+scans' ops); where a rule needs the whole of a dim it all-gathers it
+itself.  The MoE's dispatch and combine, which index across the batch,
+are replicated explicitly before them.
 
 Training takes another route through the mixers, chosen by the caller
 (``train=True``, passed down by :func:`repro_torch.models.lm.forward` and
@@ -39,6 +51,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.sharding.policies import ShardingPolicy
+
+_NO_MESH = ShardingPolicy()
 
 __all__ = [
     "rms_norm",
@@ -103,13 +118,22 @@ def _window(cfg: ArchConfig, mixer: str) -> int | None:
     return None
 
 
-def _qkv(xb: torch.Tensor, p: dict, cfg: ArchConfig):
-    """q/k/v projections of ``xb`` [..., D] → [..., H, hd] (bias, qk-norm)."""
+def _qkv(xb: torch.Tensor, p: dict, cfg: ArchConfig, pol: ShardingPolicy = _NO_MESH):
+    """q/k/v projections of ``xb`` [..., D] → [..., H, hd] (bias, qk-norm).
+    Under a mesh in ``a2a`` mode each projection keeps its natural feature
+    sharding over ``tp``, then moves to sequence sharding by an activation
+    all-to-all (the reference's ``_proj``)."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     lead = xb.shape[:-1]
-    q = (xb @ _bf(p["wq"])).view(*lead, hq, hd)
-    k = (xb @ _bf(p["wk"])).view(*lead, hkv, hd)
-    v = (xb @ _bf(p["wv"])).view(*lead, hkv, hd)
+
+    def proj(w, heads):
+        y = xb @ _bf(w)
+        if pol.attn_mode == "a2a":
+            y = pol.shard(y, "batch", None, "tp")
+            y = pol.shard(y, "batch", "tp", None)
+        return y.view(*lead, heads, hd)
+
+    q, k, v = proj(p["wq"], hq), proj(p["wk"], hkv), proj(p["wv"], hkv)
     if cfg.qkv_bias:
         q = q + _bf(p["bq"]).view(hq, hd)
         k = k + _bf(p["bk"]).view(hkv, hd)
@@ -182,6 +206,7 @@ def attention_block(
     positions: torch.Tensor | None = None,
     return_kv: bool = False,
     train: bool = False,
+    pol: ShardingPolicy = _NO_MESH,
 ):
     """GQA attention over a full sequence (prefill, or training with
     ``train``).  x: [B, S, D].
@@ -190,21 +215,32 @@ def attention_block(
     ``[B, H, S, hd]`` views of the projections (nothing is copied for the
     kernel); its output comes back with the same strides.  Training:
     :func:`blocked_attention` on the ``[B, S, H, hd]`` projections.
+
+    Under a mesh (``pol``), the reference's context-parallel layout: q
+    sequence-sharded over ``tp``, K/V replicated over it (the all-gather a
+    layer costs), the output back to feature sharding (``a2a``) for the
+    out-projection against its resident ``tp`` shard of ``wo``.
     """
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q, k, v = _qkv(_bf(x), p, cfg)
+    q, k, v = _qkv(_bf(x), p, cfg, pol)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    q = pol.shard(q, "batch", "tp", None, None)
+    k = pol.shard(k, "batch", None, None, None)
+    v = pol.shard(v, "batch", None, None, None)
     if train:
         of = blocked_attention(q, k, v, causal=True, window=_window(cfg, mixer))
     else:
         o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                           causal=True, window=_window(cfg, mixer))
         of = o.transpose(1, 2)
+    of = pol.shard(of, "batch", "tp", None, None)
     of = of.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    out = _bf(of) @ _bf(p["wo"])
+    if pol.attn_mode == "a2a":
+        of = pol.shard(of, "batch", None, "tp")
+    out = pol.shard(_bf(of) @ _bf(p["wo"]), "batch", None, None)
     if return_kv:
         return out, (k, v)
     return out
@@ -269,13 +305,13 @@ def attention_decode(
     return out, cache
 
 
-def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """SwiGLU: (silu(x·Wg) ⊙ x·Wi)·Wo."""
+def swiglu_mlp(x: torch.Tensor, p: dict, *, pol: ShardingPolicy = _NO_MESH) -> torch.Tensor:
+    """SwiGLU: (silu(x·Wg) ⊙ x·Wi)·Wo, hidden sharded over tp."""
     xb = _bf(x)
-    g = xb @ _bf(p["wg"])
-    h = xb @ _bf(p["wi"])
+    g = pol.shard(xb @ _bf(p["wg"]), "batch", None, "tp")
+    h = pol.shard(xb @ _bf(p["wi"]), "batch", None, "tp")
     a = F.silu(g.float()).to(COMPUTE_DTYPE) * h
-    return a @ _bf(p["wo"])
+    return pol.shard(a @ _bf(p["wo"]), "batch", None, None)
 
 
 def _topk_iterative(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -301,17 +337,21 @@ MOE_CHUNK = 4096  # dispatch group length of a long sequence (the reference's)
 
 
 def moe_route(x: torch.Tensor, router: torch.Tensor, cfg: ArchConfig,
-              capacity_factor: float = 1.25) -> dict:
+              capacity_factor: float = 1.25, *, pol: ShardingPolicy = _NO_MESH) -> dict:
     """The router of :func:`moe_block` over one dispatch group a batch row.
     x: [B, S, D].  Returns ``gate_w`` float32 ``[B, S, k]`` (renormalised,
     the sum clipped at 1e-9), ``gate_i`` int32 ``[B, S, k]``, ``pos``
     int64 ``[B, S, k]`` (the (token, slot)'s place in its expert's buffer,
     counted along the row's flattened ``S·k`` order), ``keep`` bool
-    ``[B, S, k]`` (``pos < cap``) and ``cap``."""
+    ``[B, S, k]`` (``pos < cap``) and ``cap``.  Under a mesh the router
+    logits and the top-k are pinned to batch sharding, as the reference's
+    are (``repro/models/layers.py:341-349``)."""
     b, s, _ = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    probs = torch.softmax(x.float() @ router.float(), dim=-1)
-    gate_w, gate_i = _topk_iterative(probs, k)
+    logits = pol.shard(x.float() @ router.float(), "batch", None, None)
+    gate_w, gate_i = _topk_iterative(torch.softmax(logits, dim=-1), k)
+    gate_w = pol.shard(gate_w, "batch", None, None)
+    gate_i = pol.shard(gate_i, "batch", None, None)
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
     cap = int(s * k * capacity_factor / e) + 1
     flat = gate_i.reshape(b, s * k).long()
@@ -322,7 +362,7 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, cfg: ArchConfig,
 
 
 def moe_block(x: torch.Tensor, p: dict, cfg: ArchConfig, *,
-              capacity_factor: float = 1.25) -> torch.Tensor:
+              capacity_factor: float = 1.25, pol: ShardingPolicy = _NO_MESH) -> torch.Tensor:
     """Top-k MoE with capacity-based dispatch (``repro/models/layers.py:308``).
     x: [B, S, D] → [B, S, D].
 
@@ -339,29 +379,48 @@ def moe_block(x: torch.Tensor, p: dict, cfg: ArchConfig, *,
     one card.  Nothing is read back to the host and every shape follows
     from the input's, so a decode step with experts can be captured in a
     CUDA graph; the routing indices carry no gradient, the gate weights do
-    (the reference's ``stop_gradient`` on its masks)."""
+    (the reference's ``stop_gradient`` on its masks).
+
+    Under a mesh (``pol``), the reference's two modes: EP when ``tp``
+    divides E (the experts and their buffers over the ep axes, the batch
+    over the rest), else TP (each expert's hidden dim over ``tp``).  The
+    dispatch (``index_add`` of every row into the buffer) and the combine
+    (each token's gather from it) index across the batch, so their inputs
+    are replicated over the mesh just before them (``pol.shard`` to no
+    role); the experts' products run sharded."""
     b, s, d = x.shape
     chunk = min(s, MOE_CHUNK)
     if s > chunk and s % chunk == 0:
         y = moe_block(x.reshape(b * (s // chunk), chunk, d), p, cfg,
-                      capacity_factor=capacity_factor)
+                      capacity_factor=capacity_factor, pol=pol)
         return y.reshape(b, s, d)
     e, k = cfg.n_experts, cfg.top_k
-    r = moe_route(x, p["router"], cfg, capacity_factor)
+    ep = pol.tp_size > 1 and e % pol.tp_size == 0
+    r = moe_route(x, p["router"], cfg, capacity_factor, pol=pol)
     cap = r["cap"]
     rows = torch.arange(b, device=x.device)[:, None, None]
     dest = torch.where(r["keep"], (r["gate_i"].long() * b + rows) * cap + r["pos"], e * b * cap)
-    dest = dest.reshape(-1)
-    src = _bf(x)[:, :, None].expand(b, s, k, d).reshape(-1, d)
+    dest = pol.shard(dest.reshape(-1), None)  # replicated: indexes every batch row
+    src = pol.shard(_bf(x)[:, :, None].expand(b, s, k, d).reshape(-1, d), None, None)
     xe = torch.zeros((e * b * cap + 1, d), dtype=src.dtype, device=x.device)
-    xe = xe.index_add(0, dest, src)[:-1].view(e, b * cap, d)  # kept rows land once each
+    xe = xe.index_add(0, dest, src)[:-1].view(e, b, cap, d)  # kept rows land once each
+    if ep:
+        xe = pol.shard(xe, "ep", "batch_minus_ep", None, None)
+    xe = xe.view(e, b * cap, d)
     h = torch.bmm(xe, _bf(p["w_in"]))
     g = torch.bmm(xe, _bf(p["w_gate"]))
+    if not ep:
+        h = pol.shard(h.view(e, b, cap, -1), None, "batch", None, "tp").view(h.shape)
+        g = pol.shard(g.view(e, b, cap, -1), None, "batch", None, "tp").view(g.shape)
     a = F.silu(g.float()).to(COMPUTE_DTYPE) * h
-    ye = torch.bmm(a, _bf(p["w_out"])).reshape(e * b * cap, d)
+    ye = torch.bmm(a, _bf(p["w_out"])).view(e, b, cap, d)
+    if ep:
+        ye = pol.shard(ye, "ep", "batch_minus_ep", None, None)
+    ye = pol.shard(ye, None, None, None, None).reshape(e * b * cap, d)  # the combine's gather
     picked = ye[dest.clamp(max=e * b * cap - 1)].view(b, s, k, d)
     w = torch.where(r["keep"], _bf(r["gate_w"]).float(), 0.0)
-    return (picked.float() * w[..., None]).sum(2).to(ye.dtype)
+    out = (picked.float() * w[..., None]).sum(2).to(ye.dtype)
+    return pol.shard(out, "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +517,7 @@ def ssd_chunked(
 
 def mamba2_block(
     x: torch.Tensor, p: dict, cfg: ArchConfig, *, ssd_chunk: int = 128, return_state: bool = False,
-    train: bool = False,
+    train: bool = False, pol: ShardingPolicy = _NO_MESH,
 ):
     """Mamba-2 mixer (prefill, or training with ``train``).  x: [B, S, D].
     The SSD scan is :func:`repro_torch.kernels.ops.ssd` (training:
@@ -473,8 +532,8 @@ def mamba2_block(
     di, nh, hp = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     g, n = cfg.ssm_groups, cfg.ssm_state
     xb = _bf(x)
-    z = xb @ _bf(p["wz"])  # [B, S, di]
-    x_raw = xb @ _bf(p["wx"])
+    z = pol.shard(xb @ _bf(p["wz"]), "batch", None, "tp")  # [B, S, di]
+    x_raw = pol.shard(xb @ _bf(p["wx"]), "batch", None, "tp")
     b_raw = xb @ _bf(p["wb"])  # [B, S, G*N]
     c_raw = xb @ _bf(p["wc"])
     dt = xb @ _bf(p["wdt"])  # [B, S, H]
@@ -493,7 +552,7 @@ def mamba2_block(
     y = y.reshape(b, s, di)
     # gated RMSNorm then output projection
     y = rms_norm(y.to(COMPUTE_DTYPE), p["norm"]) * F.silu(z.float()).to(COMPUTE_DTYPE)
-    out = _bf(y) @ _bf(p["wo"])
+    out = pol.shard(_bf(y) @ _bf(p["wo"]), "batch", None, None)
     if not return_state:
         return out
     k = cfg.conv_kernel
@@ -570,7 +629,7 @@ def rglru_trace(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rglru_block(x: torch.Tensor, p: dict, cfg: ArchConfig, *, return_state: bool = False,
-                train: bool = False):
+                train: bool = False, pol: ShardingPolicy = _NO_MESH):
     """Griffin recurrent block: W_out(GeLU(W_g x) ⊙ RGLRU(conv(W_x x))).
     x: [B, S, D].  The recurrence is :func:`repro_torch.kernels.ops.rglru`
     (training, with ``train``: :func:`rglru_trace`).  With ``return_state``
@@ -580,10 +639,10 @@ def rglru_block(x: torch.Tensor, p: dict, cfg: ArchConfig, *, return_state: bool
         raise ValueError("the training route returns no decode state")
     xb = _bf(x)
     gate_branch = _gelu((xb @ _bf(p["wg"])).float())
-    u_raw = xb @ _bf(p["wx"])
+    u_raw = pol.shard(xb @ _bf(p["wx"]), "batch", None, "tp")
     a, bb = _rglru_gates(causal_conv1d(u_raw, p["conv"]), p)
     h = rglru_trace(a, bb) if train else ops.rglru(a, bb)  # [B, S, W] f32 trace
-    out = _bf(h * gate_branch) @ _bf(p["wo"])
+    out = pol.shard(_bf(h * gate_branch) @ _bf(p["wo"]), "batch", None, None)
     if not return_state:
         return out
     return out, {"h": h[:, -1].float(), "conv": u_raw[:, -(cfg.conv_kernel - 1):]}

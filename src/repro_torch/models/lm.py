@@ -11,8 +11,16 @@ summed, one head a codebook).  The parameter tree is the reference's —
 ``embed/tok``, ``final_norm``, ``seg{i}/ln1_{j}``, ``seg{i}/m{j}/wq`` ...,
 each leaf stacked over the segment's repeats — so a converted checkpoint
 maps one to one (:func:`repro_torch.convert.lm_params`).  A Python loop
-over layers takes the place of ``lax.scan``; there is no sharding on one
-card, so the experts' two sharding modes are one.
+over layers takes the place of ``lax.scan``.
+
+Sharding (:mod:`repro_torch.sharding`): each :class:`PDef` carries the
+reference's roles, :func:`param_specs` / :func:`cache_specs` resolve them
+under a policy, :func:`distribute_params` lays the parameters out as
+DTensors on the policy's ``DeviceMesh``, and ``embed_inputs``, ``forward``,
+``lm_logits`` and ``loss_fn`` take the policy (``pol``, default no mesh)
+and constrain the activations where the reference's ``pol.shard`` does.
+The training route is the sharded one; ``prefill``, ``decode_step`` and the
+serving engine take no mesh yet.
 
 Training (:func:`loss_fn`, :func:`forward` with ``train=True``) runs every
 layer under ``torch.utils.checkpoint.checkpoint`` — the counterpart of the
@@ -27,11 +35,13 @@ import math
 from typing import Any
 
 import torch
+from torch.distributed.tensor import distribute_tensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.sharding.policies import ShardingPolicy, is_dtensor
 
 __all__ = [
     "PDef",
@@ -40,11 +50,15 @@ __all__ = [
     "param_defs",
     "init_params",
     "abstract_params",
+    "param_specs",
+    "distribute_params",
+    "distribute_batch",
     "embed_inputs",
     "forward",
     "lm_logits",
     "loss_fn",
     "init_cache",
+    "cache_specs",
     "decode_step",
     "prefill",
 ]
@@ -97,6 +111,7 @@ def segments(cfg: ArchConfig) -> list[tuple[tuple[str, ...], int]]:
 @dataclasses.dataclass(frozen=True)
 class PDef:
     shape: tuple[int, ...]
+    roles: tuple[str | None, ...]  # one sharding role a dim (ShardingPolicy.resolve)
     init: str = "normal"  # normal | zeros | ssm_a | ssm_dt | lru_lam
     scale: float = 0.02
 
@@ -112,21 +127,21 @@ class PDef:
 def _attn_defs(cfg: ArchConfig, r: int) -> dict[str, PDef]:
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     out = {
-        "wq": PDef((r, d, hq * hd)),
-        "wk": PDef((r, d, hkv * hd)),
-        "wv": PDef((r, d, hkv * hd)),
-        "wo": PDef((r, hq * hd, d), scale=0.02 / math.sqrt(2 * cfg.n_layers)),
+        "wq": PDef((r, d, hq * hd), (None, "fsdp", "tp")),
+        "wk": PDef((r, d, hkv * hd), (None, "fsdp", "tp")),
+        "wv": PDef((r, d, hkv * hd), (None, "fsdp", "tp")),
+        "wo": PDef((r, hq * hd, d), (None, "tp", "fsdp"), scale=0.02 / math.sqrt(2 * cfg.n_layers)),
     }
     if cfg.qkv_bias:
         out |= {
-            "bq": PDef((r, hq * hd), init="zeros"),
-            "bk": PDef((r, hkv * hd), init="zeros"),
-            "bv": PDef((r, hkv * hd), init="zeros"),
+            "bq": PDef((r, hq * hd), (None, "tp"), init="zeros"),
+            "bk": PDef((r, hkv * hd), (None, "tp"), init="zeros"),
+            "bv": PDef((r, hkv * hd), (None, "tp"), init="zeros"),
         }
     if cfg.qk_norm:
         out |= {
-            "q_norm": PDef((r, hd), init="zeros"),
-            "k_norm": PDef((r, hd), init="zeros"),
+            "q_norm": PDef((r, hd), (None, None), init="zeros"),
+            "k_norm": PDef((r, hd), (None, None), init="zeros"),
         }
     return out
 
@@ -135,19 +150,19 @@ def _ssm_defs(cfg: ArchConfig, r: int) -> dict[str, PDef]:
     d, di = cfg.d_model, cfg.d_inner
     g, n, nh, k = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.conv_kernel
     return {
-        "wz": PDef((r, d, di)),
-        "wx": PDef((r, d, di)),
-        "wb": PDef((r, d, g * n)),
-        "wc": PDef((r, d, g * n)),
-        "wdt": PDef((r, d, nh)),
-        "conv_x": PDef((r, k, di), scale=1.0 / math.sqrt(k)),
-        "conv_b": PDef((r, k, g * n), scale=1.0 / math.sqrt(k)),
-        "conv_c": PDef((r, k, g * n), scale=1.0 / math.sqrt(k)),
-        "A_log": PDef((r, nh), init="ssm_a"),
-        "dt_bias": PDef((r, nh), init="ssm_dt"),
-        "d_skip": PDef((r, nh), init="zeros"),
-        "norm": PDef((r, di), init="zeros"),
-        "wo": PDef((r, di, d), scale=0.02 / math.sqrt(2 * cfg.n_layers)),
+        "wz": PDef((r, d, di), (None, "fsdp", "tp")),
+        "wx": PDef((r, d, di), (None, "fsdp", "tp")),
+        "wb": PDef((r, d, g * n), (None, "fsdp", None)),
+        "wc": PDef((r, d, g * n), (None, "fsdp", None)),
+        "wdt": PDef((r, d, nh), (None, "fsdp", "tp")),
+        "conv_x": PDef((r, k, di), (None, None, "tp"), scale=1.0 / math.sqrt(k)),
+        "conv_b": PDef((r, k, g * n), (None, None, None), scale=1.0 / math.sqrt(k)),
+        "conv_c": PDef((r, k, g * n), (None, None, None), scale=1.0 / math.sqrt(k)),
+        "A_log": PDef((r, nh), (None, "tp"), init="ssm_a"),
+        "dt_bias": PDef((r, nh), (None, "tp"), init="ssm_dt"),
+        "d_skip": PDef((r, nh), (None, "tp"), init="zeros"),
+        "norm": PDef((r, di), (None, "tp"), init="zeros"),
+        "wo": PDef((r, di, d), (None, "tp", "fsdp"), scale=0.02 / math.sqrt(2 * cfg.n_layers)),
     }
 
 
@@ -155,30 +170,39 @@ def _rglru_defs(cfg: ArchConfig, r: int) -> dict[str, PDef]:
     d, k = cfg.d_model, cfg.conv_kernel
     w = cfg.lru_width or d
     return {
-        "wg": PDef((r, d, w)),
-        "wx": PDef((r, d, w)),
-        "conv": PDef((r, k, w), scale=1.0 / math.sqrt(k)),
-        "w_gate_i": PDef((r, w, w), scale=1.0 / math.sqrt(w)),
-        "w_gate_r": PDef((r, w, w), scale=1.0 / math.sqrt(w)),
-        "lam": PDef((r, w), init="lru_lam"),
-        "wo": PDef((r, w, d), scale=0.02 / math.sqrt(2 * cfg.n_layers)),
+        "wg": PDef((r, d, w), (None, "fsdp", "tp")),
+        "wx": PDef((r, d, w), (None, "fsdp", "tp")),
+        "conv": PDef((r, k, w), (None, None, "tp"), scale=1.0 / math.sqrt(k)),
+        "w_gate_i": PDef((r, w, w), (None, "fsdp", "tp"), scale=1.0 / math.sqrt(w)),
+        "w_gate_r": PDef((r, w, w), (None, "fsdp", "tp"), scale=1.0 / math.sqrt(w)),
+        "lam": PDef((r, w), (None, "tp"), init="lru_lam"),
+        "wo": PDef((r, w, d), (None, "tp", "fsdp"), scale=0.02 / math.sqrt(2 * cfg.n_layers)),
     }
 
 
 def _mlp_defs(cfg: ArchConfig, r: int) -> dict[str, PDef]:
     d, f = cfg.d_model, cfg.d_ff
-    if cfg.n_experts:  # the same shapes in the reference's EP and TP modes
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    if cfg.n_experts:
         e = cfg.n_experts
+        if cfg.n_experts < 16:
+            # few big experts: TP inside each expert (the reference's mixtral mode)
+            return {
+                "router": PDef((r, d, e), (None, "fsdp", None)),
+                "w_in": PDef((r, e, d, f), (None, None, "fsdp", "tp")),
+                "w_gate": PDef((r, e, d, f), (None, None, "fsdp", "tp")),
+                "w_out": PDef((r, e, f, d), (None, None, "tp", "fsdp"), scale=out_scale),
+            }
         return {
-            "router": PDef((r, d, e)),
-            "w_in": PDef((r, e, d, f)),
-            "w_gate": PDef((r, e, d, f)),
-            "w_out": PDef((r, e, f, d), scale=0.02 / math.sqrt(2 * cfg.n_layers)),
+            "router": PDef((r, d, e), (None, "fsdp", None)),
+            "w_in": PDef((r, e, d, f), (None, "ep", "fsdp", None)),
+            "w_gate": PDef((r, e, d, f), (None, "ep", "fsdp", None)),
+            "w_out": PDef((r, e, f, d), (None, "ep", None, "fsdp"), scale=out_scale),
         }
     return {
-        "wi": PDef((r, d, f)),
-        "wg": PDef((r, d, f)),
-        "wo": PDef((r, f, d), scale=0.02 / math.sqrt(2 * cfg.n_layers)),
+        "wi": PDef((r, d, f), (None, "fsdp", "tp")),
+        "wg": PDef((r, d, f), (None, "fsdp", "tp")),
+        "wo": PDef((r, f, d), (None, "tp", "fsdp"), scale=out_scale),
     }
 
 
@@ -194,20 +218,21 @@ def param_defs(cfg: ArchConfig) -> dict[str, Any]:
     """Nested dict of PDef mirroring the param tree."""
     d, vp = cfg.d_model, padded_vocab(cfg)
     defs: dict[str, Any] = {
-        "embed": {"tok": PDef((vp, d), scale=1.0)},
-        "final_norm": PDef((d,), init="zeros"),
+        "embed": {"tok": PDef((vp, d), ("tp", None), scale=1.0)},
+        "final_norm": PDef((d,), (None,), init="zeros"),
     }
     if cfg.modality == "vlm":
-        defs["embed"]["vision_proj"] = PDef((d, d), scale=1.0 / math.sqrt(d))
+        defs["embed"]["vision_proj"] = PDef((d, d), ("fsdp", "tp"), scale=1.0 / math.sqrt(d))
     if _multi_codebook(cfg):
-        defs["embed"]["codebooks"] = PDef((cfg.n_codebooks - 1, vp, d), scale=1.0)
-        defs["unembed_codebooks"] = PDef((cfg.n_codebooks - 1, d, vp))
+        defs["embed"]["codebooks"] = PDef((cfg.n_codebooks - 1, vp, d), (None, "tp", None),
+                                          scale=1.0)
+        defs["unembed_codebooks"] = PDef((cfg.n_codebooks - 1, d, vp), (None, None, "tp"))
     if not cfg.tie_embeddings:
-        defs["unembed"] = PDef((d, vp))
+        defs["unembed"] = PDef((d, vp), (None, "tp"))
     for i, (unit, r) in enumerate(segments(cfg)):
         seg: dict[str, Any] = {}
         for j, mixer in enumerate(unit):
-            seg[f"ln1_{j}"] = PDef((r, d), init="zeros")
+            seg[f"ln1_{j}"] = PDef((r, d), (None, None), init="zeros")
             if mixer in ATTENTION:
                 seg[f"m{j}"] = _attn_defs(cfg, r)
             elif mixer == "ssm":
@@ -217,7 +242,7 @@ def param_defs(cfg: ArchConfig) -> dict[str, Any]:
             else:
                 raise ValueError(mixer)
             if _has_mlp(cfg):
-                seg[f"ln2_{j}"] = PDef((r, d), init="zeros")
+                seg[f"ln2_{j}"] = PDef((r, d), (None, None), init="zeros")
                 seg[f"mlp{j}"] = _mlp_defs(cfg, r)
         defs[f"seg{i}"] = seg
     return defs
@@ -255,17 +280,51 @@ def init_params(
     return build(param_defs(cfg))
 
 
-def abstract_params(cfg: ArchConfig) -> dict:
+def _tree_of(defs: Any, fn) -> Any:
+    """``fn(PDef)`` at every leaf of a def tree, keys sorted at every level."""
+    if isinstance(defs, PDef):
+        return fn(defs)
+    return {k: _tree_of(defs[k], fn) for k in sorted(defs)}
+
+
+def param_specs(cfg: ArchConfig, pol: ShardingPolicy) -> dict:
+    """PartitionSpec tree matching init_params' structure."""
+    return _tree_of(param_defs(cfg), lambda pd: pol.spec(*pd.roles))
+
+
+def abstract_params(cfg: ArchConfig, pol: ShardingPolicy = ShardingPolicy()) -> dict:
     """The parameter tree as tensors on the ``meta`` device (shape and
     dtype, no storage): the counterpart of the reference's
-    ``ShapeDtypeStruct`` tree without a mesh (one card has no sharding)."""
+    ``ShapeDtypeStruct`` tree.  Under a mesh each leaf is a meta DTensor
+    with its spec's placements (its local shape is the shard's)."""
 
-    def build(node):
-        if isinstance(node, PDef):
-            return torch.empty(node.shape, dtype=node.dtype, device="meta")
-        return {k: build(node[k]) for k in sorted(node)}
+    def build(pd: PDef):
+        t = torch.empty(pd.shape, dtype=pd.dtype, device="meta")
+        if pol.mesh is None:
+            return t
+        return distribute_tensor(t, pol.mesh, pol.placements(pol.spec(*pd.roles)),
+                                 src_data_rank=None)
 
-    return build(param_defs(cfg))
+    return _tree_of(param_defs(cfg), build)
+
+
+def distribute_params(params: dict, cfg: ArchConfig, pol: ShardingPolicy) -> dict:
+    """Each leaf distributed over the policy's mesh by its spec
+    (``distribute_tensor``: every rank passes the same full leaf and keeps
+    its shard, nothing sent; a leaf on another device type is moved to the
+    mesh's); without a mesh, ``params`` itself.  A shard may share storage
+    with its leaf (a replicated one, or a contiguous chunk), so an in-place
+    update of the distributed tree (AdamW's) writes into ``params``: pass a
+    copy to keep them."""
+    if pol.mesh is None:
+        return params
+
+    def put(x, spec):
+        if isinstance(x, dict):
+            return {k: put(v, spec[k]) for k, v in x.items()}
+        return distribute_tensor(x.detach(), pol.mesh, pol.placements(spec), src_data_rank=None)
+
+    return put(params, param_specs(cfg, pol))
 
 
 def _layer(tree: dict, li: int) -> dict:
@@ -291,7 +350,34 @@ def _unbound(tree: dict, r: int) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
-def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def distribute_batch(batch: dict, pol: ShardingPolicy) -> dict:
+    """A batch as the policy lays it out: every leaf split over the batch
+    axes along dim 0, replicated on the others.  Every rank passes the same
+    global batch (``SyntheticLM`` of one seed); a DTensor leaf, or any leaf
+    without a mesh, is kept as it is."""
+    if pol.mesh is None:
+        return batch
+
+    def put(x):
+        if is_dtensor(x):
+            return x
+        spec = pol.spec("batch", *(None,) * (x.ndim - 1))
+        return distribute_tensor(x, pol.mesh, pol.placements(spec), src_data_rank=None)
+
+    return {k: put(v) for k, v in batch.items()}
+
+
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of ``table``: an index on one device, ``F.embedding``
+    on a DTensor (a vocab sharded over ``tp`` gives a partial sum that the
+    caller's ``pol.shard`` reduces)."""
+    if is_dtensor(table):
+        return torch.nn.functional.embedding(ids, table)
+    return table[ids]
+
+
+def embed_inputs(params: dict, batch: dict, cfg: ArchConfig,
+                 pol: ShardingPolicy = ShardingPolicy()) -> torch.Tensor:
     """Token embedding (and the front end's) → [B, S, D] residual stream.
 
     ``audio``: ``tokens [B, S, ncb]``, codebook 0 through ``embed/tok``,
@@ -299,93 +385,124 @@ def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     embeddings' dtype in codebook order.  ``vlm``: with ``vision_embed``
     ``[B, Nv, D]`` in the batch, its float32 projection by
     ``embed/vision_proj`` comes before the text, so the text starts at
-    position Nv (a decode step carries text tokens only)."""
+    position Nv (a decode step carries text tokens only).  Under a mesh
+    the batch is laid out by :func:`distribute_batch` and the result is
+    sharded over the batch axes."""
+    batch = distribute_batch(batch, pol)
     emb = params["embed"]
     toks = batch["tokens"]
-    if _multi_codebook(cfg):
-        x = emb["tok"][toks[..., 0]]
-        for cb in range(cfg.n_codebooks - 1):
-            x = x + emb["codebooks"][cb][toks[..., cb + 1]]
-    else:
-        x = emb["tok"][toks]
-    if cfg.modality == "vlm" and "vision_embed" in batch:
-        ve = batch["vision_embed"].float() @ emb["vision_proj"].float()
-        x = torch.cat([ve.to(x.dtype), x], dim=1)
-    return x.to(L.COMPUTE_DTYPE)
+    with pol.constants():
+        if _multi_codebook(cfg):
+            x = _lookup(emb["tok"], toks[..., 0])
+            for cb in range(cfg.n_codebooks - 1):
+                x = x + _lookup(emb["codebooks"][cb], toks[..., cb + 1])
+        else:
+            x = _lookup(emb["tok"], toks)
+        if cfg.modality == "vlm" and "vision_embed" in batch:
+            ve = batch["vision_embed"].float() @ emb["vision_proj"].float()
+            ve, x = pol.shard(ve, "batch", None, None), pol.shard(x, "batch", None, None)
+            x = torch.cat([ve.to(x.dtype), x], dim=1)
+        return pol.shard(x.to(L.COMPUTE_DTYPE), "batch", None, None)
 
 
-def _mlp_apply(h: torch.Tensor, lp: dict, j: int, cfg: ArchConfig) -> torch.Tensor:
+def _mlp_apply(h: torch.Tensor, lp: dict, j: int, cfg: ArchConfig,
+               pol: ShardingPolicy = ShardingPolicy()) -> torch.Tensor:
     y = L.rms_norm(h, lp[f"ln2_{j}"])
     if cfg.n_experts:
-        return L.moe_block(y, lp[f"mlp{j}"], cfg)
-    return L.swiglu_mlp(y, lp[f"mlp{j}"])
+        return L.moe_block(y, lp[f"mlp{j}"], cfg, pol=pol)
+    return L.swiglu_mlp(y, lp[f"mlp{j}"], pol=pol)
 
 
 def _mixer_apply(y: torch.Tensor, p: dict, mixer: str, cfg: ArchConfig,
-                 train: bool = False) -> torch.Tensor:
+                 train: bool = False, pol: ShardingPolicy = ShardingPolicy()) -> torch.Tensor:
     if mixer in ATTENTION:
-        return L.attention_block(y, p, cfg, mixer, train=train)
+        return L.attention_block(y, p, cfg, mixer, train=train, pol=pol)
     if mixer == "ssm":
-        return L.mamba2_block(y, p, cfg, train=train)
+        return L.mamba2_block(y, p, cfg, train=train, pol=pol)
     if mixer == "rglru":
-        return L.rglru_block(y, p, cfg, train=train)
+        return L.rglru_block(y, p, cfg, train=train, pol=pol)
     raise ValueError(mixer)
 
 
 def _unit_apply(x: torch.Tensor, lp: dict, unit: tuple[str, ...], cfg: ArchConfig,
-                train: bool) -> torch.Tensor:
-    """One layer of a segment: each mixer of the unit, then its MLP."""
-    for j, mixer in enumerate(unit):
-        x = x + _mixer_apply(L.rms_norm(x, lp[f"ln1_{j}"]), lp[f"m{j}"], mixer, cfg, train)
-        if _has_mlp(cfg):
-            x = x + _mlp_apply(x, lp, j, cfg)
-    return x
+                train: bool, pol: ShardingPolicy = ShardingPolicy()) -> torch.Tensor:
+    """One layer of a segment: each mixer of the unit, then its MLP (its
+    input and output sharded over the batch axes, as the reference's scanned
+    body constrains them).  Under a mesh the constants a layer makes count
+    as replicated, in the forward and in the backward's recompute alike."""
+    with pol.constants():
+        x = pol.shard(x, "batch", None, None)
+        for j, mixer in enumerate(unit):
+            y = L.rms_norm(x, lp[f"ln1_{j}"])
+            x = x + _mixer_apply(y, lp[f"m{j}"], mixer, cfg, train, pol)
+            if _has_mlp(cfg):
+                x = x + _mlp_apply(x, lp, j, cfg, pol)
+        return pol.shard(x, "batch", None, None)
 
 
 def forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
-            train: bool = False) -> torch.Tensor:
+            train: bool = False, pol: ShardingPolicy = ShardingPolicy()) -> torch.Tensor:
     """Residual stream through all layers.  x: [B, S, D] → [B, S, D].
 
     ``train`` takes the mixers' training route and recomputes each layer
-    in the backward from its input (``checkpoint(..., use_reentrant=False)``)."""
+    in the backward from its input (``checkpoint(..., use_reentrant=False)``).
+    ``pol``: the layers' sharding constraints (no-ops without a mesh)."""
     for i, (unit, r) in enumerate(segments(cfg)):
         for lp in _unbound(params[f"seg{i}"], r):
             if train:
-                x = checkpoint(_unit_apply, x, lp, unit, cfg, True, use_reentrant=False)
+                x = checkpoint(_unit_apply, x, lp, unit, cfg, True, pol, use_reentrant=False)
             else:
-                x = _unit_apply(x, lp, unit, cfg, False)
+                x = _unit_apply(x, lp, unit, cfg, False, pol)
     return L.rms_norm(x, params["final_norm"])
 
 
-def lm_logits(params: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def lm_logits(params: dict, h: torch.Tensor, cfg: ArchConfig,
+              pol: ShardingPolicy = ShardingPolicy()) -> torch.Tensor:
     """Final-norm hidden → vocab logits [B, S, Vp], or [B, S, ncb, Vp] for
     multi-codebook audio (codebook 0 through ``unembed``, codebook c
-    through ``unembed_codebooks[c - 1]``); the padded vocabulary at -1e30."""
+    through ``unembed_codebooks[c - 1]``); the padded vocabulary at -1e30.
+    Under a mesh, sharded over the batch axes and the vocab over ``tp``."""
     w = params["embed"]["tok"].T if cfg.tie_embeddings else params["unembed"]
-    logits = (L._bf(h) @ L._bf(w)).float()
-    if _multi_codebook(cfg):
-        extra = (L._bf(h)[:, None] @ L._bf(params["unembed_codebooks"])).float()  # [B, k, S, Vp]
-        logits = torch.cat([logits[:, None], extra], dim=1).movedim(1, 2)
-    if padded_vocab(cfg) != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
-    return logits
+    with pol.constants():
+        logits = (L._bf(h) @ L._bf(w)).float()
+        if _multi_codebook(cfg):
+            extra = (L._bf(h)[:, None] @ L._bf(params["unembed_codebooks"])).float()  # [B,k,S,Vp]
+            logits = torch.cat([logits[:, None], extra], dim=1).movedim(1, 2)
+        vp = padded_vocab(cfg)
+        if vp != cfg.vocab_size:
+            if pol.mesh is None:
+                logits[..., cfg.vocab_size:] = -1e30
+            else:  # the reference's select: DTensor has no rule for a slice's fill_
+                valid = torch.arange(vp, device=logits.device) < cfg.vocab_size
+                logits = torch.where(valid, logits, -1e30)
+        if logits.ndim == 3:
+            return pol.shard(logits, "batch", None, "tp")
+        return pol.shard(logits, "batch", None, None, "tp")
 
 
-def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig,
+            pol: ShardingPolicy = ShardingPolicy()) -> torch.Tensor:
     """Mean next-token cross-entropy over the batch (labels pre-shifted
     upstream), on the training route: the mean of ``logsumexp(logits) −
     logits[label]`` over [B, S] (audio: [B, S, ncb]), logits in float32
     with the padded vocabulary at -1e30.  ``batch``: ``tokens`` and
     ``labels`` integer tensors (int32 from the data pipeline), [B, S] or
     [B, S, ncb]; for vlm also ``vision_embed``, whose positions carry no
-    label (the loss is over the text region)."""
-    x = embed_inputs(params, batch, cfg)
-    h = forward(params, x, cfg, train=True)
-    logits = lm_logits(params, h, cfg)
+    label (the loss is over the text region).  Under a mesh the result is
+    a replicated 0-d DTensor."""
+    batch = distribute_batch(batch, pol)
+    x = embed_inputs(params, batch, cfg, pol)
+    h = forward(params, x, cfg, train=True, pol=pol)
+    logits = lm_logits(params, h, cfg, pol)
     labels = batch["labels"]
     if cfg.modality == "vlm":
         # loss over the text region only (vision prefix has no labels)
         logits = logits[:, -labels.shape[1] :]
+    if pol.mesh is not None:
+        # the whole vocab row on each rank first: DTensor's rule for the
+        # label gather on a tp-sharded vocab (a masked partial sum) fails
+        # once its result is indexed ([..., 0] below)
+        logits = pol.shard(logits, "batch", *(None,) * (logits.ndim - 1))
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - ll)
@@ -443,6 +560,33 @@ def init_cache(
         {str(j): _empty_cache(cfg, mixer, r, batch, max_len, dev) for j, mixer in enumerate(unit)}
         for unit, r in segments(cfg)
     ]
+
+
+def cache_specs(cfg: ArchConfig, pol: ShardingPolicy) -> list[dict]:
+    """PartitionSpec tree matching init_cache's structure (the reference's
+    layout: K/V heads over ``tp`` when they divide, else the cache's
+    sequence dim; recurrent states over ``tp`` on their channels).  The
+    port's decode steps do not take a mesh yet: the specs are what a
+    sharded serving path lays out."""
+    out = []
+    for unit, _ in segments(cfg):
+        seg: dict[str, Any] = {}
+        for j, mixer in enumerate(unit):
+            if mixer in ATTENTION:
+                heads_tp = pol.tp_size > 1 and cfg.n_kv_heads % pol.tp_size == 0
+                kv = (pol.spec(None, "batch", None, "tp", None) if heads_tp
+                      else pol.spec(None, "batch", "tp", None, None))
+                seg[str(j)] = {"k": kv, "v": kv, "slot_pos": pol.spec(None, None)}
+            elif mixer == "ssm":
+                seg[str(j)] = {"ssm": pol.spec(None, "batch", "tp", None, None),
+                               "conv": {"x": pol.spec(None, "batch", None, "tp"),
+                                        "b": pol.spec(None, "batch", None, None),
+                                        "c": pol.spec(None, "batch", None, None)}}
+            elif mixer == "rglru":
+                seg[str(j)] = {"h": pol.spec(None, "batch", "tp"),
+                               "conv": pol.spec(None, "batch", None, "tp")}
+        out.append(seg)
+    return out
 
 
 def _put(dst, src) -> None:

@@ -28,6 +28,14 @@ bytes are device-independent); without it each tensor lands where the
 target's leaf lives.  Async: ``save_async`` copies every leaf to the
 host on the caller's thread — a snapshot, since torch state is written
 in place — and serializes on a worker thread.
+
+Sharded state (DTensor leaves, :mod:`repro_torch.sharding`): saving
+gathers each DTensor leaf with ``full_tensor()`` on every rank (a
+collective, so every rank of the mesh saves), only global rank 0 writes,
+in the same format, and the ranks meet at a barrier once the write is
+done (``save`` at its end, the ``Checkpointer`` in ``wait``), so no rank
+reads a checkpoint before it is complete.  Restoring into a DTensor target
+distributes each stored array to the target leaf's mesh and placements.
 """
 from __future__ import annotations
 
@@ -40,8 +48,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.policies import is_dtensor
 
 __all__ = [
     "save",
@@ -89,6 +100,8 @@ def _host(leaf: Any) -> np.ndarray:
     a view of the caller's memory."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if is_dtensor(t):
+            t = t.full_tensor()  # a collective: every rank gathers
         if t.dtype == torch.bfloat16:  # npz cannot serialize bf16
             t = t.float()
         return t.to("cpu", copy=True).numpy()
@@ -106,6 +119,17 @@ def _snapshot(tree: Any) -> Any:
     return _host(tree)
 
 
+def _sharded(tree: Any) -> bool:
+    """Whether any leaf of ``tree`` is a DTensor."""
+    return any(is_dtensor(leaf) for _, leaf in _leaves(tree))
+
+
+def _writer() -> bool:
+    """Whether this process writes: global rank 0, or any process outside
+    a process group."""
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def _flatten(tree: Any) -> dict[str, np.ndarray]:
     """``{npz key: host array}``; a numpy leaf (``save_async``'s snapshot)
     is written as it is, not copied again."""
@@ -121,8 +145,16 @@ def save(
     *,
     meta: dict | None = None,
 ) -> str:
-    """Blocking atomic save.  Returns the final directory."""
+    """Blocking atomic save.  Returns the final directory.  With DTensor
+    leaves every rank calls it: each gathers, rank 0 writes, all meet at a
+    barrier."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _sharded(params) or _sharded(opt_state):
+        params, opt_state = _snapshot(params), _snapshot(opt_state)
+        if _writer():
+            save(ckpt_dir, step, params, opt_state, meta=meta)
+        dist.barrier()
+        return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -190,6 +222,9 @@ def _restored(arr: np.ndarray, leaf: Any, device: torch.device | None) -> Any:
     """One stored array as the target leaf's kind and dtype: a tensor on
     ``device`` (else on the leaf's device) for a tensor leaf or when a
     device is given, else a numpy array."""
+    if is_dtensor(leaf):  # every rank holds the array; each keeps its shard
+        return distribute_tensor(torch.from_numpy(arr).to(leaf.dtype), leaf.device_mesh,
+                                 leaf.placements, src_data_rank=None)
     if isinstance(leaf, torch.Tensor):
         t = torch.from_numpy(arr).to(leaf.dtype)  # bf16 round-trips via f32
         return t.to(leaf.device if device is None else device)
@@ -225,7 +260,9 @@ def restore(
     """Restore into the structure of ``target_*``; returns ``(params,
     [opt_state,] manifest)``.  ``device`` places every restored tensor
     there; without it a tensor leaf is restored onto the target leaf's
-    device and a numpy leaf as a numpy array."""
+    device and a numpy leaf as a numpy array.  A DTensor target leaf is
+    restored as a DTensor of its mesh and placements (``device`` does not
+    apply to it)."""
     dev = None if device is None else resolve_device(device)
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
@@ -257,11 +294,15 @@ class Checkpointer:
         self.ckpt_dir = ckpt_dir
         self.keep_n = keep_n
         self._thread: threading.Thread | None = None
+        self._barrier = False  # a sharded save the ranks have not yet met after
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def save_async(
         self,
@@ -274,8 +315,13 @@ class Checkpointer:
         self.wait()
         # copies, not views: a later in-place write must not reach the
         # bytes being written
+        sharded = _sharded(params) or _sharded(opt_state)
         host_p = _snapshot(params)
         host_o = _snapshot(opt_state)
+        if sharded:
+            self._barrier = True
+            if not _writer():
+                return
 
         def work():
             save(self.ckpt_dir, step, host_p, host_o, meta=meta)

@@ -22,6 +22,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.sharding.policies import ShardingPolicy
 from repro_torch.train.optimizer import tree_map
 
 __all__ = ["apply", "int8_compress", "int8_decompress", "topk_mask"]
@@ -46,13 +47,17 @@ def topk_mask(g: torch.Tensor, frac: float = 0.1) -> torch.Tensor:
     return torch.where(torch.abs(g) >= thresh, g, 0.0)
 
 
-def apply(kind: str, grads: Any, opt_state: dict) -> tuple[Any, dict]:
+def apply(kind: str, grads: Any, opt_state: dict,
+          pol: ShardingPolicy = ShardingPolicy()) -> tuple[Any, dict]:
     """Compress grads with error feedback carried in opt_state["ef"]
     (float32, one residual a gradient; zeros when absent).  Returns (the
-    sent gradients, float32, and a new opt_state dict)."""
+    sent gradients, float32, and a new opt_state dict).  ``pol`` is the
+    reference's argument: on DTensor gradients the residuals take each
+    gradient's placements, and the scale's max and the top-k threshold are
+    global (DTensor reduces them over the mesh)."""
     ef = opt_state.get("ef")
     if ef is None:
-        ef = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device), grads)
+        ef = tree_map(lambda g: torch.zeros_like(g, dtype=torch.float32), grads)
 
     def one(g, e):
         corrected = g.to(torch.float32) + e
@@ -65,7 +70,8 @@ def apply(kind: str, grads: Any, opt_state: dict) -> tuple[Any, dict]:
             raise ValueError(kind)
         return sent, corrected - sent
 
-    pairs = tree_map(one, grads, ef)
+    with pol.constants():
+        pairs = tree_map(one, grads, ef)
     opt_state = dict(opt_state)
     opt_state["ef"] = tree_map(lambda g, pair: pair[1], grads, pairs)
     return tree_map(lambda g, pair: pair[0], grads, pairs), opt_state

@@ -19,11 +19,15 @@ are: nothing is read back to the host.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import operator
 from collections.abc import Callable
 from typing import Any
 
 import torch
+
+from repro_torch.sharding.policies import is_dtensor, replicated_constants
 
 __all__ = ["AdamWConfig", "init_opt_state", "adamw_update", "cosine_lr", "global_norm",
            "tree_map", "tree_leaves"]
@@ -71,10 +75,11 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init_opt_state(params: Any) -> dict:
     """m/v moments + fp32 master weights (for bf16 compute params), and
-    the step count, on the parameters' device."""
+    the step count, on the parameters' device.  A DTensor parameter's
+    moments and master are DTensors of its placements."""
     leaves = tree_leaves(params)
     device = leaves[0].device if leaves else None
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     return {
         "m": tree_map(zeros, params),
         "v": tree_map(zeros, params),
@@ -85,8 +90,11 @@ def init_opt_state(params: Any) -> dict:
 
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum over leaves (in key order) of each leaf's sum of
-    squares, in float32."""
-    return torch.sqrt(sum(torch.sum(x.to(torch.float32) ** 2) for x in tree_leaves(tree)))
+    squares, in float32.  On DTensor leaves each sum is a partial one on
+    every rank and the total is reduced once, for the ``sqrt``: a
+    replicated 0-d DTensor, nothing read on the host."""
+    squares = [torch.sum(x.to(torch.float32) ** 2) for x in tree_leaves(tree)]
+    return torch.sqrt(functools.reduce(operator.add, squares))
 
 
 @torch.no_grad()
@@ -114,9 +122,12 @@ def adamw_update(
         master.sub_(lr * step)
         p.copy_(master)
 
-    tree_map(upd, params, grads, opt_state["m"], opt_state["v"], opt_state["master"])
+    with replicated_constants():  # the schedule's 0-d tensors meet DTensor leaves
+        tree_map(upd, params, grads, opt_state["m"], opt_state["v"], opt_state["master"])
     out_state = {"m": opt_state["m"], "v": opt_state["v"], "master": opt_state["master"],
                  "count": count}
     if "ef" in opt_state:
         out_state["ef"] = opt_state["ef"]
+    if is_dtensor(gnorm):
+        gnorm = gnorm.full_tensor()  # replicated: the value on every rank
     return params, out_state, {"lr": lr, "grad_norm": gnorm}

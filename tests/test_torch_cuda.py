@@ -967,3 +967,16 @@ def test_checkpoint_restores_onto_the_card_bit_for_bit(dev, tmp_path):
         for a, b in ((got["w"][0], want["w"][0]), (got["w"][1], want["w"][1]),
                      (got["ids"][0], want["ids"][0]), (got["v"], want["v"])):
             assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_sharded_train_step_on_a_one_rank_mesh(dev):
+    """``chip_smoke.py`` phase ``sharding``'s (a) at the reduced phi4: the
+    DTensor train step on a one-rank NCCL ``(1, 1)`` mesh against the
+    unsharded step, 3 steps of batch 4 × 64; K3 refuses a DTensor."""
+    import chip_smoke
+    from repro_torch.configs import ARCHS
+
+    out = chip_smoke._sharded_train(dev, ARCHS["phi4-mini-3.8b"].reduced(), seq=64, batch=4)
+    assert out["step1_loss_rel_diff"]["value"] <= out["step1_loss_rel_diff"]["bound"]
+    assert len(out["sharded"]["losses"]) == 3 and out["sharded"]["step_profile"]["kernels_per_step"]
+    assert "DTensor" in out["k3_refuses_dtensor"]
