@@ -35,7 +35,13 @@ nonzero.
    a 4-slot prefill of 1,024 tokens, decode of 4 slots at 1,040 of 1,056),
    llava-next-mistral-7b's (32 q / 8 KV heads: 2 rows of 1,024 positions,
    decode at 1,032 of 1,040) and musicgen-large's (32 / 32 heads of 64: 2
-   rows of 512, decode at 520 of 528).  The scans against their plain
+   rows of 512, decode at 520 of 528).  The sharded serving route's splits
+   on one card: K3 on the second half of phi4's 1,024 prefill rows with
+   ``q_offset = 512``, K4 with ``return_lse`` on each half of phi4's
+   1,040-slot decode cache and of recurrentgemma's misaligned ring, each
+   held to its plain version and to K3's or K4's whole run (the halves
+   combined by ``combine_partials``, their log-sum-exps against the plain
+   version's).  The scans against their plain
    versions on float64 copies at the reference's ``3e-3``: ``ssd_scan`` at
    the reference's sweep, chunks of 127 and 96, and mamba2-1.3b's prefill,
    its final state too; ``rglru_scan`` at the sweep and at the four shapes
@@ -230,19 +236,32 @@ nonzero.
    K3 launched once a layer, stage and tick (56, counted), the output within
    two bf16 steps a row of the 8 layers applied in sequence to the whole
    batch (uncounted; bit-equality printed), ms of both, and
-   ``bubble_fraction(4, 4) = 3/7``.
+   ``bubble_fraction(4, 4) = 3/7``.  (c) Sharded serving: phi4 at full width
+   and depth through ``ServeEngine(..., pol=make_policy(mesh))`` on a fresh
+   one-rank NCCL ``(1, 1)`` mesh (params from ``lm.distribute_params``),
+   phase 5's 8 requests on 4 slots, 32 greedy tokens each, both
+   schedulers: every call launches its layers' K3 / K4 (counted), the
+   greedy tokens equal the unsharded engine's (uncounted), decode ms a
+   step (replayed: capture works at world size 1) and prefill ms a call.
+   (d) ``repro_torch.roofline.count`` of phi4's decode step on that mesh at
+   phase 5's decode profile's batch and cache, priced with ``H100``: the
+   predicted bound, its dominant term and memory term beside phase 5's
+   measured replayed device ms a step.
 6. The launches of ``rglru_scan`` on recurrentgemma-9b's main path by
    input shape and by batch; a ``kernels`` line (all six kernels; K2 at 1 %
    firing on W f32[32768, 4096] and at the oracle's shape, K3 and K4 at
    phi4-mini-3.8b's, recurrentgemma-9b's and qwen3-moe's shapes, K6 at the batch-4
-   wave and the batch-1 prefill of 1,024 tokens), the card's name and power
+   wave and the batch-1 prefill of 1,024 tokens; K3 with ``q_offset`` and K4
+   with ``return_lse`` at phi4's split shapes and recurrentgemma's ring),
+   the card's name and power
    limit, and the last line, ``{"ok": true, "device": {...}}``.
 
 Each main path (phases 3-4, each model of phase 5, ``serve_qwen3_moe``,
 ``frontends``, each part of phase ``train``, phase ``sharding``) runs with the
 launch counts set to 0 just before it and read just after, and must have
 launched each of its kernels (the training parts (a) and (b) none;
-``sharding`` K3, from its pipeline); the ``kernels`` line sums them.  A process
+``sharding`` K3 and K4, from its pipeline and its sharded serving); the
+``kernels`` line sums them.  A process
 rank of phase ``comm`` counts its own launches the same way, and K1's
 row of the ``kernels`` line gives them per rank.  Runs made
 only to check (probed currents, planted faults, the card-vs-CPU and
@@ -731,10 +750,105 @@ def phase_attention(dev, rate: float) -> dict:
                    lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr,
                                                           attn_mask=keep[:, None, None, :]),
                    nbytes, 4.0 * rows * hq * d, dtype, planted)
+        _split_checks(dev, dtype, result, randn, record)
     for table in result.values():
         table["max_abs_err"] = max(c["max_abs_err"] for c in table.values())
     torch.cuda.empty_cache()
     return result
+
+
+SPLIT_PREFILL = ("phi4_prefill_q_offset", 4, 24, 8, 1024, 128)  # q rows [512, 1024)
+# (name, b, hq, hkv, slots, d, valid): phi4's decode cache of 1,040 slots
+# (1,024 + 16) at 1,032 valid, and recurrentgemma's misaligned ring (as
+# DECODE_CASES' rg_ring_misaligned), each split in two halves over the slots
+SPLIT_DECODE = [("phi4_decode_lse_half", 4, 24, 8, 1040, 128, 1032),
+                ("rg_ring_lse_half", 1, 16, 1, 2048, 256, ("ring", 3000))]
+
+
+def _split_checks(dev, dtype: str, result: dict, randn, record) -> None:
+    """The sharded serving route's splits, emulated on one card: K3 on the
+    second half of phi4's prefill rows with ``q_offset`` (a rank's rows of
+    the sequence over ``tp``) and K4 with ``return_lse`` on each half of a
+    cache's slots (a rank's slots), each held to its plain version (timed,
+    bound and library call as phase 2's cases), and to K3's or K4's own
+    whole run: the rows, and the halves combined by ``combine_partials``
+    (with the log-sum-exps against the plain version's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention as k
+    from repro_torch.kernels.ref import attention_ref, combine_partials, decode_attention_ref
+
+    td, tol = getattr(torch, dtype), ATTN_TOL[dtype]
+    name, b, hq, hkv, s, d = SPLIT_PREFILL
+    off = s // 2
+    q = randn(b, s, hq, d, dtype=td).transpose(1, 2)
+    kk, v = (randn(b, s, hkv, d, dtype=td).transpose(1, 2) for _ in "kv")
+    rows = q[:, :, off:]
+    kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (kk, v))
+    qp, kp = torch.arange(off, s, device=dev)[:, None], torch.arange(s, device=dev)[None, :]
+    pairs = sum(i + 1 for i in range(off, s))
+    key = f"{name}/{dtype}"
+    record(result["flash_attention"], key,
+           lambda: k.flash_attention(rows, kk, v, q_offset=off),
+           lambda: attention_ref(rows, kk, v, q_offset=off),
+           lambda: F.scaled_dot_product_attention(rows, kr, vr, attn_mask=kp <= qp),
+           (2 * rows.numel() + 2 * kk.numel()) * q.element_size(), 4.0 * b * hq * pairs * d,
+           dtype)
+    whole = k.flash_attention(q, kk, v)[:, :, off:]
+    got = k.flash_attention(rows, kk, v, q_offset=off)
+    diff = float((got.float() - whole.float()).abs().max())
+    check(torch.allclose(got.float(), whole.float(), **tol), f"{key}: vs K3's whole run {diff}")
+    result["flash_attention"][key]["max_abs_diff_vs_whole_run"] = diff
+    del q, kk, v, rows, kr, vr, whole, got
+
+    for name, b, hq, hkv, w, d, valid in SPLIT_DECODE:
+        q = randn(b, hq, d, dtype=td)
+        kk, v = (randn(b, w, hkv, d, dtype=td).transpose(1, 2) for _ in "kv")
+        idx = torch.arange(w, dtype=torch.int32, device=dev)
+        if isinstance(valid, tuple):  # the ring after a prefill of n rows, slot n % w rewritten
+            n = valid[1]
+            sp = idx + (n - w)
+            sp[n % w] = n
+            lo = torch.tensor(n - RG_WINDOW, dtype=torch.int32, device=dev)
+        else:
+            sp, lo = torch.where(idx < valid, idx, -1).to(torch.int32), -1
+        half = w // 2
+        halves = [(kk[:, :, a:a + half], v[:, :, a:a + half], sp[a:a + half].contiguous())
+                  for a in (0, half)]
+        hk, hv, hsp = halves[0]
+        keep = ((hsp >= 0) & (hsp > lo)).expand(b, half)
+        kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (hk, hv))
+        n_rows = float(keep.sum())
+        key = f"{name}/{dtype}"
+        record(result["decode_attention"], key,
+               lambda: k.decode_attention(q, hk, hv, slot_pos=hsp, slot_lo=lo, return_lse=True)[0],
+               lambda: decode_attention_ref(q, hk, hv, slot_pos=hsp, slot_lo=lo,
+                                            return_lse=True)[0],
+               lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr,
+                                                      attn_mask=keep[:, None, None, :]),
+               (2 * n_rows * hkv * d + 2 * q.numel()) * q.element_size() + 4 * half
+               + 4 * b * hq, 4.0 * n_rows * hq * d, dtype)
+        parts = [k.decode_attention(q, a, c, slot_pos=p, slot_lo=lo, return_lse=True)
+                 for a, c, p in halves]
+        got = combine_partials(torch.stack([o for o, _ in parts]),
+                               torch.stack([l for _, l in parts]))
+        whole = k.decode_attention(q, kk, v, slot_pos=sp, slot_lo=lo)
+        want = decode_attention_ref(q, kk, v, slot_pos=sp, slot_lo=lo)
+        diffs = {"vs_whole_run": float((got.float() - whole.float()).abs().max()),
+                 "vs_plain_whole": float((got.float() - want.float()).abs().max())}
+        check(torch.allclose(got.float(), whole.float(), **tol), f"{key}: combined vs K4 {diffs}")
+        check(torch.allclose(got.float(), want.float(), **tol), f"{key}: combined vs plain {diffs}")
+        lse_err = 0.0
+        for (_, l), (a, c, p) in zip(parts, halves):
+            _, wl = decode_attention_ref(q, a, c, slot_pos=p, slot_lo=lo, return_lse=True)
+            both = torch.isfinite(wl)
+            check(torch.equal(both, torch.isfinite(l)), f"{key}: -inf rows of lse differ")
+            lse_err = max(lse_err, float((l - wl)[both].abs().max()) if both.any() else 0.0)
+            check(torch.allclose(l[both], wl[both], **ATTN_TOL["float32"]), f"{key}: lse {lse_err}")
+        result["decode_attention"][key].update(
+            combined_max_abs_diff=diffs, lse_max_abs_err=lse_err)
+        del q, kk, v, halves, parts, got, whole, want
 
 
 SCAN_TOL = dict(rtol=3e-3, atol=3e-3)  # tests/test_kernels.py:74-76, 101-103
@@ -2247,6 +2361,7 @@ class _Timed:
 
     def __init__(self, fn, n_vocab: int):
         self.fn, self.n_vocab, self.ms, self.launches = fn, n_vocab, [], []
+        self.first = None  # the first call's logits over the vocabulary, float32
 
     def __call__(self, *args, **kw):
         import torch
@@ -2261,7 +2376,11 @@ class _Timed:
         self.ms.append((time.perf_counter() - t0) * 1e3)
         self.launches.append({k: LAUNCHES[k] - before[k] for k in LAUNCHES})
         logits = out[0] if isinstance(out, tuple) else out
+        if hasattr(logits, "full_tensor"):  # a DTensor: the sharded route's prefill
+            logits = logits.full_tensor()
         check(bool(torch.isfinite(logits[..., : self.n_vocab]).all()), "non-finite logits")
+        if self.first is None:
+            self.first = logits[..., : self.n_vocab].float().clone()
         return out
 
 
@@ -2293,7 +2412,8 @@ def _serve_timed(eng, name: str, prompts, cfg, per_call, new: int) -> dict:
           f"{name}: {[len(t) for t in toks]} tokens per request")
     check(all(0 <= t < cfg.vocab_size for r in toks for t in r), f"{name}: token outside vocab")
     slots = eng.sc.batch_slots
-    return {"tokens_out": toks, "graph": eng.graph, "captures": len(caps),
+    return {"tokens_out": toks, "first_decode_logits": dec.first, "graph": eng.graph,
+            "captures": len(caps),
             "capture_s": caps, "wall_s": wall, "tokens": len(prompts) * new,
             "tokens_per_s": len(prompts) * new / wall,
             "prefill_calls": len(pre.ms), "prefill_ms": pre.ms,
@@ -2382,6 +2502,7 @@ def phase_serve(dev, arch: str) -> dict:
                                                   new)
     for run in (*runs.values(), *eager_runs.values()):
         run.pop("tokens_out")
+        run.pop("first_decode_logits")
     out["runs"] = runs
     out["eager_runs"] = eager_runs
 
@@ -2948,6 +3069,26 @@ def _timed_steps(step, params, opt_state, batches):
     return losses, ms, params, opt_state
 
 
+@contextlib.contextmanager
+def _one_rank_mesh(dev):
+    """A world-size-1 group (NCCL on the card, gloo on the CPU) and its
+    ``(1, 1)`` ``("data", "model")`` ``DeviceMesh``."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        yield init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def _sharded_train(dev, cfg=None, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH) -> dict:
     """(a) The train step under a ``ShardingPolicy`` on a one-rank
     ``DeviceMesh`` (1, 1) ``("data", "model")`` (NCCL on the card, gloo on
@@ -2955,12 +3096,7 @@ def _sharded_train(dev, cfg=None, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH
     by default phi4 at full width, 4 of 32 layers, batch 4 x 1,024 in 2
     microbatches, AdamW, 3 steps each way; on the card also one profiled
     step each way."""
-    import shutil
-    import tempfile
-
     import torch
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Replicate
 
     from repro_torch.data import DataConfig, SyntheticLM
@@ -2979,12 +3115,8 @@ def _sharded_train(dev, cfg=None, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH
     out: dict = {"arch": cfg.name, "layers": cfg.n_layers, "params": sum(
         t.numel() for t in _leaves(lm.abstract_params(cfg))), "batch": batch, "seq": seq,
         "microbatches": TRAIN_MICROBATCHES, "steps": TRAIN_STEPS}
-    store = tempfile.mkdtemp(prefix="chip_smoke_group_")
     # a world-size-1 NCCL group on the card, as phase comm's (c) sets one up
-    backend = "nccl" if dev.type == "cuda" else "gloo"
-    dist.init_process_group(backend, init_method=f"file://{store}/store", rank=0, world_size=1)
-    try:
-        mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+    with _one_rank_mesh(dev) as mesh:
         runs: dict = {}
         for name, pol in (("unsharded", ShardingPolicy()), ("sharded", make_policy(mesh))):
             params = lm.distribute_params(lm.init_params(cfg, 0, device=dev), cfg, pol)
@@ -3045,9 +3177,6 @@ def _sharded_train(dev, cfg=None, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH
             raise AssertionError("sharding: a DTensor reached K3")
         check(dict(LAUNCHES) == before, "sharding: the refused call launched a kernel")
         out.update(runs)
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(store, ignore_errors=True)
     return out
 
 
@@ -3115,13 +3244,122 @@ def _gpipe_on_card(dev) -> dict:
     return out
 
 
-def phase_sharding(dev) -> dict:
-    """(a) the DTensor train step on a one-rank NCCL mesh against the
-    unsharded one, (b) GPipe over the loopback's (4,) mesh with K3."""
+SHARD_SERVE_NEW = 32  # (c): greedy tokens a request
+SHARD_LOGITS_TOL = 1e-2  # (c): first decode logits, max |mesh - unsharded| / max |unsharded|
+
+
+def _sharded_serve(dev, mesh, cfg=None, new: int = SHARD_SERVE_NEW) -> dict:
+    """(c) ``ServeEngine(..., pol=make_policy(mesh))`` on the one-rank
+    mesh (the params from ``lm.distribute_params``), by default phi4 at full
+    width and depth: phase 5's 8 requests and 4 slots, ``new`` greedy tokens
+    each, both schedulers, every prefill and decode call launching exactly
+    its layers' K3 / K4 (counted) and its tokens equal to the unsharded
+    engine's on the same params (uncounted), and each scheduler's first
+    decode step's logits within ``SHARD_LOGITS_TOL`` of the largest of the
+    unsharded engine's (the continuous one reads the tiled fill).  Decode
+    replays a CUDA graph (the engine's default on a one-rank NCCL mesh) of
+    the DTensor step."""
+    import numpy as np
     import torch
 
-    return {"torch": torch.__version__, "train_dtensor": _sharded_train(dev),
-            "gpipe": _gpipe_on_card(dev)}
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.sharding import make_policy
+
+    cfg = cfg or ARCHS[SHARD_ARCH]
+    per_call = _launches_per_call(cfg)
+    params = lm.init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(0)  # phase 5's requests
+    lens = rng.integers(64, 1001, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+    schedulers = ("generate", "generate_continuous")
+    sc = ServeConfig(batch_slots=SERVE_SLOTS)
+    with uncounted():
+        plain = ServeEngine(cfg, params, sc, device=dev)
+        plain_runs = {n: _serve_timed(plain, n, prompts, cfg, per_call, new) for n in schedulers}
+    pol = make_policy(mesh)
+    eng = ServeEngine(cfg, lm.distribute_params(params, cfg, pol), sc, pol=pol, device=dev)
+    runs = {n: _serve_timed(eng, n, prompts, cfg, per_call, new) for n in schedulers}
+    first_err = {}
+    for n in schedulers:
+        check(runs[n]["tokens_out"] == plain_runs[n]["tokens_out"],
+              f"sharding: {n}'s greedy tokens under the mesh differ from the unsharded engine's")
+        got, want = runs[n]["first_decode_logits"], plain_runs[n]["first_decode_logits"]
+        first_err[n] = float((got - want).abs().max() / want.abs().max())
+        check(first_err[n] <= SHARD_LOGITS_TOL,
+              f"sharding: {n}'s first decode logits under the mesh are {first_err[n]} of the "
+              f"largest off the unsharded engine's (limit {SHARD_LOGITS_TOL})")
+    keys = ("graph", "captures", "capture_s", "prefill_calls", "prefill_ms", "decode_steps",
+            "decode_ms_per_step_median", "decode_ms_per_step_mean", "tokens_per_s")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "requests": len(prompts),
+           "slots": SERVE_SLOTS, "new_tokens": new, "tokens_equal_unsharded": list(schedulers),
+           "first_decode_logits_err": first_err,
+           "sharded": {n: {k: runs[n][k] for k in keys} for n in schedulers},
+           "unsharded": {n: {k: plain_runs[n][k] for k in keys} for n in schedulers}}
+    del params, eng, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dryrun_vs_card(mesh, serve: dict | None) -> dict:
+    """(d) ``roofline.count`` of phi4's decode step on the same one-rank
+    mesh with phase 5's decode profile's batch and cache (4 slots, 1,040
+    slots at position 1,024), priced with ``H100``, beside that profile's
+    measured replayed device ms a step."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import lm
+    from repro_torch.roofline import H100, model_flops, roofline
+    from repro_torch.roofline.count import count
+    from repro_torch.sharding import make_policy
+
+    cfg, pol = ARCHS[SHARD_ARCH], make_policy(mesh)
+    t0 = time.perf_counter()
+    params = lm.abstract_params(cfg, pol)
+    cache = lm.init_cache(cfg, SERVE_SLOTS, 1024 + 16, pol=pol, device="meta")
+    batch = {"tokens": torch.empty((SERVE_SLOTS, 1), dtype=torch.int32, device="meta")}
+    with torch.no_grad():
+        t = count(lm.decode_step, params, cache, batch, 1024, cfg, pol=pol, n_devices=1)
+    rep = roofline(t, n_devices=1, hw=H100,
+                   model_flops_global=model_flops(cfg.active_param_count(), SERVE_SLOTS,
+                                                  "inference"))
+    out = {"count_s": time.perf_counter() - t0, "hw": H100.name,
+           "flops_per_step": t.flops, "hbm_bytes_per_step": t.hbm_bytes,
+           "collectives": t.coll_counts, "predicted_bound_s": rep.bound_s,
+           "dominant": rep.dominant, "memory_s": rep.memory_s, "compute_s": rep.compute_s,
+           "collective_s": rep.collective_s}
+    if serve is not None:
+        prof = serve["decode_profile"]["replayed"]
+        out["measured_replayed_device_ms_per_step"] = prof["device_ms_per_step"]
+        out["measured_over_predicted"] = prof["device_ms_per_step"] / (rep.bound_s * 1e3)
+    check(t.flops > 0 and rep.bound_s > 0, "sharding: the dry-run counted nothing")
+    return out
+
+
+def phase_sharding(dev, serve: dict | None = None) -> dict:
+    """(a) the DTensor train step on a one-rank NCCL mesh against the
+    unsharded one, (b) GPipe over the loopback's (4,) mesh with K3, (c)
+    sharded serving through ``ServeEngine(pol=...)`` on a one-rank NCCL
+    mesh against the unsharded engine, (d) the dry-run's count of the
+    decode step priced against phase 5's measured one (``serve``: phase
+    5's result)."""
+    import torch
+
+    out = {"torch": torch.__version__}
+    t0 = time.perf_counter()
+    out["train_dtensor"] = _sharded_train(dev)
+    out["gpipe"] = _gpipe_on_card(dev)
+    out["ab_s"] = time.perf_counter() - t0
+    with _one_rank_mesh(dev) as mesh:
+        t0 = time.perf_counter()
+        out["serve_dtensor"] = _sharded_serve(dev, mesh)
+        out["c_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["dryrun_vs_card"] = _dryrun_vs_card(mesh, serve)
+        out["d_s"] = time.perf_counter() - t0
+    return out
 
 
 def main() -> int:
@@ -3224,8 +3462,10 @@ def main() -> int:
          ("train_mamba2", lambda: _train_part(dev, "mamba2-1.3b", shared)))
     path(("flash_attention", "decode_attention"), ("train_serve", lambda: _train_then_serve(dev)))
     # sharding: (a) the DTensor train step on a one-rank NCCL mesh (training
-    # route, no kernel), (b) GPipe over the loopback's (4,) mesh (K3)
-    path(("flash_attention",), ("sharding", lambda: phase_sharding(dev)))
+    # route, no kernel), (b) GPipe over the loopback's (4,) mesh (K3), (c)
+    # sharded serving on the one-rank mesh (K3, K4), (d) the dry-run's count
+    path(("flash_attention", "decode_attention"),
+         ("sharding", lambda: phase_sharding(dev, results["serve"])))
 
     csrc = "src/repro_torch/kernels/csrc/"
     comm_real = results["comm"]["real_size"]
@@ -3242,6 +3482,8 @@ def main() -> int:
         ("flash_attention", "attention.cu", "flash_attention.py:116", "llava_prefill/bfloat16"),
         ("flash_attention", "attention.cu", "flash_attention.py:116",
          "musicgen_prefill/bfloat16"),
+        ("flash_attention", "attention.cu", "flash_attention.py:116",
+         "phi4_prefill_q_offset/bfloat16"),
         ("decode_attention", "attention.cu", "decode_attention.py:94", "phi4_decode/bfloat16"),
         ("decode_attention", "attention.cu", "decode_attention.py:94",
          "rg_ring_misaligned/bfloat16"),
@@ -3249,6 +3491,10 @@ def main() -> int:
         ("decode_attention", "attention.cu", "decode_attention.py:94", "llava_decode/bfloat16"),
         ("decode_attention", "attention.cu", "decode_attention.py:94",
          "musicgen_decode/bfloat16"),
+        ("decode_attention", "attention.cu", "decode_attention.py:94",
+         "phi4_decode_lse_half/bfloat16"),
+        ("decode_attention", "attention.cu", "decode_attention.py:94",
+         "rg_ring_lse_half/bfloat16"),
         ("ssd_scan", "scan.cu", "ssd_scan.py:81", "mamba2_prefill"),
         ("rglru_scan", "scan.cu", "rglru_scan.py:53", "rg_prefill"),
         ("rglru_scan", "scan.cu", "rglru_scan.py:53", "rg_continuous"),

@@ -53,11 +53,12 @@ def _lib():
     if _bound is None:
         lib = load_library("attention")
         lib.flash_attention_launch.argtypes = [
-            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I, _I, _P
+            _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _F, _I, _I, _I, _P
         ]
         lib.flash_attention_launch.restype = _I
         lib.decode_attention_launch.argtypes = [
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F, _P
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _F,
+            _P
         ]
         lib.decode_attention_launch.restype = _I
         _bound = lib
@@ -110,13 +111,19 @@ def flash_attention(
     causal: bool = True,
     window: int | None = None,
     sm_scale: float | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Block attention on the card.
 
     q ``[B, Hq, Sq, D]``, k/v ``[B, Hkv, Sk, D]`` with ``Hq % Hkv == 0``;
-    ``window``: position ``i`` attends to ``(i - window, i]``.  Returns
-    ``[B, Hq, Sq, D]`` in q's dtype, with q's strides.  Rows with no valid
-    key are 0.
+    ``window``: position ``i`` attends to ``(i - window, i]``.  q row ``r``
+    holds position ``q_offset + r`` (keys start at 0): the sharded
+    prefill's layout, where a rank holds the q rows ``[q_offset, q_offset +
+    Sq)`` of a sequence split over ``tp`` and the whole K/V, so the causal
+    and window masks (and the KV tiles each q tile reads) follow global
+    positions.  Returns ``[B, Hq, Sq, D]`` in q's dtype, with q's strides.
+    Rows with no valid key are 0.  An empty batch or query returns at once,
+    launching nothing.
     """
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
@@ -126,9 +133,11 @@ def flash_attention(
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     dev = _check("flash_attention", {"q": q, "k": k, "v": v}, FLASH_HEAD_DIMS)
     out = torch.empty_like(q)  # a transposed view of q gives one of out
-    if sq == 0:
+    if b == 0 or sq == 0:
         return out
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -137,7 +146,7 @@ def flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             int(q.dtype == torch.bfloat16), b, hq, hkv, sq, sk, d,
             _strides(q, k, v, out), float(sm_scale), int(causal),
-            int(window or 0), torch.cuda.current_stream(dev).cuda_stream,
+            int(window or 0), int(q_offset), torch.cuda.current_stream(dev).cuda_stream,
         )
     raise_on(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
@@ -164,7 +173,8 @@ def decode_attention(
     sm_scale: float | None = None,
     slot_pos: torch.Tensor | None = None,
     slot_lo: int | torch.Tensor = -1,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """One-token attention against a KV cache on the card.
 
     q ``[B, Hq, D]``, k/v ``[B, Hkv, S, D]`` (``Hq % Hkv == 0``),
@@ -177,6 +187,13 @@ def decode_attention(
     decode step replayed from a CUDA graph reads the bound of its own
     position); an ``int`` other than -1 is put on the device first.
     Returns ``[B, Hq, D]`` in q's dtype; a row with no valid key is 0.
+    With ``return_lse`` returns ``(o, lse)``: also each row's natural
+    log-sum-exp of its scaled scores, float32 ``[B, Hq]`` (``-inf`` for a
+    row with no valid key), taken from the split combine.  It serves the
+    sharded decode, where the cache's slots are split over ``tp`` and each
+    rank attends over its own slots: the ranks' rows combine by
+    :func:`repro_torch.kernels.ref.combine_partials`.  An empty batch
+    returns at once, launching nothing.
     """
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"bad shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
@@ -205,24 +222,28 @@ def decode_attention(
         slot_lo = None  # -1: every slot with slot_pos >= 0
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=dev) if return_lse else None
+    if b == 0:
+        return (out, lse) if return_lse else out
     n_split, chunk = decode_splits(
         b, hkv, s, torch.cuda.get_device_properties(dev).multi_processor_count, hq // hkv,
         TC_GROUP if q.dtype == torch.bfloat16 else MAX_GROUP)
     part_m = torch.empty((b, hq, n_split), dtype=torch.float32, device=dev)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, hq, n_split, d), dtype=torch.float32, device=dev)
-    out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
     with torch.cuda.device(dev):
         err = _lib().decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if seq_lens is None else seq_lens.data_ptr(),
             None if slot_pos is None else slot_pos.data_ptr(),
             None if slot_lo is None else slot_lo.data_ptr(),
-            out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), int(q.dtype == torch.bfloat16), b, hq, hkv,
             s, d, n_split, chunk, _strides(q, k, v, out), float(sm_scale),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     raise_on(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -4,6 +4,9 @@
 //   flash_attention   O = softmax(mask(Q K^T * scale)) V per (batch, q head),
 //     GQA (q head h reads kv head h / group), causal and/or sliding window
 //     (position i attends to (i - window, i]), fully masked rows -> 0.
+//     q row r holds position q_off + r (keys start at 0): a rank of the
+//     sharded prefill holds the q rows [q_off, q_off + sq) of a sequence
+//     split over tp and the whole K/V, and masks by global position.
 //     Replaces the Pallas kernel repro/kernels/flash_attention.py:
 //     flash_attention (:116, body _kernel :33).
 //
@@ -13,6 +16,8 @@
 //     windowed ring buffer's rule, repro/models/layers.py:260-262).  slot_lo
 //     lies in device memory and each block reads it once, so a decode step
 //     captured in a CUDA graph reads the bound of the step it replays.
+//     Optionally also the log-sum-exp of each row's scores, so that the
+//     slices of a cache split over tp (the sharded decode) combine.
 //     Replaces repro/kernels/decode_attention.py:decode_attention (:94, body
 //     _kernel :33).
 //
@@ -330,7 +335,7 @@ __global__ void __launch_bounds__(384, 1)
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_o, int hq, int batch, int group,
-                       int sq, int sk, float scale_log2, int causal, int window) {
+                       int sq, int sk, float scale_log2, int causal, int window, int q_off) {
   using Sh = WgShape<D>;
   constexpr int kBk = Sh::kBk;
   constexpr int kStages = Sh::kStages;
@@ -382,7 +387,7 @@ __global__ void __launch_bounds__(384, 1)
                               w.b, &full_q[qs]);
         }
         int lo, hi;
-        kv_tile_range(w.q0, Sh::kBq, kBk, sk, causal, window, lo, hi);
+        kv_tile_range(w.q0 + q_off, Sh::kBq, kBk, sk, causal, window, lo, hi);
         for (int tile = lo; tile < hi; ++tile, ++it) {
           const int st = it % kStages;
           const uint32_t ph = ((it / kStages) & 1) ^ 1;
@@ -417,11 +422,12 @@ __global__ void __launch_bounds__(384, 1)
       const FlashItem w = flash_item(i, n_qt, hq, batch);
       const int qs = round % kQStages;
       int lo, hi;
-      kv_tile_range(w.q0, Sh::kBq, kBk, sk, causal, window, lo, hi);
+      kv_tile_range(w.q0 + q_off, Sh::kBq, kBk, sk, causal, window, lo, hi);
       const int r_lo = w.q0 + 64 * cw;        // this warpgroup's first row
-      const int row0 = r_lo + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+      const int p_lo = r_lo + q_off;          // and its position
+      const int row0 = p_lo + 16 * warp + g;  // this thread's positions: row0, row0 + 8
       int lo_w, hi_w;                         // the tiles its rows need
-      kv_tile_range(r_lo, 64, kBk, sk, causal, window, lo_w, hi_w);
+      kv_tile_range(p_lo, 64, kBk, sk, causal, window, lo_w, hi_w);
       if (r_lo >= sq) hi_w = lo_w;
 
       float acc[D / 2];
@@ -454,8 +460,8 @@ __global__ void __launch_bounds__(384, 1)
       // where it cuts
       auto softmax = [&](float (&s)[kBk / 2], int tile, float (&corr)[2]) {
         const int k0 = tile * kBk;
-        const bool interior = k0 + kBk <= sk && (!causal || k0 + kBk - 1 <= r_lo) &&
-                              (window <= 0 || k0 > r_lo + 63 - window);
+        const bool interior = k0 + kBk <= sk && (!causal || k0 + kBk - 1 <= p_lo) &&
+                              (window <= 0 || k0 > p_lo + 63 - window);
         if (interior) {
           tile_softmax<false, kBk>(s, m_run, l_part, corr, scale_log2, k0, row0, t, sk, causal,
                                    window);
@@ -606,7 +612,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ o, Strides qs, Strides ks,
                      Strides vs, Strides os, int group, int sq, int sk,
-                     float scale_log2, int causal, int window) {
+                     float scale_log2, int causal, int window, int q_off) {
   constexpr int kS = D + 8;  // padded shared row: conflict-free fragments
   constexpr int kBk = kMmaBk;
   __shared__ __align__(16) __nv_bfloat16 sk_tile[kBk * kS];
@@ -653,7 +659,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   float l_part[2] = {0.0f, 0.0f};  // this thread's share of each row's sum
 
   int lo, hi;
-  kv_tile_range(q0, kBq, kBk, sk, causal, window, lo, hi);
+  kv_tile_range(q0 + q_off, kBq, kBk, sk, causal, window, lo, hi);
   for (int tile = lo; tile < hi; ++tile) {
     const int k0 = tile * kBk;
     __syncthreads();  // the previous tile's readers are done
@@ -680,7 +686,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     float m_new[2];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int qpos = row0 + 8 * half;
+      const int qpos = row0 + 8 * half + q_off;
       float mx = -INFINITY;
 #pragma unroll
       for (int n = 0; n < kBk / 8; ++n) {
@@ -784,7 +790,7 @@ __global__ void __launch_bounds__(kF32Threads)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      Strides qs, Strides ks, Strides vs, Strides os, int group,
-                     int sq, int sk, float scale_log2, int causal, int window) {
+                     int sq, int sk, float scale_log2, int causal, int window, int q_off) {
   constexpr int kRows = kF32Bq / 4;
   constexpr int kCols = (D + 31) / 32;
   extern __shared__ float flash_f32_smem[];
@@ -820,7 +826,7 @@ __global__ void __launch_bounds__(kF32Threads)
   }
 
   int lo, hi;
-  kv_tile_range(q0, kF32Bq, kF32Bk, sk, causal, window, lo, hi);
+  kv_tile_range(q0 + q_off, kF32Bq, kF32Bk, sk, causal, window, lo, hi);
   for (int tile = lo; tile < hi; ++tile) {
     const int k0 = tile * kF32Bk;
     __syncthreads();
@@ -846,7 +852,7 @@ __global__ void __launch_bounds__(kF32Threads)
     const int kpos = k0 + lane;
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + warp * kRows + i;
+      const int qpos = q0 + warp * kRows + i + q_off;
       float xi = key_valid(kpos, qpos, sk, causal, window) ? x[i] * scale_log2
                                                            : -INFINITY;
       float mx = xi;
@@ -1335,13 +1341,17 @@ __global__ void __launch_bounds__(kDecThreads)
 }
 
 // grid (hq, batch); block D.  out = sum_s acc_s 2^(m_s - M) / sum_s l_s
-// 2^(m_s - M) over the splits in ascending order; no valid key -> 0.
+// 2^(m_s - M) over the splits in ascending order; no valid key -> 0.  With
+// lse (f32[batch, hq], else null) also the row's natural log-sum-exp of the
+// scaled scores, (M + log2 L) ln 2 (the scores are in base 2), -inf when no
+// key is valid: what a caller needs to combine this call's rows with those
+// of other slices of the cache (the sharded decode's slots over tp).
 template <typename T>
 __global__ void decode_combine_kernel(const float* __restrict__ part_m,
                                       const float* __restrict__ part_l,
                                       const float* __restrict__ part_acc,
-                                      T* __restrict__ o, Strides os, int hq,
-                                      int n_split, int d_head) {
+                                      T* __restrict__ o, float* __restrict__ lse,
+                                      Strides os, int hq, int n_split, int d_head) {
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int d = threadIdx.x;
@@ -1357,6 +1367,10 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_m,
     a += part_acc[(row0 + s) * d_head + d] * wt;
   }
   o[b * os.b + h * os.h + d] = from_float<T>(l > 0.0f ? a / l : 0.0f);
+  if (lse != nullptr && d == 0) {
+    lse[static_cast<long long>(b) * hq + h] =
+        l > 0.0f ? (base + log2f(l)) * 0.69314718055994531f : -INFINITY;
+  }
 }
 
 Strides strides_at(const long long* s, int i) {
@@ -1373,7 +1387,7 @@ int allow_smem(F* kernel, size_t bytes) {
 template <int D>
 int launch_flash(const void* q, const void* k, const void* v, void* o,
                  int is_bf16, int b, int hq, int hkv, int sq, int sk,
-                 const long long* st, float scale_log2, int causal, int window,
+                 const long long* st, float scale_log2, int causal, int window, int q_off,
                  cudaStream_t stream) {
   const int group = hq / hkv;
   if (!is_bf16) {
@@ -1385,7 +1399,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o),
         strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-        strides_at(st, 3), group, sq, sk, scale_log2, causal, window);
+        strides_at(st, 3), group, sq, sk, scale_log2, causal, window, q_off);
   } else if constexpr (D >= 64) {
     using Sh = WgShape<D>;
     CUtensorMap mq, mk, mv, mo;
@@ -1401,7 +1415,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
     if (err) return err;
     const int blocks = min((sq + Sh::kBq - 1) / Sh::kBq * hq * b, n_sm);
     flash_wgmma_kernel<D><<<blocks, Sh::kThreads, Sh::kSmem, stream>>>(
-        mq, mk, mv, mo, hq, b, group, sq, sk, scale_log2, causal, window);
+        mq, mk, mv, mo, hq, b, group, sq, sk, scale_log2, causal, window, q_off);
   } else {
     const dim3 grid((sq + kBq - 1) / kBq, hq, b);
     flash_mma_kernel<D><<<grid, kMmaThreads, 0, stream>>>(
@@ -1409,7 +1423,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
         strides_at(st, 0), strides_at(st, 1), strides_at(st, 2),
-        strides_at(st, 3), group, sq, sk, scale_log2, causal, window);
+        strides_at(st, 3), group, sq, sk, scale_log2, causal, window, q_off);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1438,7 +1452,7 @@ int launch_decode_tc(const void* q, const void* k, const void* v, const int* seq
 template <int D, typename T>
 int launch_decode(const void* q, const void* k, const void* v,
                   const int* seq_lens, const int* slot_pos, const int* slot_lo,
-                  void* o, float* part_m, float* part_l, float* part_acc,
+                  void* o, float* lse, float* part_m, float* part_l, float* part_acc,
                   int b, int hq, int hkv, int s_cap, int n_split, int chunk,
                   const long long* st, float scale_log2, cudaStream_t stream) {
   const int group = hq / hkv;
@@ -1459,7 +1473,7 @@ int launch_decode(const void* q, const void* k, const void* v,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_combine_kernel<T><<<dim3(hq, b), D, 0, stream>>>(
-      part_m, part_l, part_acc, static_cast<T*>(o), strides_at(st, 3), hq,
+      part_m, part_l, part_acc, static_cast<T*>(o), lse, strides_at(st, 3), hq,
       n_split, D);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1472,18 +1486,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int b, int hq, int hkv, int sq, int sk,
                                       int d, const long long* strides,
                                       float sm_scale, int causal, int window,
-                                      void* stream) {
-  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || sq <= 0 || sk < 0) {
+                                      int q_off, void* stream) {
+  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv || sq <= 0 || sk < 0 || q_off < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float sl2 = sm_scale * kLog2e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch_flash<16>(q, k, v, o, is_bf16, b, hq, hkv, sq, sk, strides, sl2, causal, window, st);
-    case 32: return launch_flash<32>(q, k, v, o, is_bf16, b, hq, hkv, sq, sk, strides, sl2, causal, window, st);
-    case 64: return launch_flash<64>(q, k, v, o, is_bf16, b, hq, hkv, sq, sk, strides, sl2, causal, window, st);
-    case 128: return launch_flash<128>(q, k, v, o, is_bf16, b, hq, hkv, sq, sk, strides, sl2, causal, window, st);
-    case 256: return launch_flash<256>(q, k, v, o, is_bf16, b, hq, hkv, sq, sk, strides, sl2, causal, window, st);
+    case 16: return launch_flash<16>(q, k, v, o, is_bf16, b, hq, hkv, sq, sk, strides, sl2, causal, window, q_off, st);
+    case 32: return launch_flash<32>(q, k, v, o, is_bf16, b, hq, hkv, sq, sk, strides, sl2, causal, window, q_off, st);
+    case 64: return launch_flash<64>(q, k, v, o, is_bf16, b, hq, hkv, sq, sk, strides, sl2, causal, window, q_off, st);
+    case 128: return launch_flash<128>(q, k, v, o, is_bf16, b, hq, hkv, sq, sk, strides, sl2, causal, window, q_off, st);
+    case 256: return launch_flash<256>(q, k, v, o, is_bf16, b, hq, hkv, sq, sk, strides, sl2, causal, window, q_off, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1493,11 +1507,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // s_cap), or int32[b].  slot_pos: null, or int32[s_cap] shared by the
 // batch.  slot_lo: null (-1), or one int32 in device memory (a value below
 // -1 counts as -1).  part_m / part_l: f32[b, hq, n_split],
-// part_acc: f32[b, hq, n_split, d].
+// part_acc: f32[b, hq, n_split, d].  lse: null, or f32[b, hq].
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* seq_lens,
                                        const void* slot_pos, const void* slot_lo,
-                                       void* o, void* part_m, void* part_l,
+                                       void* o, void* lse, void* part_m, void* part_l,
                                        void* part_acc, int is_bf16, int b,
                                        int hq, int hkv, int s_cap, int d,
                                        int n_split, int chunk,
@@ -1514,12 +1528,13 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
+  float* ls = static_cast<float*>(lse);
 #define REPRO_DECODE(D)                                                       \
   return is_bf16 ? launch_decode<D, __nv_bfloat16>(q, k, v, sl, sp, lo,      \
-                                                   o, pm, pl, pa, b, hq, hkv, \
+                                                   o, ls, pm, pl, pa, b, hq, hkv, \
                                                    s_cap, n_split, chunk,     \
                                                    strides, sl2, st)          \
-                 : launch_decode<D, float>(q, k, v, sl, sp, lo, o, pm,       \
+                 : launch_decode<D, float>(q, k, v, sl, sp, lo, o, ls, pm,   \
                                            pl, pa, b, hq, hkv, s_cap,         \
                                            n_split, chunk, strides, sl2, st)
   switch (d) {

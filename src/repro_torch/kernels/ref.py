@@ -22,9 +22,12 @@ import torch
 __all__ = [
     "attention_ref",
     "decode_attention_ref",
+    "lse_weights",
+    "combine_partials",
     "ssd_ref",
     "ssd_chunked",
     "rglru_ref",
+    "rglru_closed_form",
     "spike_accum_ref",
     "spike_accum_blocks_ref",
 ]
@@ -40,8 +43,11 @@ def attention_ref(
     causal: bool = True,
     window: int | None = None,
     sm_scale: float | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    """Dense masked attention.  q: [B,Hq,Sq,D]; k/v: [B,Hkv,Sk,D]."""
+    """Dense masked attention.  q: [B,Hq,Sq,D]; k/v: [B,Hkv,Sk,D].  q row
+    ``r`` holds position ``q_offset + r`` (the sharded prefill's rows of a
+    sequence split over ``tp``, against the whole K/V)."""
     _, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -50,7 +56,7 @@ def attention_ref(
     kk = k.repeat_interleave(group, dim=1).float()
     vv = v.repeat_interleave(group, dim=1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * sm_scale
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -72,7 +78,8 @@ def decode_attention_ref(
     sm_scale: float | None = None,
     slot_pos: torch.Tensor | None = None,
     slot_lo: int | torch.Tensor = -1,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Single-token attention vs a KV cache.
 
     q: [B,Hq,D]; k/v: [B,Hkv,S,D]; seq_lens: optional int[B] valid lengths.
@@ -81,6 +88,11 @@ def decode_attention_ref(
     ``slot_pos[w] > slot_lo`` — the windowed decode's rule
     (``repro/models/layers.py:260-262``, ``slot_lo = pos - window``), an
     ``int`` or a 0-d tensor.
+
+    With ``return_lse`` returns ``(o, lse)``, ``lse`` each row's float32
+    log-sum-exp of its scaled valid scores ``[B, Hq]``; a row with no valid
+    key then has ``o = 0`` and ``lse = -inf`` (the kernel's output), where
+    without it the softmax of all-masked scores is uniform (the reference's).
     """
     _, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -97,7 +109,34 @@ def decode_attention_ref(
         valid = (slot_pos >= 0) & (slot_pos > slot_lo)
         logits = torch.where(valid[None, None, :], logits, _MASK)
     p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhk,bhkd->bhd", p, vv).to(q.dtype)
+    if not return_lse:
+        return torch.einsum("bhk,bhkd->bhd", p, vv).to(q.dtype)
+    any_valid = (logits > _MASK).any(dim=-1)  # [B, Hq]
+    p = torch.where(any_valid[..., None], p, 0.0)
+    lse = torch.where(any_valid, torch.logsumexp(logits, dim=-1), -torch.inf)
+    return torch.einsum("bhk,bhkd->bhd", p, vv).to(q.dtype), lse
+
+
+def lse_weights(lses: torch.Tensor) -> torch.Tensor:
+    """Each slice's share of the combined softmax: ``lses`` ``[n, ...]``, the
+    log-sum-exps of ``n`` slices of one row's keys → ``exp(lse_i - M) /
+    Σ_j exp(lse_j - M)``, ``M = max_i lse_i``; a slice at ``-inf`` weighs 0,
+    and a row with every slice at ``-inf`` gets all weights 0."""
+    m = lses.amax(dim=0)
+    w = torch.exp(lses - torch.where(torch.isfinite(m), m, 0.0))
+    tot = w.sum(dim=0)
+    return w / torch.where(tot > 0, tot, 1.0)
+
+
+def combine_partials(os: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """Combine decode attention over slices of the cache: ``os`` ``[n, B,
+    Hq, D]`` and ``lses`` ``[n, B, Hq]`` (each slice's
+    ``decode_attention(..., return_lse=True)``) → ``[B, Hq, D]`` in ``os``'
+    dtype, the weighted sum in float32.  It is the attention over the union
+    of the slices' keys; the sharded decode's combine over ``tp`` when the
+    cache's slots are split."""
+    w = lse_weights(lses.float())
+    return (w[..., None] * os.float()).sum(dim=0).to(os.dtype)
 
 
 def _float(*xs: torch.Tensor) -> list[torch.Tensor]:
@@ -190,6 +229,16 @@ def rglru_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         h = af[:, t] * h + bf[:, t]
         out[:, t] = h
     return out.to(a.dtype)
+
+
+def rglru_closed_form(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The recurrence's trace in closed form, ``h = e^c ⊙ cumsum(e^{-c} ⊙ b)``
+    with ``c = cumsum(log a)`` over the sequence: a few ops in place of S
+    steps, for meta tensors, which hold no data (on data ``e^{-c}``
+    overflows).  Neither form has a product, so a count's FLOPs are the
+    same."""
+    c = torch.cumsum(torch.log(a.float()), dim=1)
+    return (torch.exp(c) * torch.cumsum(torch.exp(-c) * b.float(), dim=1)).to(a.dtype)
 
 
 def spike_accum_ref(spikes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

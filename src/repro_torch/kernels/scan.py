@@ -168,6 +168,10 @@ def ssd_scan(
     for key, t in (("x", x), ("b", b), ("c", c)):  # copied 16 bytes at a time (cp.async)
         if t.data_ptr() % 16:
             raise ValueError(f"ssd_scan: {key} must start on a 16-byte boundary")
+    if bs == 0:  # an empty shard: nothing to launch
+        y = torch.empty_like(x)
+        state = torch.empty((0, h, n, p), dtype=torch.float32, device=dev)
+        return (y, state) if return_state else y
     nc = s // chunk
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per = ssd_plan(bs, s, h, g, p, n, chunk, sms)["items_per_scan_block"]

@@ -20,15 +20,23 @@ The experts run as batched torch products, as the reference's are XLA
 einsums (no Pallas kernel).
 
 Under a sharding policy with a mesh (``pol``, :mod:`repro_torch.sharding`)
-the blocks of the training route take DTensors and ``pol.shard`` them
-where the reference's blocks constrain their activations: attention's
-context-parallel layout (either ``attn_mode``), SwiGLU's hidden over
-``tp``, the MoE's EP and TP modes, the recurrent mixers' channels over
-``tp``.  The constants a block makes meet DTensors as replicated ones
-(``pol.constants()``).  DTensor has a sharding rule for every op the route
-runs (``scatter_add``, ``cumsum``, ``index_add``, the index gathers, the
-scans' ops); where a rule needs the whole of a dim it all-gathers it
-itself.  The MoE's dispatch and combine, which index across the batch,
+the blocks take DTensors and ``pol.shard`` them where the reference's blocks
+constrain their activations: attention's context-parallel layout (either
+``attn_mode``), SwiGLU's hidden over ``tp``, the MoE's EP and TP modes, the
+recurrent mixers' channels over ``tp``.  On the serving route every kernel
+runs on the rank's local shards (``pol.local``), and its result is put back
+as a DTensor (``pol.from_local``): K3 on the rank's q rows, whose positions
+start at ``q_offset``, against the whole K/V; K4 on the rank's heads, or on
+its slots of a cache whose slots are split over ``tp`` (the ranks' rows then
+combine by their log-sum-exps, one all-gather and one all-reduce over
+``tp``); K5 and K6 on the rank's heads and channels.  The decode caches are
+DTensors at ``lm.cache_specs``' placements, written in place through their
+local shards.  The recurrent scans of the training route run on the rank's
+heads and channels too, autograd going through ``to_local`` /
+``from_local``.  The constants a block makes meet DTensors as replicated ones
+(``pol.constants()``).  DTensor has a sharding rule for every other op the
+route runs (``scatter_add``, ``cumsum``, ``index_add``, the index gathers);
+where a rule needs the whole of a dim it all-gathers it itself.  The MoE's dispatch and combine, which index across the batch,
 are replicated explicitly before them.
 
 Training takes another route through the mixers, chosen by the caller
@@ -46,12 +54,15 @@ slice).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ops
-from repro_torch.sharding.policies import ShardingPolicy
+from repro_torch.kernels import _meta, ops
+from repro_torch.kernels.ref import rglru_closed_form
+from repro_torch.sharding.policies import ShardingPolicy, is_dtensor
 
 _NO_MESH = ShardingPolicy()
 
@@ -62,6 +73,7 @@ __all__ = [
     "blocked_attention",
     "attention_block",
     "attention_decode",
+    "cache_roles",
     "swiglu_mlp",
     "moe_route",
     "moe_block",
@@ -118,26 +130,40 @@ def _window(cfg: ArchConfig, mixer: str) -> int | None:
     return None
 
 
-def _qkv(xb: torch.Tensor, p: dict, cfg: ArchConfig, pol: ShardingPolicy = _NO_MESH):
+def _qkv(xb: torch.Tensor, p: dict, cfg: ArchConfig, pol: ShardingPolicy = _NO_MESH,
+         roles: tuple | None = None):
     """q/k/v projections of ``xb`` [..., D] → [..., H, hd] (bias, qk-norm).
     Under a mesh in ``a2a`` mode each projection keeps its natural feature
     sharding over ``tp``, then moves to sequence sharding by an activation
-    all-to-all (the reference's ``_proj``)."""
+    all-to-all (the reference's ``_proj``); ``roles`` (the sharded decode's)
+    lays each projection out before its heads are split instead.  DTensor
+    cannot split a feature dim into heads the ``tp`` axis does not divide
+    (JAX pads): in ``gather`` mode such a projection moves to sequence
+    sharding first, where the block puts q anyway, and the biases are
+    replicated before the split."""
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     lead = xb.shape[:-1]
 
     def proj(w, heads):
         y = xb @ _bf(w)
-        if pol.attn_mode == "a2a":
+        if roles is not None:
+            y = pol.shard(y, *roles)
+        elif pol.attn_mode == "a2a":
             y = pol.shard(y, "batch", None, "tp")
+            y = pol.shard(y, "batch", "tp", None)
+        elif heads % pol.tp_size:
             y = pol.shard(y, "batch", "tp", None)
         return y.view(*lead, heads, hd)
 
+    def bias(b, heads):
+        b = _bf(b)
+        return (b if pol.mesh is None else pol.shard(b, None)).view(heads, hd)
+
     q, k, v = proj(p["wq"], hq), proj(p["wk"], hkv), proj(p["wv"], hkv)
     if cfg.qkv_bias:
-        q = q + _bf(p["bq"]).view(hq, hd)
-        k = k + _bf(p["bk"]).view(hkv, hd)
-        v = v + _bf(p["bv"]).view(hkv, hd)
+        q = q + bias(p["bq"], hq)
+        k = k + bias(p["bk"], hkv)
+        v = v + bias(p["bv"], hkv)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -219,7 +245,9 @@ def attention_block(
     Under a mesh (``pol``), the reference's context-parallel layout: q
     sequence-sharded over ``tp``, K/V replicated over it (the all-gather a
     layer costs), the output back to feature sharding (``a2a``) for the
-    out-projection against its resident ``tp`` shard of ``wo``.
+    out-projection against its resident ``tp`` shard of ``wo``.  At
+    prefill each rank runs the kernel on its own q rows, masked by their
+    global positions (``q_offset``), against the whole K/V.
     """
     b, s, _ = x.shape
     if positions is None:
@@ -233,9 +261,7 @@ def attention_block(
     if train:
         of = blocked_attention(q, k, v, causal=True, window=_window(cfg, mixer))
     else:
-        o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                          causal=True, window=_window(cfg, mixer))
-        of = o.transpose(1, 2)
+        of = _prefill_attention(q, k, v, _window(cfg, mixer), pol)
     of = pol.shard(of, "batch", "tp", None, None)
     of = of.reshape(b, s, cfg.n_heads * cfg.head_dim)
     if pol.attn_mode == "a2a":
@@ -246,6 +272,112 @@ def attention_block(
     return out
 
 
+def _prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       window: int | None, pol: ShardingPolicy) -> torch.Tensor:
+    """The prefill kernel on ``[B, S, H, hd]`` projections: on ``[B, H, S,
+    hd]`` views of them (nothing copied), the output with the same strides.
+    Under a mesh, on this rank's shards: its q rows (the sequence over
+    ``tp``), whose first position is the shard's offset, against the whole
+    K/V of its batch rows; the result is the DTensor of q's layout."""
+    if pol.mesh is None:
+        o = ops.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          causal=True, window=window)
+        return o.transpose(1, 2)
+    q_roles, kv_roles = ("batch", "tp", None, None), ("batch", None, None, None)
+    _, off = pol.local_box(tuple(q.shape), *q_roles)
+    ql, kl, vl = pol.local(q, *q_roles), pol.local(k, *kv_roles), pol.local(v, *kv_roles)
+    o = ops.attention(ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
+                      causal=True, window=window, q_offset=off[1])
+    return pol.from_local(o.transpose(1, 2), tuple(q.shape), *q_roles)
+
+
+def cache_roles(cfg: ArchConfig, pol: ShardingPolicy) -> tuple:
+    """Roles of an attention cache ``[B, W, Hkv, hd]`` (the reference's
+    layout, ``repro/models/layers.py:237-240``): the KV heads over ``tp``
+    when they divide it, else the cache's slots."""
+    if pol.tp_size > 1 and cfg.n_kv_heads % pol.tp_size == 0:
+        return ("batch", None, "tp", None)
+    return ("batch", "tp", None, None)
+
+
+def _write_row(k_cache, v_cache, k, v, slot, keep, lo: int):
+    """Write one new K/V row per batch row at cache slot ``slot`` (a 1-element
+    int64 device tensor) where ``keep`` holds, in place: ``k_cache`` holds
+    the slots ``[lo, lo + W_local)`` (a rank's share of a cache whose slots
+    are split over ``tp``); a slot outside them, or ``keep`` false, writes
+    the clamped slot's row back as it was, so nothing is read on the host."""
+    w_local = k_cache.shape[1]
+    if w_local == 0:
+        return
+    li = slot - lo
+    keep = keep & (li >= 0) & (li < w_local)
+    li = li.clamp(0, w_local - 1)
+    k = torch.where(keep, k, k_cache.index_select(1, li)[:, 0])
+    v = torch.where(keep, v, v_cache.index_select(1, li)[:, 0])
+    k_cache.index_copy_(1, li, k[:, None])
+    v_cache.index_copy_(1, li, v[:, None])
+
+
+def _combine_over_tp(o: torch.Tensor, lse: torch.Tensor, pol: ShardingPolicy) -> torch.Tensor:
+    """The attention over every rank's slots, from each rank's ``(o,
+    lse)`` over its own: one all-gather of the ``[tp, B, Hq]`` log-sum-exps
+    and one all-reduce of the weighted ``o`` over ``tp`` (the weights of
+    :func:`repro_torch.kernels.ref.lse_weights`)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    from repro_torch.kernels.ref import lse_weights
+
+    dim = tuple(pol.mesh.mesh_dim_names).index(pol.tp_axis)
+    group = (pol.mesh, dim)
+    lses = funcol.all_gather_single(lse.contiguous(), 0, group).view(pol.tp_size, *lse.shape)
+    w = lse_weights(lses)[pol.mesh.get_local_rank(dim)]
+    return funcol.all_reduce(o.float() * w[..., None], "sum", group).to(o.dtype)
+
+
+def _attention_decode_sharded(x, p, cache, pos, cfg, mixer, pol):
+    """:func:`attention_decode` under a mesh: the projections as DTensors,
+    then K4 on this rank's shards of the cache (``cache_roles``): its KV
+    heads with their q heads, or its slots with every q head and the
+    ranks' results combined over ``tp``.  The new row is written into the
+    rank's shard by a device-side slot (only the rank holding the slot
+    keeps it); ``slot_pos`` is replicated and written on every rank."""
+    b = x.shape[0]
+    hq, hd = cfg.n_heads, cfg.head_dim
+    roles = cache_roles(cfg, pol)
+    heads_tp = roles[2] == "tp"
+    hroles = ("batch", "tp", None) if heads_tp else ("batch", None, None)
+    q, k, v = _qkv(_bf(x[:, 0]), p, cfg, pol, roles=hroles[:2])  # [B, H, hd]
+    q = rope(q[:, None], pos, cfg.rope_theta)[:, 0]
+    k = rope(k[:, None], pos, cfg.rope_theta)[:, 0]
+    kc, vc = cache["k"].to_local(), cache["v"].to_local()
+    slot_pos = cache["slot_pos"].to_local()  # whole on every rank
+    w_len = cache["k"].shape[1]
+    _, off = pol.local_box(tuple(cache["k"].shape), *roles)
+    windowed = mixer in ("swa", "local")
+    ql = pol.local(q, *hroles)
+    kn, vn = pol.local(k, *hroles).to(kc.dtype), pol.local(v, *hroles).to(vc.dtype)
+    if windowed:
+        slot, keep = (pos % w_len).long().reshape(1), torch.ones_like(pos, dtype=torch.bool)
+    else:
+        slot, keep = pos.clamp(max=w_len - 1).long().reshape(1), pos < w_len
+    _write_row(kc, vc, kn, vn, slot, keep, off[1])
+    written = torch.where(keep, pos, slot_pos.index_select(0, slot)[0])
+    slot_pos.index_copy_(0, slot, written.reshape(1))
+    slot_lo = pos - (cfg.window or cfg.local_window or w_len) if windowed else -1
+    sp = slot_pos[off[1]:off[1] + kc.shape[1]]
+    kv = kc.transpose(1, 2), vc.transpose(1, 2)
+    if heads_tp or pol.tp_size == 1:
+        o = ops.decode_attention(ql, *kv, slot_pos=sp, slot_lo=slot_lo)
+    else:
+        o, lse = ops.decode_attention(ql, *kv, slot_pos=sp, slot_lo=slot_lo, return_lse=True)
+        o = _combine_over_tp(o, lse, pol)
+    o = pol.from_local(o, (b, hq, hd), *hroles)
+    # the output reduced over tp, as the prefill's block ends (a partial sum
+    # left pending would make DTensor run the MLP's products on every tp
+    # rank whole rather than reduce it)
+    return pol.shard(_bf(o.reshape(b, 1, hq * hd)) @ _bf(p["wo"]), "batch", None, None), cache
+
+
 def attention_decode(
     x: torch.Tensor,
     p: dict,
@@ -253,6 +385,7 @@ def attention_decode(
     pos: torch.Tensor | int,
     cfg: ArchConfig,
     mixer: str,
+    pol: ShardingPolicy = _NO_MESH,
 ):
     """One-token attention against the cache.
 
@@ -275,11 +408,21 @@ def attention_decode(
       the kernel is handed ``slot_pos`` and the bound ``pos - window`` as a
       device scalar and applies the rule per slot.
 
+    Under a mesh (``pol``; x a DTensor, the cache's leaves DTensors at
+    ``lm.cache_specs``' placements): the reference's cache layout
+    (:func:`cache_roles`).  With the KV heads over ``tp`` the kernel runs on
+    the rank's heads; with the slots over ``tp`` on the rank's slots and
+    their ``slot_pos``, returning its log-sum-exp, and the ranks' rows are
+    combined over ``tp``.  The new row lands only on the rank that holds
+    its slot, by a device-side index and mask.
+
     Returns (out, cache).
     """
+    pos = device_position(pos, x.device)
+    if pol.mesh is not None:
+        return _attention_decode_sharded(x, p, cache, pos, cfg, mixer, pol)
     b = x.shape[0]
     hq, hd = cfg.n_heads, cfg.head_dim
-    pos = device_position(pos, x.device)
     q, k, v = _qkv(_bf(x[:, 0]), p, cfg)
     q = rope(q[:, None], pos, cfg.rope_theta)[:, 0]
     k = rope(k[:, None], pos, cfg.rope_theta)[:, 0]
@@ -515,6 +658,33 @@ def ssd_chunked(
     return (y_intra + y_inter).reshape(bs, s, h, p).to(x.dtype)
 
 
+def _ssd_shards(scan, xh, a, bmat, cmat, pol: ShardingPolicy):
+    """``scan(x, a, b, c)`` — the prefill's SSD kernel or the training
+    route's :func:`ssd_chunked` — → ``(y, final state or None)``.  Under a
+    mesh on this rank's heads (``[B, S, H, P]`` over ``tp`` on H) with their
+    B/C groups (all of them when there is one group, else the rank's share,
+    which needs ``tp`` to divide the groups), on plain tensors: autograd
+    goes through ``to_local`` / ``from_local``, and DTensor does not
+    propagate shardings op by op through the scan's chunk loop (on the
+    2 × 16 × 16 mesh that took minutes a layer)."""
+    if pol.mesh is None:
+        y = scan(xh, a, bmat, cmat)
+        return y if isinstance(y, tuple) else (y, None)
+    g = bmat.shape[2]
+    if g > 1 and g % pol.tp_size:
+        raise NotImplementedError(f"{g} SSD groups over a tp of {pol.tp_size}")
+    groles = ("batch", None, "tp" if g > 1 else None, None)  # one group: whole on each rank
+    b_l, c_l = (pol.local(t, *groles, grad_partial=True).contiguous() for t in (bmat, cmat))
+    y = scan(pol.local(xh, "batch", None, "tp", None).contiguous(),
+             pol.local(a, "batch", None, "tp").contiguous(), b_l, c_l)
+    y, state = y if isinstance(y, tuple) else (y, None)
+    y = pol.from_local(y, tuple(xh.shape), "batch", None, "tp", None)
+    if state is not None:
+        b, _, h, p = xh.shape
+        state = pol.from_local(state, (b, h, bmat.shape[3], p), "batch", "tp", None, None)
+    return y, state
+
+
 def mamba2_block(
     x: torch.Tensor, p: dict, cfg: ArchConfig, *, ssd_chunk: int = 128, return_state: bool = False,
     train: bool = False, pol: ShardingPolicy = _NO_MESH,
@@ -525,7 +695,7 @@ def mamba2_block(
     divide S (the reference's quirk: S above 128 and not a multiple of it
     raises).  With ``return_state`` (prefill only), also the decode state
     {"ssm": [B, H, N, P] f32, "conv": {x, b, c: [B, K-1, ·]}}, the SSD
-    scan's final state."""
+    scan's final state.  Under a mesh the scan runs on the rank's heads."""
     if train and return_state:
         raise ValueError("the training route returns no decode state")
     b, s, _ = x.shape
@@ -544,10 +714,10 @@ def mamba2_block(
     xh = xr.view(b, s, nh, hp) * delta[..., None]  # Δ-scaled input
     bmat, cmat = bc.view(b, s, g, n), cc.view(b, s, g, n)
     if train:
-        y, state = ssd_chunked(xh, a, bmat, cmat, chunk=ssd_chunk), None
+        scan = functools.partial(ssd_chunked, chunk=ssd_chunk)
     else:
-        y = ops.ssd(xh, a, bmat, cmat, chunk=min(ssd_chunk, s), return_state=return_state)
-        y, state = y if return_state else (y, None)
+        scan = functools.partial(ops.ssd, chunk=min(ssd_chunk, s), return_state=return_state)
+    y, state = _ssd_shards(scan, xh, a, bmat, cmat, pol)
     y = y + xr.view(b, s, nh, hp) * p["d_skip"].float()[:, None]
     y = y.reshape(b, s, di)
     # gated RMSNorm then output projection
@@ -560,10 +730,24 @@ def mamba2_block(
     return out, {"ssm": state, "conv": conv}
 
 
-def mamba2_decode(x: torch.Tensor, p: dict, cache: dict, cfg: ArchConfig):
+def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a DTensor ``dst`` (a cache leaf under a mesh)
+    takes ``src`` redistributed to its placements, written through its
+    local shard."""
+    if is_dtensor(dst):
+        dst.to_local().copy_(src.redistribute(dst.device_mesh, dst.placements).to_local())
+    else:
+        dst.copy_(src)
+
+
+def mamba2_decode(x: torch.Tensor, p: dict, cache: dict, cfg: ArchConfig,
+                  pol: ShardingPolicy = _NO_MESH):
     """One-token Mamba-2 step.  x: [B, 1, D]; cache: {"ssm": [B, H, N, P],
     "conv": {x, b, c: [B, K-1, ·]}}, updated in place.  Returns (out,
-    cache)."""
+    cache).  Under a mesh the state keeps the cache's layout (heads and
+    channels over ``tp``), as the reference's constraints on its cache
+    give; DTensor carries the step's ops, and the output is reduced over
+    ``tp`` as the prefill block's is."""
     b = x.shape[0]
     di, nh, hp = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     g, n = cfg.ssm_groups, cfg.ssm_state
@@ -579,16 +763,24 @@ def mamba2_decode(x: torch.Tensor, p: dict, cache: dict, cfg: ArchConfig):
     xh = xr.view(b, nh, hp) * delta[..., None]
     bmat = bc.view(b, g, n).repeat_interleave(nh // g, dim=1)  # [B, H, N]
     cmat = cc.view(b, g, n).repeat_interleave(nh // g, dim=1)
-    h = a[..., None, None] * cache["ssm"] + bmat[..., :, None] * xh[..., None, :]
-    y = torch.einsum("bhn,bhnp->bhp", cmat, h)
+    if pol.mesh is None:
+        h = a[..., None, None] * cache["ssm"] + bmat[..., :, None] * xh[..., None, :]
+        y = torch.einsum("bhn,bhnp->bhp", cmat, h)
+    else:  # the recurrence on the rank's heads, where the state lies
+        hr = ("batch", "tp", None)
+        hl = (pol.local(a, "batch", "tp")[..., None, None] * cache["ssm"].to_local()
+              + pol.local(bmat, *hr)[..., :, None] * pol.local(xh, *hr)[..., None, :])
+        y = pol.from_local(torch.einsum("bhn,bhnp->bhp", pol.local(cmat, *hr), hl),
+                           (b, nh, hp), *hr)
+        h = pol.from_local(hl, tuple(cache["ssm"].shape), *hr, None)
     y = y + xr.view(b, nh, hp) * p["d_skip"].float()[:, None]
     y = y.reshape(b, di)
     y = rms_norm(y.to(COMPUTE_DTYPE), p["norm"]) * F.silu(z.float()).to(COMPUTE_DTYPE)
-    out = (_bf(y) @ _bf(p["wo"]))[:, None]
-    cache["ssm"].copy_(h)
-    conv["x"].copy_(cx)
-    conv["b"].copy_(cb)
-    conv["c"].copy_(ccs)
+    out = pol.shard((_bf(y) @ _bf(p["wo"]))[:, None], "batch", None, None)
+    _assign(cache["ssm"], h)
+    _assign(conv["x"], cx)
+    _assign(conv["b"], cb)
+    _assign(conv["c"], ccs)
     return out, cache
 
 
@@ -628,35 +820,57 @@ def rglru_trace(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(hs, dim=1).to(a.dtype)
 
 
+def _rglru_shards(a: torch.Tensor, b: torch.Tensor, pol: ShardingPolicy,
+                  train: bool) -> torch.Tensor:
+    """The RG-LRU recurrence — the prefill's kernel, or with ``train`` the
+    training route's :func:`rglru_trace` — under a mesh on this rank's
+    channels, on plain tensors (autograd through ``to_local`` /
+    ``from_local``).  On meta tensors (the dry-run's count: shapes only)
+    either is the closed form :func:`~repro_torch.kernels.ref.rglru_closed_form`,
+    a few ops in place of S steps; the kernel's is announced to the counter
+    as its plain version (:mod:`repro_torch.kernels._meta`)."""
+    scan = rglru_trace if train else ops.rglru
+    if a.device.type == "meta":
+        scan = rglru_closed_form if train else (
+            lambda x, y: _meta.run("rglru_scan", rglru_closed_form, (x, y), x, y))
+    if pol.mesh is None:
+        return scan(a, b)
+    roles = ("batch", None, "tp")
+    h = scan(pol.local(a, *roles).contiguous(), pol.local(b, *roles).contiguous())
+    return pol.from_local(h, tuple(a.shape), *roles)
+
+
 def rglru_block(x: torch.Tensor, p: dict, cfg: ArchConfig, *, return_state: bool = False,
                 train: bool = False, pol: ShardingPolicy = _NO_MESH):
     """Griffin recurrent block: W_out(GeLU(W_g x) ⊙ RGLRU(conv(W_x x))).
     x: [B, S, D].  The recurrence is :func:`repro_torch.kernels.ops.rglru`
     (training, with ``train``: :func:`rglru_trace`).  With ``return_state``
     (prefill only), also the decode state {"h": [B, W] f32, "conv":
-    [B, K-1, W]}."""
+    [B, K-1, W]}.  Under a mesh the recurrence runs on the rank's channels."""
     if train and return_state:
         raise ValueError("the training route returns no decode state")
     xb = _bf(x)
     gate_branch = _gelu((xb @ _bf(p["wg"])).float())
     u_raw = pol.shard(xb @ _bf(p["wx"]), "batch", None, "tp")
     a, bb = _rglru_gates(causal_conv1d(u_raw, p["conv"]), p)
-    h = rglru_trace(a, bb) if train else ops.rglru(a, bb)  # [B, S, W] f32 trace
+    h = _rglru_shards(a, bb, pol, train)  # [B, S, W] f32 trace
     out = pol.shard(_bf(h * gate_branch) @ _bf(p["wo"]), "batch", None, None)
     if not return_state:
         return out
     return out, {"h": h[:, -1].float(), "conv": u_raw[:, -(cfg.conv_kernel - 1):]}
 
 
-def rglru_decode(x: torch.Tensor, p: dict, cache: dict, cfg: ArchConfig):
+def rglru_decode(x: torch.Tensor, p: dict, cache: dict, cfg: ArchConfig,
+                 pol: ShardingPolicy = _NO_MESH):
     """One-token RG-LRU step.  cache: {"h": [B, W], "conv": [B, K-1, W]},
-    updated in place.  Returns (out, cache)."""
+    updated in place (under a mesh at the cache's layout, channels over
+    ``tp``).  Returns (out, cache)."""
     xb = _bf(x[:, 0])
     gate_branch = _gelu((xb @ _bf(p["wg"])).float())
     u, conv_state = conv1d_step(xb @ _bf(p["wx"]), cache["conv"], p["conv"])
     a, bb = _rglru_gates(u, p)
     h = a * cache["h"] + bb
-    out = (_bf(h * gate_branch) @ _bf(p["wo"]))[:, None]
-    cache["h"].copy_(h)
-    cache["conv"].copy_(conv_state)
+    out = pol.shard((_bf(h * gate_branch) @ _bf(p["wo"]))[:, None], "batch", None, None)
+    _assign(cache["h"], h)
+    _assign(cache["conv"], conv_state)
     return out, cache

@@ -17,10 +17,11 @@ Sharding (:mod:`repro_torch.sharding`): each :class:`PDef` carries the
 reference's roles, :func:`param_specs` / :func:`cache_specs` resolve them
 under a policy, :func:`distribute_params` lays the parameters out as
 DTensors on the policy's ``DeviceMesh``, and ``embed_inputs``, ``forward``,
-``lm_logits`` and ``loss_fn`` take the policy (``pol``, default no mesh)
-and constrain the activations where the reference's ``pol.shard`` does.
-The training route is the sharded one; ``prefill``, ``decode_step`` and the
-serving engine take no mesh yet.
+``lm_logits``, ``loss_fn``, ``init_cache``, ``prefill`` and ``decode_step``
+take the policy (``pol``, default no mesh) and constrain the activations
+where the reference's ``pol.shard`` does.  On the serving route the caches
+are DTensors at :func:`cache_specs`' placements and every kernel runs on
+the rank's local shards (:mod:`repro_torch.models.layers`).
 
 Training (:func:`loss_fn`, :func:`forward` with ``train=True``) runs every
 layer under ``torch.utils.checkpoint.checkpoint`` — the counterpart of the
@@ -504,7 +505,15 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig,
         # once its result is indexed ([..., 0] below)
         logits = pol.shard(logits, "batch", *(None,) * (logits.ndim - 1))
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if pol.mesh is None:
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        # the label's logit as a masked sum (the same value: one term):
+        # the gather's backward makes its zeros at the global shape on
+        # every rank (DTensor replicates ``new_zeros``), 210 GB a
+        # microbatch of phi4's train_4k on the production mesh
+        hit = labels.long()[..., None] == torch.arange(logits.shape[-1], device=logits.device)
+        ll = torch.where(hit, logits, 0.0).sum(-1)
     return torch.mean(lse - ll)
 
 
@@ -548,26 +557,44 @@ def _empty_cache(cfg: ArchConfig, mixer: str, r: int, batch: int, max_len: int,
 
 
 def init_cache(
-    cfg: ArchConfig, batch: int, max_len: int, *, device: str | torch.device | None = None
+    cfg: ArchConfig, batch: int, max_len: int, *, pol: ShardingPolicy = ShardingPolicy(),
+    device: str | torch.device | None = None,
 ) -> list[dict]:
     """Zero/empty decode caches, one entry per segment: for attention K/V
     ``[R, B, W, Hkv, hd]`` (W = max_len, or the window for swa / local) and
     ``slot_pos`` ``[R, W]`` (-1 = empty); for ssm the ``[R, B, H, N, P]``
     state and the conv histories; for rglru ``h`` ``[R, B, W]`` and the
-    conv history."""
-    dev = resolve_device(device)
-    return [
-        {str(j): _empty_cache(cfg, mixer, r, batch, max_len, dev) for j, mixer in enumerate(unit)}
+    conv history.  Under a mesh each leaf is a DTensor at
+    :func:`cache_specs`' placements, each rank making only its own shard;
+    ``device="meta"`` makes shapes only (the dry-run's cache)."""
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
+    caches = [
+        {str(j): _empty_cache(cfg, mixer, r, batch, max_len,
+                              dev if pol.mesh is None else "meta")
+         for j, mixer in enumerate(unit)}
         for unit, r in segments(cfg)
     ]
+    if pol.mesh is None:
+        return caches
+
+    def put(node, spec):
+        if isinstance(node, dict):
+            return {k: put(node[k], spec[k]) for k in node}
+        local, _ = pol.local_box(tuple(node.shape), spec=spec)
+        fill = -1 if node.dtype == torch.int32 else 0  # slot_pos: empty
+        t = torch.full(local, fill, dtype=node.dtype, device=dev)
+        return pol.from_local(t, tuple(node.shape), spec=spec)
+
+    return [put(c, sp) for c, sp in zip(caches, cache_specs(cfg, pol))]
 
 
 def cache_specs(cfg: ArchConfig, pol: ShardingPolicy) -> list[dict]:
     """PartitionSpec tree matching init_cache's structure (the reference's
     layout: K/V heads over ``tp`` when they divide, else the cache's
-    sequence dim; recurrent states over ``tp`` on their channels).  The
-    port's decode steps do not take a mesh yet: the specs are what a
-    sharded serving path lays out."""
+    sequence dim; recurrent states over ``tp`` on their channels).  Under
+    a mesh ``init_cache`` and ``prefill`` lay the caches out at these
+    placements, and ``decode_step`` keeps them there."""
     out = []
     for unit, _ in segments(cfg):
         seg: dict[str, Any] = {}
@@ -590,16 +617,39 @@ def cache_specs(cfg: ArchConfig, pol: ShardingPolicy) -> list[dict]:
 
 
 def _put(dst, src) -> None:
-    """Copy a layer's state (nested dicts of tensors) into its cache slots."""
+    """Copy a layer's state (nested dicts of tensors) into its cache slots
+    (a DTensor slot takes the state at its placements)."""
     if isinstance(dst, dict):
         for k in dst:
             _put(dst[k], src[k])
     else:
-        dst.copy_(src)
+        L._assign(dst, src)
+
+
+def _put_kv(c: dict, k: torch.Tensor, v: torch.Tensor, s: int, pol: ShardingPolicy,
+            cfg: ArchConfig) -> None:
+    """A prefill's K/V ``[B, S, Hkv, hd]`` into its cache of W slots: slot
+    ``i < n = min(W, S)`` holds row ``S - n + i``.  Under a mesh each rank
+    writes its shard of the cache (``layers.cache_roles``) from the rows it
+    holds."""
+    if pol.mesh is None:
+        kc, vc, sp, lo = c["k"], c["v"], c["slot_pos"], 0
+    else:
+        roles = L.cache_roles(cfg, pol)
+        _, off = pol.local_box(tuple(c["k"].shape), *roles)
+        rows = ("batch", None, roles[2], None)  # every row, the cache's heads
+        k, v = pol.local(k, *rows), pol.local(v, *rows)
+        kc, vc, sp, lo = c["k"].to_local(), c["v"].to_local(), c["slot_pos"].to_local(), off[1]
+    n = min(c["k"].shape[1], s)
+    m = max(0, min(n - lo, kc.shape[1]))
+    kc[:, :m] = k[:, s - n + lo:s - n + lo + m]
+    vc[:, :m] = v[:, s - n + lo:s - n + lo + m]
+    sp[:n] = torch.arange(s - n, s, dtype=torch.int32, device=sp.device)
 
 
 def decode_step(
-    params: dict, caches: list[dict], batch: dict, pos: torch.Tensor | int, cfg: ArchConfig
+    params: dict, caches: list[dict], batch: dict, pos: torch.Tensor | int, cfg: ArchConfig,
+    *, pol: ShardingPolicy = ShardingPolicy(),
 ):
     """One decode step at position ``pos``: a 0-d int tensor on the
     tokens' device, as the reference's traced ``pos`` (an int is copied
@@ -611,29 +661,37 @@ def decode_step(
     on the host, so the step can be captured in a CUDA graph and replayed
     with the position and tokens changed in place.  Audio: tokens
     ``[B, 1, ncb]``.  vlm: text tokens, at positions after the vision
-    prefix.  Returns (logits [B, Vp] (audio [B, ncb, Vp]), caches)."""
-    x = embed_inputs(params, batch, cfg)  # [B, 1, D]
+    prefix.  Returns (logits [B, Vp] (audio [B, ncb, Vp]), caches).
+
+    Under a mesh (``pol``; params from :func:`distribute_params`, caches
+    from :func:`init_cache` or :func:`prefill` with the same policy) the
+    residual stream is sharded over the batch axes at each layer and the
+    logits come back sharded as :func:`lm_logits` lays them out."""
+    x = embed_inputs(params, batch, cfg, pol)  # [B, 1, D]
     pos = L.device_position(pos, x.device)
-    for i, (unit, r) in enumerate(segments(cfg)):
-        for li in range(r):
-            lp = _layer(params[f"seg{i}"], li)
-            for j, mixer in enumerate(unit):
-                cache_l = _layer(caches[i][str(j)], li)
-                y = L.rms_norm(x, lp[f"ln1_{j}"])
-                if mixer in ATTENTION:
-                    y, _ = L.attention_decode(y, lp[f"m{j}"], cache_l, pos, cfg, mixer)
-                elif mixer == "ssm":
-                    y, _ = L.mamba2_decode(y, lp[f"m{j}"], cache_l, cfg)
-                elif mixer == "rglru":
-                    y, _ = L.rglru_decode(y, lp[f"m{j}"], cache_l, cfg)
-                x = x + y
-                if _has_mlp(cfg):
-                    x = x + _mlp_apply(x, lp, j, cfg)
-    logits = lm_logits(params, L.rms_norm(x, params["final_norm"]), cfg)
+    with pol.constants():
+        for i, (unit, r) in enumerate(segments(cfg)):
+            for li in range(r):
+                lp = _layer(params[f"seg{i}"], li)
+                x = pol.shard(x, "batch", None, None)
+                for j, mixer in enumerate(unit):
+                    cache_l = _layer(caches[i][str(j)], li)
+                    y = L.rms_norm(x, lp[f"ln1_{j}"])
+                    if mixer in ATTENTION:
+                        y, _ = L.attention_decode(y, lp[f"m{j}"], cache_l, pos, cfg, mixer, pol)
+                    elif mixer == "ssm":
+                        y, _ = L.mamba2_decode(y, lp[f"m{j}"], cache_l, cfg, pol)
+                    elif mixer == "rglru":
+                        y, _ = L.rglru_decode(y, lp[f"m{j}"], cache_l, cfg, pol)
+                    x = x + y
+                    if _has_mlp(cfg):
+                        x = x + _mlp_apply(x, lp, j, cfg, pol)
+        logits = lm_logits(params, L.rms_norm(x, params["final_norm"]), cfg, pol)
     return logits[:, -1], caches
 
 
-def prefill(params: dict, batch: dict, cfg: ArchConfig, *, max_len: int | None = None):
+def prefill(params: dict, batch: dict, cfg: ArchConfig, *, max_len: int | None = None,
+            pol: ShardingPolicy = ShardingPolicy()):
     """Full-sequence forward returning last-position logits + caches.
 
     ``max_len`` sizes the full-attention KV caches for continued decode
@@ -644,37 +702,40 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, *, max_len: int | None =
     of w — the reference's rule, kept); otherwise all S rows and headroom.
     ssm and rglru layers hand over their final recurrent state and conv
     history.  The batch is :func:`embed_inputs`' (a vlm prefix counts in
-    S).  Returns (logits [B, Vp] (audio [B, ncb, Vp]), caches)."""
-    x = embed_inputs(params, batch, cfg)
+    S).  Returns (logits [B, Vp] (audio [B, ncb, Vp]), caches).
+
+    Under a mesh (``pol``) the reference's layout (``repro/models/lm.py:
+    545-608``): the residual stream sharded over the batch axes at each
+    layer, the kernels on each rank's shards, the caches DTensors at
+    :func:`cache_specs`' placements (:func:`init_cache`), the logits as
+    :func:`lm_logits` lays them out."""
+    x = embed_inputs(params, batch, cfg, pol)
     b, s, _ = x.shape
     if max_len is not None and max_len < s:
         raise ValueError(f"max_len {max_len} < sequence {s}")
-    caches = []
-    for i, (unit, r) in enumerate(segments(cfg)):
-        seg_c = {str(j): _empty_cache(cfg, mixer, r, b, max_len or s, x.device)
-                 for j, mixer in enumerate(unit)}
-        for li in range(r):
-            lp = _layer(params[f"seg{i}"], li)
-            for j, mixer in enumerate(unit):
-                y = L.rms_norm(x, lp[f"ln1_{j}"])
-                c = _layer(seg_c[str(j)], li)
-                if mixer in ATTENTION:
-                    y, (k, v) = L.attention_block(y, lp[f"m{j}"], cfg, mixer, return_kv=True)
-                    w = c["k"].shape[1]
-                    n = min(w, s)  # rows kept: the last w, or all S with headroom
-                    c["k"][:, :n] = k[:, s - n:]
-                    c["v"][:, :n] = v[:, s - n:]
-                    c["slot_pos"][:n] = torch.arange(s - n, s, dtype=torch.int32,
-                                                     device=x.device)
-                elif mixer == "ssm":
-                    y, st = L.mamba2_block(y, lp[f"m{j}"], cfg, return_state=True)
-                    _put(c, st)
-                elif mixer == "rglru":
-                    y, st = L.rglru_block(y, lp[f"m{j}"], cfg, return_state=True)
-                    _put(c, st)
-                x = x + y
-                if _has_mlp(cfg):
-                    x = x + _mlp_apply(x, lp, j, cfg)
-        caches.append(seg_c)
-    logits = lm_logits(params, L.rms_norm(x[:, -1:], params["final_norm"]), cfg)
+    caches = init_cache(cfg, b, max_len or s, pol=pol, device=x.device)
+    with pol.constants():
+        for i, (unit, r) in enumerate(segments(cfg)):
+            seg_c = caches[i]
+            for li in range(r):
+                lp = _layer(params[f"seg{i}"], li)
+                x = pol.shard(x, "batch", None, None)
+                for j, mixer in enumerate(unit):
+                    y = L.rms_norm(x, lp[f"ln1_{j}"])
+                    c = _layer(seg_c[str(j)], li)
+                    if mixer in ATTENTION:
+                        y, (k, v) = L.attention_block(y, lp[f"m{j}"], cfg, mixer,
+                                                      return_kv=True, pol=pol)
+                        _put_kv(c, k, v, s, pol, cfg)
+                    elif mixer == "ssm":
+                        y, st = L.mamba2_block(y, lp[f"m{j}"], cfg, return_state=True, pol=pol)
+                        _put(c, st)
+                    elif mixer == "rglru":
+                        y, st = L.rglru_block(y, lp[f"m{j}"], cfg, return_state=True, pol=pol)
+                        _put(c, st)
+                    x = x + y
+                    if _has_mlp(cfg):
+                        x = x + _mlp_apply(x, lp, j, cfg, pol)
+        x = pol.shard(x, "batch", None, None)
+        logits = lm_logits(params, L.rms_norm(x[:, -1:], params["final_norm"]), cfg, pol)
     return logits[:, 0], caches

@@ -10,7 +10,8 @@ Port of ``repro/serve/engine.py``, with its two schedulers:
   prefilled (batch-1) and its cache is spliced into the batched cache
   at the freed slot.
 
-Both run under ``torch.inference_mode()``, for every text architecture the
+Both run under ``torch.inference_mode()`` (under a mesh ``torch.no_grad()``:
+DTensor's indexing of a parameter fails in inference mode), for every text architecture the
 LM serves (attention K/V caches, Mamba-2 and RG-LRU states, dense MLPs or
 experts: ``_tile_cache`` and ``_splice_cache`` walk the nested cache and
 treat every ``[R, B, ...]`` leaf alike, as the reference's do); vlm and
@@ -39,6 +40,18 @@ choose the same experts and take their capacity before the prompt does
 step past the last token they keep.  Greedy decoding matches the
 reference; ``temperature > 0`` samples with a ``torch.Generator`` seeded from
 ``ServeConfig.seed``, whose streams differ from ``jax.random``'s.
+
+Under a sharding policy with a mesh (``pol``; the parameters distributed by
+``lm.distribute_params``) prefill and decode run sharded
+(``lm.prefill`` / ``lm.decode_step`` with ``pol``, every kernel on the
+rank's shards), the caches are DTensors at ``lm.cache_specs``' placements,
+and every rank samples the same tokens from the gathered logits.  A batch
+that the batch axes do not divide (a batch of 1 on a batch axis of 2) runs
+with the batch replicated (the policy without its batch axes, as the
+reference's dry-run does); ``_tile_cache`` lays the first fill's batch-1
+cache out at the batch's placements, ``slot_pos`` kept as without a mesh,
+and ``_splice_cache`` moves a batch-1 cache's rows into the rank that holds
+the slot.
 """
 from __future__ import annotations
 
@@ -52,6 +65,7 @@ from repro_torch import graphs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
+from repro_torch.sharding.policies import ShardingPolicy, is_dtensor
 
 __all__ = ["ServeConfig", "ServeEngine"]
 
@@ -72,24 +86,39 @@ class ServeEngine:
         params: dict,
         sc: ServeConfig = ServeConfig(),
         *,
+        pol: ShardingPolicy = ShardingPolicy(),
         device: str | torch.device | None = None,
         graph: bool | None = None,
     ):
         """``graph``: replay decode steps from CUDA graphs (``None``: on the
-        card yes, on the CPU no; ``True`` on the CPU raises)."""
+        card yes, on the CPU no, under a mesh only on a one-rank NCCL mesh;
+        ``True`` on the CPU raises).  ``pol``: the
+        sharding policy (the reference takes it third and positionally;
+        here it is a keyword, after ``sc``, so the port's callers keep
+        their order); under a mesh ``params`` must already be distributed
+        (``lm.distribute_params``)."""
         if cfg.modality != "text":
             raise NotImplementedError(f"{cfg.name}: the engine serves text archs, "
                                       f"not {cfg.modality} (as the reference's)")
         self.device = resolve_device(device)
+        emb = params["embed"]["tok"]
+        if is_dtensor(emb) != (pol.mesh is not None):
+            raise ValueError("params must be distributed over the policy's mesh "
+                             "(lm.distribute_params), and plain tensors without one")
+        if pol.mesh is not None and emb.device_mesh is not pol.mesh:
+            raise ValueError("params are distributed over another mesh than the policy's")
+        if graph is None and pol.mesh is not None and not _capturable(pol.mesh):
+            graph = False  # a collective that cannot be captured: eager by default
         self.graph = graphs.use_graph(graph, self.device)
         self._pool = torch.cuda.graph_pool_handle() if self.graph else None
-        emb = params["embed"]["tok"]
         if emb.device.type != self.device.type:
             raise ValueError(f"params lie on {emb.device}, the engine on {self.device}")
-        self.cfg, self.params, self.sc = cfg, params, sc
+        self.cfg, self.params, self.sc, self.pol = cfg, params, sc, pol
         self._gen = torch.Generator(device=self.device).manual_seed(sc.seed)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(logits):  # every rank samples from the whole rows
+            logits = logits.full_tensor()
         logits = logits[..., : self.cfg.vocab_size]
         if self.sc.temperature <= 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
@@ -99,19 +128,30 @@ class ServeEngine:
     def _tokens(self, toks: np.ndarray) -> dict:
         return {"tokens": torch.from_numpy(toks).to(self.device)}
 
-    @torch.inference_mode()
+    def _policy(self, batch: int) -> ShardingPolicy:
+        """The policy for a batch of ``batch`` rows: the engine's, without
+        its batch axes when they do not divide the batch (a batch of 1 on a
+        batch axis of 2), as the reference's dry-run drops them; DTensor
+        cannot flatten a dim it splits unevenly."""
+        if self.pol.mesh is None or batch % self.pol.dp_size == 0:
+            return self.pol
+        return dataclasses.replace(self.pol, batch_axes=())
+
+    def _no_grad(self):
+        return torch.inference_mode() if self.pol.mesh is None else torch.no_grad()
+
     def generate(
         self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 32
     ) -> list[list[int]]:
         """Serve all prompts (in waves of ``batch_slots``)."""
         out: list[list[int]] = []
-        for i in range(0, len(prompts), self.sc.batch_slots):
-            out.extend(self._wave(prompts[i : i + self.sc.batch_slots], max_new_tokens))
+        with self._no_grad():
+            for i in range(0, len(prompts), self.sc.batch_slots):
+                out.extend(self._wave(prompts[i : i + self.sc.batch_slots], max_new_tokens))
         return out
 
     # ---- continuous batching ------------------------------------------
 
-    @torch.inference_mode()
     def generate_continuous(
         self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 32
     ) -> list[list[int]]:
@@ -123,6 +163,10 @@ class ServeEngine:
         queued requests the position can pass that, and later writes are
         no-ops (the reference's behaviour).
         """
+        with self._no_grad():
+            return self._continuous(prompts, max_new_tokens)
+
+    def _continuous(self, prompts, max_new_tokens) -> list[list[int]]:
         b = self.sc.batch_slots
         plen = max(8, 1 << (max(len(p) for p in prompts) - 1).bit_length())
         queue = list(range(len(prompts)))
@@ -139,7 +183,8 @@ class ServeEngine:
         max_len = plen + max_new_tokens * 2  # headroom across refills
 
         def prefill(r):
-            return lm.prefill(self.params, padded(r), self.cfg, max_len=max_len)
+            return lm.prefill(self.params, padded(r), self.cfg, max_len=max_len,
+                              pol=self._policy(1))
 
         caches = None
         tok = np.zeros(b, np.int32)
@@ -151,14 +196,13 @@ class ServeEngine:
             tok[s_] = int(self._sample(logits)[0])
             results[r].append(int(tok[s_]))
             slot_req[s_], slot_left[s_] = r, max_new_tokens - 1
-            if caches is None:
-                caches = c1
-            else:
-                _splice_cache(caches, c1, s_)
+            caches = c1  # a batch-1 cache is replaced whole, as the reference's splice does
         if caches is None:
             return results
-        caches = _tile_cache(caches, b)  # the decode graph captures these tensors
-        decode = _Decode(self, caches, b, plen)
+        pol = self._policy(b)
+        specs = None if pol.mesh is None else lm.cache_specs(self.cfg, pol)
+        caches = _tile_cache(caches, b, pol, specs)  # the decode graph captures these tensors
+        decode = _Decode(self, caches, b, plen, pol)
         while any(sr >= 0 for sr in slot_req):
             logits = decode(torch.from_numpy(tok))
             nxt = self._sample(logits).cpu().numpy()
@@ -192,13 +236,14 @@ class ServeEngine:
         toks = np.zeros((b, plen), np.int32)
         for r, p in enumerate(prompts):
             toks[r, plen - len(p) :] = p  # left-pad (keeps last token hot)
+        pol = self._policy(b)
         logits, caches = lm.prefill(
-            self.params, self._tokens(toks), self.cfg, max_len=plen + max_new_tokens
+            self.params, self._tokens(toks), self.cfg, max_len=plen + max_new_tokens, pol=pol
         )
         results: list[list[int]] = [[] for _ in range(b)]
         done = np.zeros(b, bool)
         tok = self._sample(logits)
-        decode = _Decode(self, caches, b, plen)
+        decode = _Decode(self, caches, b, plen, pol)
         for _ in range(max_new_tokens):
             t = tok.cpu().numpy()
             for r in range(b):
@@ -220,15 +265,18 @@ class _Decode:
     batch's tokens ``[B]`` returns the step's logits ``[B, Vp]``, valid
     until the next call."""
 
-    def __init__(self, eng: ServeEngine, caches: list[dict], batch: int, pos: int):
+    def __init__(self, eng: ServeEngine, caches: list[dict], batch: int, pos: int,
+                 pol: ShardingPolicy | None = None):
         dev = eng.device
+        pol = eng.pol if pol is None else pol
         tokens = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
         position = torch.full((), pos, dtype=torch.int32, device=dev)
 
         def step() -> torch.Tensor:  # refers to no _Decode: no cycle keeps the graph alive
-            logits, _ = lm.decode_step(eng.params, caches, {"tokens": tokens}, position, eng.cfg)
+            logits, _ = lm.decode_step(eng.params, caches, {"tokens": tokens}, position, eng.cfg,
+                                       pol=pol)
             position.add_(1)
-            return logits
+            return logits.full_tensor() if is_dtensor(logits) else logits
 
         self.tokens = tokens
         self.run = graphs.stepper(step, dev, eng.graph, pool=eng._pool)
@@ -236,6 +284,16 @@ class _Decode:
     def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
         self.tokens.copy_(tokens.reshape(self.tokens.shape))
         return self.run()
+
+
+def _capturable(mesh) -> bool:
+    """Decode steps over ``mesh`` replay from a CUDA graph by default only
+    on an NCCL mesh of one rank, the one where capture was shown on the
+    card (its collectives are no-ops; gloo's are not capturable, and NCCL
+    across ranks has not run here)."""
+    import torch.distributed as dist
+
+    return mesh.size() == 1 and dist.get_backend() == "nccl"
 
 
 def _tree_map(fn, *trees):
@@ -248,13 +306,33 @@ def _tree_map(fn, *trees):
     return fn(*trees)
 
 
-def _tile_cache(cache, b: int):
-    """Broadcast a batch-1 cache to b slots (every slot a copy of slot 0)."""
-    def tile(x):
-        if x.dim() >= 2 and x.shape[1] == 1:  # [R, B=1, ...] per-layer stacks
-            return x.expand((x.shape[0], b) + tuple(x.shape[2:])).clone()
-        return x
-    return _tree_map(tile, cache)
+def _whole_batch(x: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor leaf ``[R, B, ...]`` with the batch dim
+    gathered whole (the other dims keep their placements)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    rep = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in x.placements]
+    return x.redistribute(x.device_mesh, rep).to_local()
+
+
+def _tile_cache(cache, b: int, pol: ShardingPolicy = ShardingPolicy(), specs=None):
+    """Broadcast a batch-1 cache to b slots (every slot a copy of slot 0);
+    the other leaves (``slot_pos``) are kept.  Under a mesh the tiled leaves
+    are laid out at ``specs``' placements under ``pol``, each rank tiling
+    its own rows of the batch-1 cache's gathered row."""
+    def tile(x, spec=None):
+        if not (x.dim() >= 2 and x.shape[1] == 1):  # [R, B=1, ...] per-layer stacks
+            return x
+        shape = (x.shape[0], b) + tuple(x.shape[2:])
+        if not is_dtensor(x):
+            return x.expand(shape).clone()
+        row = _whole_batch(x)
+        local, _ = pol.local_box(shape, spec=spec)
+        t = row.expand((row.shape[0], local[1]) + tuple(row.shape[2:])).clone()
+        if tuple(t.shape) != local:
+            raise ValueError(f"batch-1 shard {tuple(row.shape)} does not tile to {local}")
+        return pol.from_local(t, shape, spec=spec)
+    return _tree_map(tile, cache) if specs is None else _tree_map(tile, cache, specs)
 
 
 def _splice_cache(batched, single, slot: int):
@@ -269,7 +347,18 @@ def _splice_cache(batched, single, slot: int):
             and sc_.shape[1] == 1
             and bc.shape[0] == sc_.shape[0]
         ):
-            if bc.shape[1] == 1:
+            if is_dtensor(bc):  # the rank holding batch row ``slot`` writes it
+                from torch.distributed.tensor._utils import (
+                    compute_local_shape_and_global_offset,
+                )
+
+                src = _whole_batch(sc_)
+                _, off = compute_local_shape_and_global_offset(
+                    tuple(bc.shape), bc.device_mesh, bc.placements)
+                loc, i = bc.to_local(), slot - off[1]
+                if 0 <= i < loc.shape[1]:
+                    loc[:, i] = src[:, 0].to(loc.dtype)
+            elif bc.shape[1] == 1:
                 bc.copy_(sc_)
             else:
                 bc[:, slot] = sc_[:, 0].to(bc.dtype)

@@ -170,6 +170,55 @@ class ShardingPolicy:
             raise ValueError(f"pol.shard{roles}: {len(roles)} roles for a {x.ndim}-d tensor")
         return x.redistribute(self.mesh, self.placements(self.spec(*roles)))
 
+    def local_box(self, shape: tuple[int, ...], *roles: str | None,
+                  spec: PartitionSpec | None = None):
+        """``(local shape, offset)`` of this rank's shard of a tensor of
+        global ``shape`` laid out at the roles' placements (or ``spec``'s;
+        DTensor's cut, ``torch.chunk``'s: an uneven dim leaves the last
+        shards shorter or empty); the whole tensor at offset 0 without a
+        mesh."""
+        if self.mesh is None:
+            return tuple(shape), (0,) * len(shape)
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        spec = self.spec(*roles) if spec is None else spec
+        local, offset = compute_local_shape_and_global_offset(
+            tuple(shape), self.mesh, self.placements(spec))
+        return tuple(local), tuple(offset)
+
+    def local(self, x: torch.Tensor, *roles: str | None,
+              grad_partial: bool = False) -> torch.Tensor:
+        """This rank's plain shard of ``x`` at the roles' placements (``x``
+        redistributed there first); ``x`` itself without a mesh.
+        ``grad_partial``: every rank uses the whole of ``x`` over the mesh
+        dims it is replicated on for its own part of a split computation,
+        so its gradient there comes back as a partial sum."""
+        if self.mesh is None:
+            return x
+        x = self.shard(x, *roles)
+        if not grad_partial:
+            return x.to_local()
+        from torch.distributed.tensor import Partial, Replicate
+
+        return x.to_local(grad_placements=[Partial() if isinstance(p, Replicate) else p
+                                           for p in x.placements])
+
+    def from_local(self, t: torch.Tensor, shape: tuple[int, ...], *roles: str | None,
+                   spec: PartitionSpec | None = None):
+        """The DTensor of global ``shape`` whose shard on this rank is
+        ``t``, at the roles' placements (or ``spec``'s; every rank passes
+        its own shard, nothing is sent); ``t`` itself without a mesh.  The
+        DTensor is laid out contiguously (its views follow that layout), so
+        a shard that is not is copied first."""
+        if self.mesh is None:
+            return t
+        from torch.distributed.tensor import DTensor
+
+        spec = self.spec(*roles) if spec is None else spec
+        stride = torch.empty(shape, device="meta").stride()  # contiguous
+        return DTensor.from_local(t.contiguous(), self.mesh, self.placements(spec), run_check=False,
+                                  shape=torch.Size(shape), stride=stride)
+
     def named(self, *roles: str | None) -> Any:
         """``(mesh, placements)`` of the roles, or ``None`` without a mesh."""
         if self.mesh is None:

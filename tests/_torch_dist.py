@@ -403,3 +403,94 @@ def launcher_rank(rank: int, n: int, argv: list[str]) -> dict:
         hist = train.main(argv)
     return {"lines": out.getvalue().splitlines(), "steps": [h.step for h in hist],
             "losses": [h.loss for h in hist]}
+
+
+# -- sharded serving ---------------------------------------------------------------
+
+
+def _leaf_list(tree) -> list:
+    """The tensors of a nested cache (lists of dicts), in sorted-key order."""
+    if isinstance(tree, list):
+        return [t for sub in tree for t in _leaf_list(sub)]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaf_list(tree[k])]
+    return [tree]
+
+
+def _whole(t) -> np.ndarray:
+    from repro_torch.sharding.policies import is_dtensor
+
+    t = t.full_tensor() if is_dtensor(t) else t
+    return (t.float() if t.is_floating_point() else t).numpy().copy()
+
+
+def sharded_serve_runs(rank: int, n: int, cases: list, tokens: np.ndarray, steps: np.ndarray,
+                       prompts: list, max_new: int) -> list:
+    """The port's serving route under ``make_policy`` on a ``(n // 2, 2)``
+    ``("data", "model")`` mesh of gloo ranks, float32 compute, for each
+    ``(arch, flat params, config overrides, make_policy kwargs, engine)``
+    case: ``lm.prefill`` of ``tokens`` (room for the decode steps), then one
+    ``lm.decode_step`` per column of ``steps``, the logits and caches
+    gathered after each (every rank), with the shard shapes of the cache
+    leaves; with ``engine``, ``ServeEngine(pol=...)``'s greedy tokens for
+    ``prompts`` from ``generate`` (2 slots) and ``generate_continuous``, and
+    the logits of every decode step the engine made.  On
+    rank 0 also the same calls in one process without a mesh."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import convert
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import layers, lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve import engine as serve_engine
+    from repro_torch.sharding import make_policy
+    from repro_torch.train.optimizer import tree_map
+
+    layers.COMPUTE_DTYPE = torch.float32
+    mesh = init_device_mesh("cpu", (n // 2, 2), mesh_dim_names=("data", "model"))
+    out = []
+    for arch, flat, overrides, kw, engine in cases:
+        cfg = dataclasses.replace(ARCHS[arch].reduced(), **overrides)
+        params = tree_map(lambda t: t.float(), convert.lm_params(_unflatten(flat), cfg, "cpu"))
+
+        def serve(pol, p):
+            res = {}
+            with torch.no_grad():
+                logits, caches = lm.prefill(p, {"tokens": torch.from_numpy(tokens)}, cfg,
+                                            max_len=tokens.shape[1] + steps.shape[1], pol=pol)
+                res["prefill"] = _whole(logits)
+                res["prefill_caches"] = [_whole(t) for t in _leaf_list(caches)]
+                res["local_shapes"] = [tuple((t.to_local() if pol.mesh is not None else t).shape)
+                                       for t in _leaf_list(caches)]
+                res["decode"] = []
+                for i in range(steps.shape[1]):
+                    lg, caches = lm.decode_step(p, caches, {"tokens": torch.from_numpy(
+                        steps[:, i:i + 1].copy())}, tokens.shape[1] + i, cfg, pol=pol)
+                    res["decode"].append(_whole(lg))
+                res["decode_caches"] = [_whole(t) for t in _leaf_list(caches)]
+            if engine:
+                eng = ServeEngine(cfg, p, ServeConfig(batch_slots=2), pol=pol, device="cpu")
+                call, seen = serve_engine._Decode.__call__, []
+
+                def record(self, toks):  # every decode step's logits, whole
+                    lg = call(self, toks)
+                    seen.append(_whole(lg))
+                    return lg
+
+                serve_engine._Decode.__call__ = record
+                try:
+                    res["generate"] = eng.generate(prompts, max_new)
+                    res["continuous"] = eng.generate_continuous(prompts, max_new)
+                finally:
+                    serve_engine._Decode.__call__ = call
+                res["engine_decode"] = seen
+            return res
+
+        pol = make_policy(mesh, **kw)
+        res = serve(pol, lm.distribute_params(tree_map(lambda t: t.clone(), params), cfg, pol))
+        if rank == 0:
+            res["plain"] = serve(make_policy(None), params)
+        out.append(res)
+    return out

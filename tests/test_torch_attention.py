@@ -142,3 +142,59 @@ def test_decode_validity_paths_agree(n, dtype):
     torch.testing.assert_close(by_slot, by_len, rtol=0, atol=0)
     assert torch.equal(ops.decode_attention(q, k, v, slot_pos=slot_pos), by_len)
 
+
+
+# -- the arguments the sharded serving route needs -----------------------------
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24), (False, None), (False, 7)])
+@pytest.mark.parametrize("offset", [0, 37, 64])
+def test_attention_ref_q_offset_rows_equal_the_whole_run(causal, window, offset):
+    """``attention_ref(q_offset=o)`` on q rows ``[o, S)`` against the whole
+    K/V is the whole run's rows ``[o, S)`` (a rank's rows of a sequence
+    split over ``tp``): float32, 1e-6."""
+    gen = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn((2, h, 128, 32), generator=gen) for h in (4, 2, 2))
+    whole = attention_ref(q, k, v, causal=causal, window=window)
+    rows = attention_ref(q[:, :, offset:], k, v, causal=causal, window=window, q_offset=offset)
+    torch.testing.assert_close(rows, whole[:, :, offset:], rtol=1e-6, atol=1e-6)
+    via_ops = ops.attention(q[:, :, offset:], k, v, causal=causal, window=window,
+                            q_offset=offset)
+    assert torch.equal(via_ops, rows)
+
+
+@pytest.mark.parametrize("cuts", [(0, 40, 100), (0, 30, 70, 100)])
+@pytest.mark.parametrize("windowed", [False, True])
+def test_combine_partials_equals_the_whole_decode(cuts, windowed):
+    """K4's plain version with ``return_lse`` on 2 and 3 slices of the
+    cache's slots, combined by ``combine_partials``, is the whole decode
+    attention (float32, 1e-6); the middle slice holds no valid slot (its
+    ``slot_pos`` is -1, or below the window's bound), so it returns
+    ``o = 0`` and ``lse = -inf`` and weighs nothing."""
+    from repro_torch.kernels.ref import combine_partials
+
+    gen = torch.Generator().manual_seed(12)
+    b, hq, hkv, w, d = 3, 8, 2, cuts[-1], 32
+    q = torch.randn((b, hq, d), generator=gen)
+    k, v = (torch.randn((b, hkv, w, d), generator=gen) for _ in "kv")
+    slot_pos = torch.arange(w, dtype=torch.int32)
+    lo = -1
+    if windowed:
+        slot_lo = cuts[2] - 1  # the window keeps positions from cuts[2] on
+        slot_pos[:cuts[1]] = torch.arange(cuts[1], dtype=torch.int32) + cuts[-1]  # ring: newest
+        lo = slot_lo
+    slot_pos[cuts[1]:cuts[2]] = -1 if not windowed else lo - 5
+    whole = decode_attention_ref(q, k, v, slot_pos=slot_pos, slot_lo=lo)
+    os, lses = [], []
+    for a, e in zip(cuts, cuts[1:]):
+        o, lse = decode_attention_ref(q, k[:, :, a:e], v[:, :, a:e], slot_pos=slot_pos[a:e],
+                                      slot_lo=lo, return_lse=True)
+        os.append(o)
+        lses.append(lse)
+    assert torch.equal(os[1], torch.zeros_like(os[1]))
+    assert torch.isneginf(lses[1]).all()
+    got = combine_partials(torch.stack(os), torch.stack(lses))
+    torch.testing.assert_close(got, whole, rtol=1e-6, atol=1e-6)
+    _, lse_whole = decode_attention_ref(q, k, v, slot_pos=slot_pos, slot_lo=lo, return_lse=True)
+    torch.testing.assert_close(torch.logsumexp(torch.stack(lses), 0), lse_whole, rtol=1e-6,
+                               atol=1e-6)

@@ -23,6 +23,12 @@ unless an allowance is listed for it:
   ``benchmarks``); the support module itself holds only those functions,
   each code-equal to its source.
 
+* ``defs`` — every top-level function, class and assignment of the
+  reference's module (docstrings removed) is in the port's, equal; the port
+  imports its own modules in place of the reference's and may define the
+  names listed in ``EXTRA_DEFS`` beside them (``roofline/analysis.py``: the
+  H100 beside the TPU v5e, its totals from the dispatch count, not HLO).
+
 A ``docstrings`` copy listed in ``RENAMED`` also renames one keyword
 inside one function (``restore``'s ``shardings=`` is the port's
 ``device=``): its code is compared with the port's name read back.
@@ -49,6 +55,8 @@ RENAMED: dict[str, tuple[str, dict[str, str]]] = {
 #: the port's copies of the benchmark helpers the scenarios import, by source module
 SUPPORT = {"build_device_traffic": "benchmarks.common", "paper_fabric": "benchmarks.common",
            "_edit_batch": "benchmarks.replan_bench"}
+#: ``defs`` copies: the top-level names the port's module adds
+EXTRA_DEFS = {"roofline/analysis.py": {"H100"}}
 HIERARCHICAL_NUMPY = ("dispatch_bytes", "dispatch_messages", "dispatch_rounds",
                       "dispatch_messages_from_table")
 HIERARCHICAL_COLLECTIVE = ("flat_all_to_all", "two_level_all_to_all", "two_level_all_gather",
@@ -101,6 +109,8 @@ COPIES = {
     # training
     "data/pipeline.py": None,
     "data/__init__.py": None,
+    # the roofline
+    "roofline/analysis.py": "defs",
 }
 
 
@@ -174,6 +184,19 @@ def _code_only(src: str) -> str:
     return ast.unparse(_strip_docstrings(ast.parse(src)))
 
 
+def _defs(src: str) -> dict[str, str]:
+    """Top-level functions, classes and single-name assignments (but
+    ``__all__``), docstrings removed, by name."""
+    out = {}
+    for node in _strip_docstrings(ast.parse(src)).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ast.dump(node)
+        elif (isinstance(node, ast.Assign) and len(node.targets) == 1
+              and isinstance(node.targets[0], ast.Name) and node.targets[0].id != "__all__"):
+            out[node.targets[0].id] = ast.dump(node)
+    return out
+
+
 def _functions(src: str) -> dict[str, str]:
     return {node.name: ast.dump(node) for node in ast.parse(src).body
             if isinstance(node, ast.FunctionDef)}
@@ -195,6 +218,11 @@ def test_copy_equals_reference(rel):
     elif allowance == "support":
         assert _code(_from_support(port)) == _code(ref), (
             f"{rel}: code drifted from src/repro/{rel}")
+    elif allowance == "defs":
+        mine, theirs = _defs(port), _defs(ref)
+        assert set(mine) - set(theirs) == EXTRA_DEFS[rel], f"{rel}: extra names"
+        for name, node in theirs.items():
+            assert mine.get(name) == node, f"{rel}:{name} drifted from src/repro/{rel}"
     elif allowance == "exports":
         assert _code(port) == _without_modules(ref, NOT_PORTED[rel]), (
             f"{rel}: code drifted from src/repro/{rel}")

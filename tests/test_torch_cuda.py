@@ -345,6 +345,99 @@ def test_decode_attention_matches_plain(dev, dtype, b, hq, hkv, s, d, ragged):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,offset", [
+    (1, 24, 8, 1024, 128, None, 512),  # phi4-mini's prefill, the second half over tp
+    (2, 16, 1, 512, 256, 128, 200),  # recurrentgemma's local layer, an offset inside a tile
+    (1, 4, 2, 300, 64, None, 77),  # ragged rows past the last 128-row tile
+    (1, 4, 2, 256, 32, 64, 100),  # head 32 (the mma.sync kernel)
+])
+def test_flash_attention_q_offset_matches_plain(dev, dtype, b, hq, hkv, s, d, window, offset):
+    """K3 on q rows ``[offset, S)`` with ``q_offset`` (a rank's rows of a
+    sequence split over ``tp``) against the whole K/V: the plain version's
+    rows and K3's whole run's rows, within the sweep's tolerances."""
+    from repro_torch.kernels import attention as k
+    from repro_torch.kernels.ref import attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    q, kk, v = (torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+                for h in (hq, hkv, hkv))
+    rows = q[:, :, offset:]
+    before = k.LAUNCHES["flash_attention"]
+    out = k.flash_attention(rows, kk, v, causal=True, window=window, q_offset=offset)
+    assert k.LAUNCHES["flash_attention"] == before + 1
+    want = attention_ref(rows, kk, v, causal=True, window=window, q_offset=offset)
+    torch.testing.assert_close(out.float(), want.float(), **ATTN_TOL[dtype])
+    whole = k.flash_attention(q, kk, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), whole[:, :, offset:].float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,w,d,ring", [
+    (4, 24, 8, 1040, 128, False),  # phi4-mini's decode cache, split in two halves
+    (4, 16, 1, 2048, 256, True),  # recurrentgemma's ring, its window bound on the device
+])
+def test_decode_attention_lse_combines_over_slot_splits(dev, dtype, b, hq, hkv, w, d, ring):
+    """K4 with ``return_lse`` on each half of the cache's slots (the
+    sharded decode's slots over ``tp``), combined by ``combine_partials``,
+    against K4's whole run and the plain version; the log-sum-exps against
+    the plain version's; a slice with no valid slot gives ``o = 0`` and
+    ``lse = -inf``."""
+    from repro_torch.kernels import attention as k
+    from repro_torch.kernels.ref import combine_partials, decode_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q = torch.randn((b, hq, d), generator=gen, device=dev).to(dtype)
+    kc, vc = (torch.randn((b, w, hkv, d), generator=gen, device=dev).to(dtype) for _ in "kv")
+    kv = kc.transpose(1, 2), vc.transpose(1, 2)
+    pos = w + w // 3
+    if ring:  # slot i holds the newest position congruent to i
+        sp = torch.tensor([p if p <= pos else p - w for p in range(w, 2 * w)],
+                          dtype=torch.int32, device=dev)
+        lo = torch.tensor(pos - w // 2, dtype=torch.int32, device=dev)
+    else:
+        sp = torch.arange(w, dtype=torch.int32, device=dev)
+        sp[1000:] = -1  # the headroom past the prompt
+        lo = -1
+    half = w // 2
+    parts = [k.decode_attention(q, kv[0][:, :, a:a + half], kv[1][:, :, a:a + half],
+                                slot_pos=sp[a:a + half].contiguous(), slot_lo=lo,
+                                return_lse=True) for a in (0, half)]
+    got = combine_partials(torch.stack([o for o, _ in parts]), torch.stack([l for _, l in parts]))
+    whole = k.decode_attention(q, *kv, slot_pos=sp, slot_lo=lo)
+    torch.testing.assert_close(got.float(), whole.float(), **ATTN_TOL[dtype])
+    want, lse = decode_attention_ref(q, *kv, slot_pos=sp, slot_lo=lo, return_lse=True)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    for (o, l), a in zip(parts, (0, half)):
+        _, wl = decode_attention_ref(q, kv[0][:, :, a:a + half], kv[1][:, :, a:a + half],
+                                     slot_pos=sp[a:a + half], slot_lo=lo, return_lse=True)
+        torch.testing.assert_close(l, wl, **ATTN_TOL[torch.float32])
+    none = torch.full((half,), -1, dtype=torch.int32, device=dev)
+    o, l = k.decode_attention(q, kv[0][:, :, :half], kv[1][:, :, :half], slot_pos=none,
+                              return_lse=True)
+    assert torch.equal(o, torch.zeros_like(o)) and torch.isneginf(l).all()
+
+
+def test_kernels_launch_nothing_on_an_empty_batch(dev):
+    """A rank's empty shard of the batch: K3, K4, K5 and K6 return outputs
+    of the right shapes at once and count no launch."""
+    from repro_torch.kernels import LAUNCHES, ops
+
+    before = dict(LAUNCHES)
+    bf = torch.bfloat16
+    q = torch.zeros((0, 4, 64, 128), dtype=bf, device=dev)
+    kv = torch.zeros((0, 2, 64, 128), dtype=bf, device=dev)
+    assert ops.attention(q, kv, kv, q_offset=64).shape == q.shape
+    o, lse = ops.decode_attention(q[:, :, 0], kv, kv, return_lse=True)
+    assert o.shape == (0, 4, 128) and lse.shape == (0, 4)
+    x = torch.zeros((0, 128, 4, 64), device=dev)
+    a, bc = torch.zeros((0, 128, 4), device=dev), torch.zeros((0, 128, 1, 16), device=dev)
+    y, st = ops.ssd(x, a, bc, bc, chunk=128, return_state=True)
+    assert y.shape == x.shape and st.shape == (0, 4, 16, 64)
+    assert ops.rglru(a, a).shape == a.shape
+    assert dict(LAUNCHES) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv,d", [(16, 1, 256), (6, 2, 128), (32, 1, 128)])
 def test_decode_attention_slot_validity(dev, dtype, hq, hkv, d):
     """A ring buffer whose valid slots are not a prefix (window 64, a
@@ -980,3 +1073,20 @@ def test_sharded_train_step_on_a_one_rank_mesh(dev):
     assert out["step1_loss_rel_diff"]["value"] <= out["step1_loss_rel_diff"]["bound"]
     assert len(out["sharded"]["losses"]) == 3 and out["sharded"]["step_profile"]["kernels_per_step"]
     assert "DTensor" in out["k3_refuses_dtensor"]
+
+
+def test_sharded_serve_on_a_one_rank_mesh(dev):
+    """``chip_smoke.py`` phase ``sharding``'s (c) and (d) at the reduced phi4:
+    ``ServeEngine(pol=...)`` on a one-rank NCCL ``(1, 1)`` mesh gives the
+    unsharded engine's greedy tokens with both schedulers, each call
+    launching its layers' K3 / K4, decode replayed from a CUDA graph; and
+    the dry-run's count of phi4's decode step on that mesh is priced."""
+    import chip_smoke
+    from repro_torch.configs import ARCHS
+
+    with chip_smoke._one_rank_mesh(dev) as mesh:
+        out = chip_smoke._sharded_serve(dev, mesh, ARCHS["phi4-mini-3.8b"].reduced(), new=8)
+        assert out["tokens_equal_unsharded"] == ["generate", "generate_continuous"]
+        assert all(r["graph"] and r["captures"] for r in out["sharded"].values())
+        dry = chip_smoke._dryrun_vs_card(mesh, None)
+    assert dry["flops_per_step"] > 0 and dry["dominant"] == "memory"
