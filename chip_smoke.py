@@ -48,7 +48,12 @@ nonzero.
    recurrentgemma-9b's prefills give it (batch 4 at 1,024 and 512 tokens,
    batch 1 at 1,024 and 4,096), each with its launch geometry
    (``rglru_plan``), the hash of its trace and the exact traces of a = b =
-   1 (t + 1) and a = 0 (b).  Kernel, plain, library-yardstick (none for
+   1 (t + 1) and a = 0 (b).  ``threefry`` (JAX's threefry2x32 draws, no
+   Pallas counterpart) against ``random.draw_ref`` at the main paths'
+   shapes (``THREEFRY_CASES``: a rank-stacked LIF draw after a split, phi4's
+   sampler, one full-width phi4 bf16 leaf): keys, split and bits bit-equal,
+   float32 normals and gumbels within 2 ulp, bf16 normals within one bf16
+   ulp; ``torch.randn`` of the same shape as the library yardstick.  Kernel, plain, library-yardstick (none for
    the scans) and bound times (``ssd_scan``'s 3xTF32 products at the TF32
    peak); at the main paths' shapes, and for every spike-accumulation
    case, also the kernel's device time (``torch.profiler``).
@@ -78,6 +83,9 @@ nonzero.
    kernel as its current hook (replayed, and eager as its check), whose
    device time per step under the raster's own spikes is profiled in a
    second, uncounted run; a lost ragged payload changes the raster.
+   ``noise_2``: the sparse run again at ``noise_sigma=2``, replayed (one
+   ``threefry`` launch a step, counted), equal to its eager run, beside the
+   noise-free run's ms a step, with its CUDA kernels a step.
    Beside the greedy plan, ``multilevel_partition``'s cut and host seconds
    on the same graph, and beside the closed-form latency the netsim one
    (``estimate(model="netsim")``, one switch and the reference benchmarks'
@@ -148,9 +156,12 @@ nonzero.
    prefill, 12 local-attention layers with a ring-buffer cache), each
    freed before the next: (a) the reduced config, prefill of 64 tokens and
    8 teacher-forced decode steps on the card and on the CPU from the same
-   numpy parameters, logits within two bf16 steps (bf16) and 1e-3
-   (float32); (b) full width and depth, bf16, random weights from a seed:
-   8 requests (prompt lengths 64-1,000) through ``ServeEngine.generate``
+   numpy parameters (``init_params`` drawn on both, every leaf held card
+   against CPU), logits within two bf16 steps (bf16) and 1e-3 (float32);
+   (b) full width and depth, bf16, random weights from a seed (one
+   ``threefry`` launch a leaf; ``leaf_card_vs_cpu``: 2^21 values of the
+   last bf16 normal leaf drawn again on the CPU, within one bf16 ulp): 8
+   requests (prompt lengths 64-1,000) through ``ServeEngine.generate``
    (waves of 4) and ``generate_continuous``, 64 greedy tokens each (for
    recurrentgemma-9b also one batch-1 request of 4,096 tokens, two
    windows), every prefill and every decode step launching exactly one
@@ -248,7 +259,7 @@ nonzero.
    predicted bound, its dominant term and memory term beside phase 5's
    measured replayed device ms a step.
 6. The launches of ``rglru_scan`` on recurrentgemma-9b's main path by
-   input shape and by batch; a ``kernels`` line (all six kernels; K2 at 1 %
+   input shape and by batch; a ``kernels`` line (all seven kernels; K2 at 1 %
    firing on W f32[32768, 4096] and at the oracle's shape, K3 and K4 at
    phi4-mini-3.8b's, recurrentgemma-9b's and qwen3-moe's shapes, K6 at the batch-4
    wave and the batch-1 prefill of 1,024 tokens; K3 with ``q_offset`` and K4
@@ -259,8 +270,9 @@ nonzero.
 Each main path (phases 3-4, each model of phase 5, ``serve_qwen3_moe``,
 ``frontends``, each part of phase ``train``, phase ``sharding``) runs with the
 launch counts set to 0 just before it and read just after, and must have
-launched each of its kernels (the training parts (a) and (b) none;
-``sharding`` K3 and K4, from its pipeline and its sharded serving); the
+launched each of its kernels (every path but ``recovery`` ``threefry``:
+noise or weights; the training parts (a) and (b) no other; ``sharding`` K3
+and K4, from its pipeline and its sharded serving); the
 ``kernels`` line sums them.  A process
 rank of phase ``comm`` counts its own launches the same way, and K1's
 row of the ``kernels`` line gives them per rank.  Runs made
@@ -969,6 +981,103 @@ def phase_scans(dev, rate: float) -> dict:
     return result
 
 
+INT32_PEAK = F32_PEAK / 4  # H100 SXM INT32 op/s: 64 INT32 lanes an SM to 128 FP32, an FMA counts 2
+# float operations a value of each map after the hash, about (an FMA as two):
+# uniform's subtract, multiply-add and max; normal's log1p (two degree-7
+# polynomials and a quotient), erf_inv's degree-8 polynomial and the scale;
+# gumbel's two logarithms (Cephes' degree-8 polynomial each)
+# no Pallas kernel: the reference's draws are jax.random calls, which XLA
+# lowers to threefry2x32 itself
+THREEFRY_REPLACES = ("none (XLA's threefry2x32 under jax.random: src/repro/snn/neuron.py:80, "
+                     "src/repro/serve/engine.py:70, src/repro/models/lm.py:253)")
+THREEFRY_FLOPS = {"bits": 0, "uniform": 4, "normal": 75, "gumbel": 75}
+THREEFRY_ULPS = {"normal/float32": 2, "gumbel/float32": 2, "normal/bfloat16": 1}
+# name, key rows, values a row, kind, dtype, split first: the main paths'
+# draws (a rank-stacked LIF step of the real-size network, 8 ranks of 4,096
+# neurons; phi4's sampler, Gumbel noise over 4 rows of its vocabulary from one
+# key; one full-width phi4 leaf, the stacked attention wk [32, 3072, 1024])
+THREEFRY_CASES = [
+    ("lif_noise", 8, 4096, "normal", "float32", True),
+    ("phi4_sampler", 1, 4 * 200064, "gumbel", "float32", False),
+    ("phi4_leaf", 1, 32 * 3072 * 1024, "normal", "bfloat16", False),
+]
+
+
+def _ulps(got, want, dtype) -> float:
+    """Largest ``|got - want|`` in units of ``want``'s last place in
+    ``dtype`` (float32 or bfloat16); equal values, infinities too, count 0."""
+    import torch
+
+    got, want = got.double(), want.double()
+    mant = 7 if dtype == torch.bfloat16 else 23  # stored mantissa bits
+    step = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0**-126))) - mant)
+    diff = torch.where(got == want, 0.0, (got - want).abs())
+    return float((diff / step).max())
+
+
+def phase_threefry(dev, rate: float) -> dict:
+    """The ``threefry`` kernel against its plain version
+    (``random.draw_ref`` / ``split_ref``, PyTorch on the card) at the main
+    paths' shapes: keys and split bit-equal, the raw bits of every value
+    bit-equal, float32 normals and gumbels within 2 ulp, bfloat16 normals
+    within one bfloat16 ulp, two runs bit-identical.  ``torch.randn`` of the
+    same shape and dtype is the library yardstick (another generator, Philox:
+    not the same numbers).  The bound counts the bytes written (keys read
+    once), about 73 INT32 operations a value (one threefry2x32 hash and the
+    xor of its words; with ``split_first`` two hashes a row more) at the INT32
+    rate, and the map's float operations at the FP32 rate."""
+    import torch
+
+    from repro_torch import random
+    from repro_torch.kernels import threefry as k
+
+    cases, worst = {}, 0.0
+    for name, rows, n, kind, dtype_name, split_first in THREEFRY_CASES:
+        dtype = getattr(torch, dtype_name)
+        root = random.PRNGKey(3, device=dev)[None]
+        keys = k.split(root, rows)[0]
+        check(torch.equal(keys, random.split_ref(root, rows)[0]), f"{name}: split differs")
+        bits = k.draw(keys, n, random.KINDS["bits"], torch.int64)
+        check(torch.equal(bits, random.draw_ref(keys, n, random.KINDS["bits"], torch.int64)),
+              f"{name}: bits differ")
+        del bits
+        lo, diff = random.bounds(kind, dtype)
+        code = random.KINDS[kind]
+        kern = lambda: k.draw(keys, n, code, dtype, lo, diff, split_first=split_first)  # noqa: E731
+        plain = lambda: random.draw_ref(keys, n, code, dtype, lo, diff,  # noqa: E731
+                                        split_first=split_first)
+        lib = lambda: torch.randn((rows, n), dtype=dtype, device=dev)  # noqa: E731
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        if split_first:
+            check(torch.equal(got[0], want[0]) and torch.equal(got[0], again[0]),
+                  f"{name}: new keys differ")
+            got, again, want = got[1], again[1], want[1]
+        check(torch.equal(got, again), f"{name}: reruns differ")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite draws")
+        ulps = _ulps(got, want, dtype)
+        limit = THREEFRY_ULPS[f"{kind}/{dtype_name}"]
+        check(ulps <= limit, f"{name}: {ulps} ulp from the plain version (limit {limit})")
+        values = rows * n
+        nbytes = rows * 16 * (2 if split_first else 1) + values * got.element_size()
+        int_ops = values * (k.HASH_OPS + 1) + (2 * rows * k.HASH_OPS if split_first else 0)
+        t_ops = max(int_ops / INT32_PEAK, values * THREEFRY_FLOPS[kind] / F32_PEAK) * 1e3
+        t_bytes = nbytes / rate * 1e3
+        cases[name] = {
+            "rows": rows, "values_per_row": n, "kind": kind, "dtype": dtype_name,
+            "split_first": split_first, "max_ulp_vs_plain": ulps, "ulp_limit": limit,
+            "bit_equal_share": float((got == want).double().mean()), "bits_equal": True,
+            "bit_identical_rerun": True, "max_abs_diff_vs_plain": float(
+                (got.double() - want.double()).abs().max()),
+            **timings(kern, plain, lib, True),
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
+            else "bytes", "int_ops": int_ops, "library": "torch.randn (Philox)"}
+        worst = max(worst, cases[name]["max_abs_diff_vs_plain"])
+        del got, again, want
+    torch.cuda.empty_cache()
+    return {"threefry": {"cases": cases, "max_abs_err": worst}}
+
+
 # -- phase 3 ---------------------------------------------------------------
 
 
@@ -1274,6 +1383,8 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
     if profiles:
         out["profile"] = profiles
     runs["ragged_fused"]["step_profile"] = engine("ragged").step_profile(4)
+    out["noise_2"] = _noisy_real_size(mesh, drive, syn, tiles, dev, steps, runs["sparse"],
+                                      rasters["sparse"], timed)
     raster = rasters["sparse"]
     for tag in ("ragged_fused", "ragged_per_round"):
         check(torch.equal(rasters[tag], raster), f"{tag} != sparse")
@@ -1348,6 +1459,50 @@ def phase_real_size(device: str, n_pop: int = 2048, npp: int = 16,
                     rasters={tag: r.to(torch.uint8).cpu().numpy() for tag, r in rasters.items()},
                     ms_per_step={tag: run["ms_per_step"] for tag, run in runs.items()})
     del w, tiles
+    return out
+
+
+def _noisy_real_size(mesh, drive, syn, tiles, dev, steps: int, quiet: dict, quiet_raster,
+                     timed) -> dict:
+    """The real-size ``sparse`` run again with channel noise
+    (``noise_sigma=2``), replayed: every step splits each rank's key and
+    draws its 4,096 normals in one ``threefry`` launch (counted, one a step),
+    beside one ``spike_accum_blocks`` launch.  Its ms a step beside the
+    noise-free run's (``quiet``, ``quiet_raster``), its CUDA kernels a step
+    (profiled), and, uncounted, the same run op by op: the same raster; the
+    noise changes it."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.snn import DistributedSNN, LIFParams, LoopbackComm
+
+    def engine(graph=None):
+        return DistributedSNN(mesh=mesh, params=LIFParams(noise_sigma=2.0), exchange="sparse",
+                              i_ext=drive, syn=syn, tiles=tiles, device=dev, graph=graph)
+
+    per_run = steps if dev.type == "cuda" else 0  # a CPU run takes the plain versions
+    eng = engine()
+    with uncounted():  # warm up
+        eng.run(steps)
+    before = dict(LAUNCHES)
+    raster, wall, capture_s = timed(lambda: eng.run(steps, comm=LoopbackComm(mesh, dev)))
+    launched = {k: LAUNCHES[k] - before[k] for k in ("threefry", "spike_accum_blocks")}
+    # threefry: the split of PRNGKey(seed) into the ranks' keys, then a step each
+    want = {"threefry": per_run + (per_run > 0), "spike_accum_blocks": per_run}
+    check(launched == want, f"noise_2: launches {launched} for {steps} steps, not {want}")
+    check(not torch.equal(raster, quiet_raster), "noise_2: the noise left the raster unchanged")
+    with uncounted():
+        eager = engine(graph=False).run(steps)
+        check(torch.equal(eager, raster), "noise_2: replayed raster != eager")
+        prof = (_per_step(_device_profile(engine().run, steps), steps)
+                if dev.type == "cuda" else None)
+    ms = (wall - capture_s) / steps * 1e3
+    out = {"ms_per_step": ms, "noise_free_ms_per_step": quiet["ms_per_step"],
+           "delta_ms_per_step": ms - quiet["ms_per_step"], "capture_s": capture_s,
+           "launches": launched,
+           "spikes": int(raster.sum()), "mean_rate": float(raster.mean()),
+           "replayed_equals_eager": True, "profile": prof}
+    out.update(sustained(raster, steps // 2))
     return out
 
 
@@ -2127,16 +2282,27 @@ def _bf16_close(got, want, n_vocab: int) -> tuple[float, float]:
     return float((got - want).abs().max()), excess - 2**-6 * rms
 
 
-def _numpy_params(cfg, seed: int) -> dict:
-    """The LM's parameter tree as numpy float32, drawn from a seed (on the
-    host, with the model's own initialisers)."""
+def _numpy_params(cfg, seed: int, dev) -> dict:
+    """The LM's parameter tree as numpy float32, ``init_params(cfg, seed)``
+    drawn on the host; also drawn on ``dev`` (``threefry``) and held to the
+    host's leaf by leaf: float32 leaves within 2 ulp, bfloat16 within one
+    bfloat16 ulp."""
+    import torch
+
     from repro_torch.models import lm
+
+    host = lm.init_params(cfg, seed, device="cpu")
+    card = dict(_paths(lm.init_params(cfg, seed, device=dev)))
+    for path, want in _paths(host):
+        ulps = _ulps(card[path].cpu(), want, want.dtype)
+        check(ulps <= (2 if want.dtype == torch.float32 else 1),
+              f"{cfg.name} {'/'.join(path)}: card and CPU draws {ulps} ulp apart")
 
     def to_np(node):
         return {k: to_np(v) for k, v in node.items()} if isinstance(node, dict) \
             else node.float().numpy()
 
-    return to_np(lm.init_params(cfg, seed, device="cpu"))
+    return to_np(host)
 
 
 def _front_end_batch(cfg, b: int, s: int, seed: int) -> tuple[dict, int]:
@@ -2171,7 +2337,7 @@ def _card_vs_cpu(dev, arch: str, kv) -> dict:
     cfg = ARCHS[arch].reduced()
     if kv:
         cfg = dataclasses.replace(cfg, n_kv_heads=kv)
-    tree = _numpy_params(cfg, 0)
+    tree = _numpy_params(cfg, 0, dev)  # the card's draw held to the CPU's
     batch, nv = _front_end_batch(cfg, 2, 72, 1)
     out = {}
     for dtype, label in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
@@ -2344,7 +2510,7 @@ def _launches_per_call(cfg) -> tuple[dict, dict]:
     per layer of the kernel its mixer runs, nothing else."""
     pat = cfg.layer_pattern
     n_attn = sum(m in ("full", "swa", "local") for m in pat)
-    zero = {"spike_accum_blocks": 0, "spike_accum": 0}
+    zero = {"spike_accum_blocks": 0, "spike_accum": 0, "threefry": 0}  # greedy: no draws
     prefill = {**zero, "flash_attention": n_attn, "decode_attention": 0,
                "ssd_scan": pat.count("ssm"), "rglru_scan": pat.count("rglru")}
     decode = {**zero, "flash_attention": 0, "decode_attention": n_attn,
@@ -2457,6 +2623,8 @@ def phase_serve(dev, arch: str) -> dict:
     torch.cuda.synchronize()
     out["init_params_s"] = time.perf_counter() - t0
     out["param_bytes"] = sum(int(t.numel() * t.element_size()) for t in _leaves(params))
+    with uncounted():
+        out["leaf_card_vs_cpu"] = _leaf_vs_cpu(params, cfg, 0)
     rng = np.random.default_rng(0)
     lens = rng.integers(64, 1001, SERVE_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
@@ -2549,6 +2717,49 @@ def phase_serve(dev, arch: str) -> dict:
     del params, eng
     torch.cuda.empty_cache()
     return out
+
+
+LEAF_VALUES = 1 << 21  # values of one weight leaf drawn again on the CPU
+
+
+def _leaf_vs_cpu(params, cfg, seed: int) -> dict:
+    """One leaf of ``init_params(cfg, seed)`` as the card drew it (one
+    ``threefry`` launch) against the same values drawn on the CPU by the
+    plain version: the last bfloat16 ``normal`` leaf in the reference's
+    leaf order, its first ``LEAF_VALUES`` values, which the CPU draws alone
+    under the leaf's key (row ``i`` of ``split(PRNGKey(seed), n_leaves)``,
+    ``i`` its place in that order), since each value hashes its own flat
+    index.  Within one bfloat16 ulp."""
+    import torch
+
+    from repro_torch import random
+    from repro_torch.models import lm
+
+    defs = list(_paths(lm.param_defs(cfg)))
+    i, (path, pd) = [(j, d) for j, d in enumerate(defs)
+                     if d[1].init == "normal" and d[1].dtype == torch.bfloat16][-1]
+    key = random.split(random.PRNGKey(seed), len(defs))[i]
+    t0 = time.perf_counter()
+    scale = torch.tensor(pd.scale, dtype=torch.float32).to(pd.dtype)
+    want = random.normal(key, (LEAF_VALUES,), pd.dtype) * scale
+    cpu_s = time.perf_counter() - t0
+    leaf = params
+    for k in path:
+        leaf = leaf[k]
+    got = leaf.reshape(-1)[:LEAF_VALUES].cpu()
+    ulps = _ulps(got, want, pd.dtype)
+    check(ulps <= 1, f"{'/'.join(path)}: card and CPU draws {ulps} bfloat16 ulp apart")
+    return {"leaf": "/".join(path), "shape": list(pd.shape), "leaf_index": i,
+            "n_leaves": len(defs), "values": LEAF_VALUES, "max_ulp": ulps,
+            "bit_equal_share": float((got == want).double().mean()), "cpu_draw_s": cpu_s}
+
+
+def _paths(tree: dict, prefix: tuple = ()):
+    """``(path, leaf)`` of a parameter tree in sorted-key order, the
+    reference's ``jax.tree.flatten`` order."""
+    for k in sorted(tree):
+        v = tree[k]
+        yield from _paths(v, (*prefix, k)) if isinstance(v, dict) else [((*prefix, k), v)]
 
 
 def _leaves(tree: dict):
@@ -3380,7 +3591,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     rate, rate_note = mem_rate(name)
     t0 = time.perf_counter()
-    sources = ("spike_accum", "attention", "scan")
+    sources = ("spike_accum", "attention", "scan", "random")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         for fut in [pool.submit(_build.build_library, src) for src in sources]:
             fut.result()
@@ -3394,6 +3605,7 @@ def main() -> int:
     kern = phase_kernels(dev, rate)
     kern.update(phase_attention(dev, rate))
     kern.update(phase_scans(dev, rate))
+    kern.update(phase_threefry(dev, rate))
     emit({"phase": "kernels_check", **kern})
 
     # each main path runs with the counts set to 0 just before it and read
@@ -3415,7 +3627,7 @@ def main() -> int:
         return got
 
     kept: dict = {}
-    path(("spike_accum_blocks", "spike_accum"),
+    path(("spike_accum_blocks", "spike_accum", "threefry"),
          ("launcher", lambda: phase_launcher("cuda")),
          ("real_size", lambda: phase_real_size("cuda", keep=kept)))
     # replanned plans flipped into phase 4's network, on its device tiles
@@ -3436,10 +3648,12 @@ def main() -> int:
     kept.clear()
     # the paper's experiment planned on the host (no kernel: outside the counts)
     emit({"phase": "plan_paper_scale", **phase_plan_paper_scale()})
-    path(("flash_attention", "decode_attention"), ("serve", lambda: phase_serve(dev, SERVE_ARCH)))
-    path(("ssd_scan",), ("serve_mamba2", lambda: phase_serve(dev, "mamba2-1.3b")))
+    # every LM path draws its weights on the card: threefry, one launch a leaf
+    path(("flash_attention", "decode_attention", "threefry"),
+         ("serve", lambda: phase_serve(dev, SERVE_ARCH)))
+    path(("ssd_scan", "threefry"), ("serve_mamba2", lambda: phase_serve(dev, "mamba2-1.3b")))
     with shapes_of_rglru() as shapes:
-        got = path(("rglru_scan", "flash_attention", "decode_attention"),
+        got = path(("rglru_scan", "flash_attention", "decode_attention", "threefry"),
                    ("serve_recurrentgemma", lambda: phase_serve(dev, "recurrentgemma-9b")))
     by_batch: dict[int, int] = {}
     for (b, _, _), n in shapes.items():
@@ -3452,19 +3666,22 @@ def main() -> int:
     emit({"phase": "serve_launcher", **phase_serve_launcher()})
     # the mixture of experts served at full width and depth, then the vlm
     # and audio front ends through lm.prefill / lm.decode_step
-    path(("flash_attention", "decode_attention"),
+    path(("flash_attention", "decode_attention", "threefry"),
          ("serve_qwen3_moe", lambda: phase_serve(dev, MOE_ARCH)))
-    path(("flash_attention", "decode_attention"), ("frontends", lambda: phase_frontends(dev)))
+    path(("flash_attention", "decode_attention", "threefry"),
+         ("frontends", lambda: phase_frontends(dev)))
     # training: (a) and (b) take the training route, which launches no
-    # hand-written kernel; (c) serves the trained params through K3 and K4
+    # hand-written kernel but threefry's weights; (c) serves the trained
+    # params through K3 and K4
     shared: dict = {}
-    path((), ("train_phi4", lambda: _train_part(dev, "phi4-mini-3.8b", shared)),
+    path(("threefry",), ("train_phi4", lambda: _train_part(dev, "phi4-mini-3.8b", shared)),
          ("train_mamba2", lambda: _train_part(dev, "mamba2-1.3b", shared)))
-    path(("flash_attention", "decode_attention"), ("train_serve", lambda: _train_then_serve(dev)))
+    path(("flash_attention", "decode_attention", "threefry"),
+         ("train_serve", lambda: _train_then_serve(dev)))
     # sharding: (a) the DTensor train step on a one-rank NCCL mesh (training
     # route, no kernel), (b) GPipe over the loopback's (4,) mesh (K3), (c)
     # sharded serving on the one-rank mesh (K3, K4), (d) the dry-run's count
-    path(("flash_attention", "decode_attention"),
+    path(("flash_attention", "decode_attention", "threefry"),
          ("sharding", lambda: phase_sharding(dev, results["serve"])))
 
     csrc = "src/repro_torch/kernels/csrc/"
@@ -3498,6 +3715,9 @@ def main() -> int:
         ("ssd_scan", "scan.cu", "ssd_scan.py:81", "mamba2_prefill"),
         ("rglru_scan", "scan.cu", "rglru_scan.py:53", "rg_prefill"),
         ("rglru_scan", "scan.cu", "rglru_scan.py:53", "rg_continuous"),
+        ("threefry", "random.cu", None, "lif_noise"),
+        ("threefry", "random.cu", None, "phi4_sampler"),
+        ("threefry", "random.cu", None, "phi4_leaf"),
     ):
         table = kern[kname]
         c = table["cases"][case] if "cases" in table else table[case]
@@ -3505,7 +3725,8 @@ def main() -> int:
             c = {**c, "main_path_device_ms":
                  results["real_size"]["oracle"]["spike_accum_device_ms_per_step"]}
         rows.append({"name": kname, "route": "cuda", "source": csrc + source,
-                     "replaces": "src/repro/kernels/" + replaces, "launches": launches[kname],
+                     "replaces": THREEFRY_REPLACES if replaces is None
+                     else "src/repro/kernels/" + replaces, "launches": launches[kname],
                      "max_abs_err": table["max_abs_err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"], "library_ms": c["library_ms"],

@@ -105,8 +105,12 @@ def neuron_params(fields: Mapping | object, kind: str | None = None):
 def neuron_state(
     v, u, device: str | torch.device | None = None, key=None
 ) -> NeuronState:
-    """A :class:`NeuronState` with float32 ``v``/``u`` on ``device``."""
+    """A :class:`NeuronState` with float32 ``v``/``u`` on ``device``; ``key``
+    (a reference key ``[..., 2]`` of ``uint32`` words, or ``None``) becomes
+    the port's ``int64`` key tensor (:mod:`repro_torch.random`)."""
     dev = resolve_device(device)
+    if key is not None:
+        key = torch.as_tensor(np.asarray(key, dtype=np.uint32).astype(np.int64), device=dev)
     return NeuronState(
         v=torch.as_tensor(np.asarray(v, dtype=np.float32), device=dev),
         u=torch.as_tensor(np.asarray(u, dtype=np.float32), device=dev),

@@ -27,8 +27,9 @@ call eagerly and replays a CUDA graph of the step from the second on.
 * Tensors the step allocates come from the graph's memory pool (one pool
   per graph unless the caller passes one to share) and keep their
   addresses: what the step returns is the static output of every replay.
-  Random draws from ``torch.Generator``\\ s registered here advance their
-  Philox offsets as eager draws would.
+  A step that draws random numbers carries its key in a device tensor
+  (:mod:`repro_torch.random`) and writes the next key back into it, so a
+  replay advances the stream as an eager step does.
 
 A failed capture or replay raises; nothing falls back to eager.
 """
@@ -36,7 +37,7 @@ from __future__ import annotations
 
 import functools
 import time
-from collections.abc import Callable, Sequence
+from collections.abc import Callable
 
 import torch
 
@@ -59,8 +60,6 @@ def use_graph(graph: bool | None, device: torch.device) -> bool:
 class StepGraph:
     """``step()`` run eagerly once, then captured and replayed.
 
-    ``generators``: the ``torch.Generator``\\ s the step draws from (the
-    device's default generator is registered by PyTorch itself).
     ``ledger``: an object whose ``step_bytes`` list the step appends to
     (:class:`~repro_torch.snn.comm.LoopbackComm`).  ``pool``: a memory pool
     handle shared with other graphs (``torch.cuda.graph_pool_handle()``).
@@ -71,14 +70,13 @@ class StepGraph:
         step: Callable[[], object],
         device: torch.device,
         *,
-        generators: Sequence[torch.Generator] = (),
         ledger=None,
         pool=None,
     ):
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
         self.step, self.device = step, device
-        self.generators, self.ledger, self.pool = tuple(generators), ledger, pool
+        self.ledger, self.pool = ledger, pool
         self.stream = _capture_stream(device)
         self.graph: torch.cuda.CUDAGraph | None = None
         self.out = None
@@ -113,8 +111,6 @@ class StepGraph:
     def _capture(self) -> None:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        for gen in self.generators:
-            graph.register_generator_state(gen)
         launches = dict(LAUNCHES)
         n_entries = len(self.ledger.step_bytes) if self.ledger is not None else 0
         try:

@@ -46,7 +46,7 @@ BUILD_SECONDS: dict[str, float] = {}
 LAUNCHES: dict[str, int] = {
     "spike_accum_blocks": 0, "spike_accum": 0,
     "flash_attention": 0, "decode_attention": 0,
-    "ssd_scan": 0, "rglru_scan": 0,
+    "ssd_scan": 0, "rglru_scan": 0, "threefry": 0,
 }
 
 # an H100 SXM, for the wrappers' launch geometry (NVIDIA's H100 specifications)

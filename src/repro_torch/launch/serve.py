@@ -1,7 +1,9 @@
 """Serving launcher.  Port of ``repro.launch.serve``: the same flags and
 ``prompt -> tokens`` lines, plus ``--device``.  The port runs on one
 device, so it serves the reduced config, the reference's rule for one
-device (``repro/launch/serve.py:27``).
+device (``repro/launch/serve.py:27``), with the reference's weights:
+``init_params(cfg, 0)`` draws ``PRNGKey(0)``'s streams
+(``repro_torch.random``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
         --prompts "1,2,3" "4,5" --max-new 16 [--device cpu] [--eager]

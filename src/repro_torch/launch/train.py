@@ -13,7 +13,9 @@ with ``WORLD_SIZE`` n > 1 (n even), it builds the reference's mesh,
 ``init_device_mesh`` of ``(n // 2, 2)`` ``("data", "model")``, and
 ``make_policy(mesh)``: gloo on the CPU with ``--device cpu``, NCCL on
 ``cuda:LOCAL_RANK`` otherwise.  Every rank makes the same parameters and
-batches from the seed; the parameters are laid out by
+batches from the seed, the parameters from ``PRNGKey(--seed)`` as the
+reference's (``repro_torch.random``: the same values within an ulp); they
+are laid out by
 ``lm.distribute_params`` (FSDP over ``data``, TP/EP over ``model``) and the
 step is ``make_train_step(cfg, ts, pol)``.  There, as in the reference, the
 full config trains unless ``--reduced`` is given.  Only rank 0 prints.

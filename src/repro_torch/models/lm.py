@@ -39,6 +39,7 @@ import torch
 from torch.distributed.tensor import distribute_tensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import random
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -249,36 +250,52 @@ def param_defs(cfg: ArchConfig) -> dict[str, Any]:
     return defs
 
 
+def _leaf_defs(defs: Any) -> list[PDef]:
+    """The leaves of a def tree in the reference's ``jax.tree.flatten``
+    order: keys sorted at every level, a ``PDef`` a leaf."""
+    if isinstance(defs, PDef):
+        return [defs]
+    return [pd for k in sorted(defs) for pd in _leaf_defs(defs[k])]
+
+
 def init_params(
     cfg: ArchConfig, seed: int = 0, *, device: str | torch.device | None = None
 ) -> dict:
-    """Random parameters made on ``device`` (default the card) from one
-    ``torch.Generator`` seeded with ``seed``, leaves in sorted-key order.
-    The streams differ from ``jax.random``'s: tests that compare with the
-    reference convert its parameters instead."""
+    """Random parameters made on ``device`` (default the card) from
+    ``PRNGKey(seed)``, as the reference's ``init_params(cfg, PRNGKey(seed))``
+    (``repro/models/lm.py:253``): one key per leaf from ``split(key,
+    n_leaves)`` in the reference's leaf order, and each leaf drawn from its
+    key (:mod:`repro_torch.random`; on the card one ``threefry`` launch a
+    drawn leaf).  ``exp`` and ``log`` are the reference's (``random.exp``,
+    ``random.log``); ``expm1`` is PyTorch's, within an ulp of XLA's."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    defs = param_defs(cfg)
+    keys = iter(random.split(random.PRNGKey(seed, device=dev), len(_leaf_defs(defs))))
 
-    def uniform(node, lo, hi):
-        return torch.empty(node.shape, dtype=node.dtype, device=dev).uniform_(lo, hi, generator=gen)
+    def leaf(node: PDef, key: torch.Tensor) -> torch.Tensor:
+        def uniform(lo, hi):
+            return random.uniform(key, node.shape, node.dtype, lo, hi)
+
+        if node.init == "zeros":
+            return torch.zeros(node.shape, dtype=node.dtype, device=dev)
+        if node.init == "ssm_a":  # A ∈ [1, 16] → A_log
+            return random.log(uniform(1.0, 16.0))
+        if node.init == "ssm_dt":  # softplus(dt_bias) ∈ [1e-3, 0.1]
+            dt = random.exp(uniform(math.log(1e-3), math.log(0.1)))
+            return dt + random.log(-torch.expm1(-dt))  # inverse softplus
+        if node.init == "lru_lam":  # a^c ∈ [0.9, 0.999] at σ(r) = 0.5ish
+            target = -random.log(uniform(0.9, 0.999)) * 2.0 / L._LRU_C
+            return random.log(torch.expm1(torch.clamp(target, min=1e-6)))
+        # the reference's ``scale * normal``: the scale rounded to the leaf's dtype
+        scale = torch.tensor(node.scale, dtype=torch.float32).to(node.dtype)
+        return random.normal(key, node.shape, node.dtype).mul_(scale)
 
     def build(node):
         if isinstance(node, PDef):
-            if node.init == "zeros":
-                return torch.zeros(node.shape, dtype=node.dtype, device=dev)
-            if node.init == "ssm_a":  # A ∈ [1, 16] → A_log
-                return torch.log(uniform(node, 1.0, 16.0))
-            if node.init == "ssm_dt":  # softplus(dt_bias) ∈ [1e-3, 0.1]
-                dt = torch.exp(uniform(node, math.log(1e-3), math.log(0.1)))
-                return dt + torch.log(-torch.expm1(-dt))  # inverse softplus
-            if node.init == "lru_lam":  # a^c ∈ [0.9, 0.999] at σ(r) = 0.5ish
-                target = -torch.log(uniform(node, 0.9, 0.999)) * 2.0 / L._LRU_C
-                return torch.log(torch.expm1(torch.clamp(target, min=1e-6)))
-            out = torch.empty(node.shape, dtype=node.dtype, device=dev)
-            return out.normal_(0.0, node.scale, generator=gen)
+            return leaf(node, next(keys))
         return {k: build(node[k]) for k in sorted(node)}
 
-    return build(param_defs(cfg))
+    return build(defs)
 
 
 def _tree_of(defs: Any, fn) -> Any:

@@ -38,8 +38,10 @@ attends to the zero K/V its prefill left in slots ``[plen, pos)`` because
 choose the same experts and take their capacity before the prompt does
 (each batch row is a dispatch group), and both schedulers run one decode
 step past the last token they keep.  Greedy decoding matches the
-reference; ``temperature > 0`` samples with a ``torch.Generator`` seeded from
-``ServeConfig.seed``, whose streams differ from ``jax.random``'s.
+reference, and so does ``temperature > 0``: the engine holds the key
+``PRNGKey(ServeConfig.seed)`` and each sampled step splits it and draws
+``categorical(sub, logits / T)`` (:mod:`repro_torch.random`; on the card the
+``threefry`` kernel), the reference's stream.
 
 Under a sharding policy with a mesh (``pol``; the parameters distributed by
 ``lm.distribute_params``) prefill and decode run sharded
@@ -61,7 +63,7 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
-from repro_torch import graphs
+from repro_torch import graphs, random
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
@@ -114,7 +116,11 @@ class ServeEngine:
         if emb.device.type != self.device.type:
             raise ValueError(f"params lie on {emb.device}, the engine on {self.device}")
         self.cfg, self.params, self.sc, self.pol = cfg, params, sc, pol
-        self._gen = torch.Generator(device=self.device).manual_seed(sc.seed)
+        self._key = random.PRNGKey(sc.seed, device=self.device)
+        # a device scalar: PyTorch divides by a host scalar as a product with
+        # its reciprocal on the card, the reference by the float32 divisor
+        self._temperature = torch.tensor(sc.temperature, dtype=torch.float32,
+                                         device=self.device)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         if is_dtensor(logits):  # every rank samples from the whole rows
@@ -122,8 +128,9 @@ class ServeEngine:
         logits = logits[..., : self.cfg.vocab_size]
         if self.sc.temperature <= 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
-        probs = torch.softmax(logits / self.sc.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=self._gen)[..., 0].to(torch.int32)
+        self._key, sub = random.split(self._key)
+        scaled = logits / self._temperature.to(logits.dtype)
+        return random.categorical(sub, scaled).to(torch.int32)
 
     def _tokens(self, toks: np.ndarray) -> dict:
         return {"tokens": torch.from_numpy(toks).to(self.device)}

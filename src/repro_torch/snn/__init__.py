@@ -10,7 +10,6 @@ from repro_torch.snn.neuron import (
     init_state,
     izhikevich_step,
     lif_step,
-    make_generators,
 )
 from repro_torch.snn.engine import (
     RunResult,
@@ -50,7 +49,6 @@ __all__ = [
     "init_state",
     "lif_step",
     "izhikevich_step",
-    "make_generators",
     "SNNEngine",
     "RunResult",
     "expand_synapses",

@@ -30,8 +30,9 @@ the mesh on one device; behind a
 :class:`~repro_torch.snn.comm.ProcessGroupComm` one rank per process over
 ``torch.distributed`` (NCCL, or gloo), where :meth:`DistributedSNN.run`
 returns that rank's raster and :func:`gather_raster` assembles the global
-one.  Rank ``d`` draws its noise from the ``d``-th generator of
-``make_generators(seed, n_dev)`` wherever it runs, so both give one raster.
+one.  Rank ``d`` draws its noise under row ``d`` of
+``random.split(PRNGKey(seed), n_dev)`` wherever it runs, the key the
+reference's ``shard_map`` hands device ``d``, so both give its raster.
 Synaptic accumulation: ``flat``/``two_level`` multiply ``s_global @
 w_block`` with ``torch.matmul`` (the reference leaves that product to XLA
 outside any kernel); ``sparse``/``ragged`` run the block-CSR ``I = Σ_k
@@ -67,7 +68,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import convert, graphs
+from repro_torch import convert, graphs, random
 from repro_torch.core.routing import pool_block_mask
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import spike_currents_blocks
@@ -79,11 +80,9 @@ from repro_torch.snn.neuron import (
     IzhikevichParams,
     LIFParams,
     NeuronState,
-    generators,
     init_state,
     izhikevich_step,
     lif_step,
-    make_generators,
 )
 
 __all__ = [
@@ -183,11 +182,13 @@ def _step_fn(params):
 
 def _init(params, ranks: range, n_dev: int, n_loc: int, seed: int, dev: torch.device):
     """Initial state ``[len(ranks), n_loc]`` of the ranks held; rank ``d``'s
-    noise generator is the ``d``-th of the mesh's ``n_dev``, seeded from
-    ``seed`` (only when the model is noisy)."""
-    gens = (make_generators(seed, n_dev, dev)[ranks.start:ranks.stop]
-            if params.noise_sigma else None)
-    return init_state((len(ranks), n_loc), params, gens, device=dev)
+    noise key is row ``d`` of ``split(PRNGKey(seed), n_dev)``, as the
+    reference's one key per device over the full mesh (only when the model
+    is noisy)."""
+    keys = None
+    if params.noise_sigma:
+        keys = random.split(random.PRNGKey(seed, device=dev), n_dev)[ranks.start:ranks.stop]
+    return init_state((len(ranks), n_loc), params, keys, device=dev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -482,7 +483,7 @@ class DistributedSNN:
             return cur
 
         graphs.run_steps(one_step, n_steps, self.device, self.graph, ledger=comm,
-                         generators=generators(state.key), probe=_global(probe))
+                         probe=_global(probe))
         return raster.reshape(n_steps, n_held * n_loc)
 
     def step_profile(self, n_steps: int = 2, *, seed: int = 0) -> dict[str, float]:
@@ -723,7 +724,7 @@ class _SparseStep:
             return cur
 
         capture_s = graphs.run_steps(one_step, n_steps, dev, graph, ledger=comm,
-                                     generators=generators(state.key), probe=_global(probe))
+                                     probe=_global(probe))
         return raster.reshape(n_steps, len(ranks) * b), capture_s
 
 
@@ -739,11 +740,14 @@ class _Held(NamedTuple):
 
 def _advance(step, state: NeuronState, prev, raster, t_dev, i_syn, params) -> None:
     """One neuron update of the rank-stacked ``state`` under ``i_syn``, in
-    place: the state and ``prev`` take the new values, and the spikes land
+    place: the state (its noise keys too) and ``prev`` take the new values,
+    and the spikes land
     in raster row ``t_dev``, which then advances."""
     new, spikes = step(state, i_syn, params)
     state.v.copy_(new.v)
     state.u.copy_(new.u)
+    if state.key is not None:
+        state.key.copy_(new.key)
     prev.copy_(spikes)
     raster.index_copy_(0, t_dev, spikes[None])
     t_dev.add_(1)

@@ -22,7 +22,7 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from repro_torch import graphs
+from repro_torch import graphs, random
 from repro_torch.core.graph import CommGraph
 from repro_torch.device import resolve_device
 from repro_torch.snn.sparse import BlockSynapses
@@ -31,10 +31,8 @@ from repro_torch.snn.neuron import (
     LIFParams,
     NeuronState,
     init_state,
-    generators,
     izhikevich_step,
     lif_step,
-    make_generators,
 )
 
 __all__ = ["SNNEngine", "expand_synapses", "expand_synapses_sparse", "RunResult"]
@@ -243,14 +241,15 @@ class SNNEngine:
         """Simulate ``n_steps``.
 
         Args:
-          seed: seeds the noise generator (``noise_sigma > 0`` only).
+          seed: the noise key is ``PRNGKey(seed)``, as the reference's
+            ``key=jax.random.PRNGKey(seed)`` (``noise_sigma > 0`` only).
           current_fn: optional override computing ``I[j]`` from the global
             spike vector — the hook the ``spike_accum`` kernel uses.
         """
         dev = self.device
         m = self.n_neurons
-        gen = make_generators(seed, 1, dev)[0] if self.params.noise_sigma else None
-        state = init_state(m, self.params, gen, device=dev)
+        key = random.PRNGKey(seed, device=dev) if self.params.noise_sigma else None
+        state = init_state(m, self.params, key, device=dev)
         step = self._step_fn()
         w = self.w_syn
         i_ext = torch.as_tensor(self.i_ext, dtype=torch.float32, device=dev)
@@ -269,13 +268,14 @@ class SNNEngine:
             new, spikes = step(state, accumulate(prev, w) + i_ext, self.params)
             state.v.copy_(new.v)
             state.u.copy_(new.u)
+            if key is not None:
+                key.copy_(new.key)
             prev.copy_(spikes)
             spikes_out.index_copy_(0, t_dev, spikes[None])
             if record_v:
                 vs.index_copy_(0, t_dev, new.v[None])
             t_dev.add_(1)
 
-        capture_s = graphs.run_steps(one_step, n_steps, dev, self.graph,
-                                     generators=generators(gen))
+        capture_s = graphs.run_steps(one_step, n_steps, dev, self.graph)
         return RunResult(spikes=spikes_out, v_trace=vs, final_state=state,
                          capture_s=capture_s)

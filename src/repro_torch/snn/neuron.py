@@ -9,21 +9,21 @@ order and its ``where`` structure (refractory hold, reset, the
 ``max(u - dt, 0)`` countdown), so at ``noise_sigma=0`` the spikes match
 the JAX steps exactly.
 
-Channel noise draws from explicit ``torch.Generator``\\ s carried in
-:attr:`NeuronState.key`: one generator for a flat state, or one per row
-(rank) for a rank-stacked state.  ``torch.Generator`` cannot reproduce
-JAX's threefry streams, so noisy runs agree with the reference in
-distribution only.
+Channel noise draws from JAX's threefry streams (:mod:`repro_torch.random`)
+under the key carried in :attr:`NeuronState.key`: ``[2]`` for a flat state,
+``[n_dev, 2]`` (one key per rank) for a rank-stacked one.  Each noisy step
+splits the key and draws its normals from the subkey, as the reference's
+step does, so a seed gives the reference's noise and its raster.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
-from typing import NamedTuple, Sequence
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import random
 from repro_torch.device import resolve_device
 
 __all__ = [
@@ -33,8 +33,6 @@ __all__ = [
     "lif_step",
     "izhikevich_step",
     "init_state",
-    "make_generators",
-    "generators",
 ]
 
 
@@ -65,44 +63,21 @@ class IzhikevichParams:
     noise_sigma: float = 0.0
 
 
-Key = torch.Generator | Sequence[torch.Generator] | None
-
-
 class NeuronState(NamedTuple):
     """v: membrane potential; u: recovery (Izhikevich) / refractory
-    countdown (LIF); key: noise generator(s) — one ``torch.Generator``,
-    one per row of a rank-stacked state, or ``None`` (noise-free)."""
+    countdown (LIF); key: the noise key (:mod:`repro_torch.random`) —
+    ``[2]``, one per row of a rank-stacked state ``[n_dev, 2]``, or
+    ``None`` (noise-free)."""
 
     v: torch.Tensor
     u: torch.Tensor
-    key: Key
-
-
-def make_generators(
-    seed: int, n: int, device: str | torch.device
-) -> list[torch.Generator]:
-    """``n`` independent noise generators on ``device`` seeded from
-    ``seed`` (one per rank; numpy ``SeedSequence`` spawns the seeds)."""
-    seeds = [
-        int(s.generate_state(1, np.uint64)[0] >> np.uint64(1))
-        for s in np.random.SeedSequence(seed).spawn(n)
-    ]
-    return [torch.Generator(device=device).manual_seed(s) for s in seeds]
-
-
-def generators(key: Key) -> tuple[torch.Generator, ...]:
-    """The generators a state draws from, to register with a CUDA graph
-    that captures its steps (:class:`repro_torch.graphs.StepGraph`): a
-    replay then advances each one's Philox offset as an eager step would."""
-    if key is None:
-        return ()
-    return (key,) if isinstance(key, torch.Generator) else tuple(key)
+    key: torch.Tensor | None
 
 
 def init_state(
     n: int | tuple[int, ...],
     params,
-    key: Key = None,
+    key: torch.Tensor | None = None,
     *,
     device: str | torch.device | None = None,
 ) -> NeuronState:
@@ -119,18 +94,18 @@ def init_state(
     return NeuronState(v=v0, u=u0, key=key)
 
 
-def _normal(v: torch.Tensor, key: Key) -> torch.Tensor:
-    """Standard normals shaped like ``v`` from the state's generator(s)."""
+def _noise(state: NeuronState, v: torch.Tensor, params) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(key, noise)``: ``key, sub = split(state.key)`` and the channel
+    noise ``sigma · sqrt(dt) · normal(sub)`` shaped like ``v``, one draw per
+    key row; the scale is the reference's float32 product."""
+    key = state.key
     if key is None:
-        raise ValueError("noise_sigma > 0 needs NeuronState.key generator(s)")
-    if isinstance(key, torch.Generator):
-        return torch.randn(v.shape, generator=key, dtype=v.dtype, device=v.device)
-    if len(key) != v.shape[0]:
-        raise ValueError(f"{len(key)} generators for {v.shape[0]} state rows")
-    return torch.stack([
-        torch.randn(v.shape[1:], generator=g, dtype=v.dtype, device=v.device)
-        for g in key
-    ])
+        raise ValueError("noise_sigma > 0 needs NeuronState.key")
+    if v.shape[:key.dim() - 1] != key.shape[:-1]:
+        raise ValueError(f"keys {tuple(key.shape)} for state rows {tuple(v.shape)}")
+    key, z = random.split_normal(key, v.shape[key.dim() - 1:])
+    scale = float(np.float32(params.noise_sigma) * np.sqrt(np.float32(params.dt)))
+    return key, scale * z
 
 
 def lif_step(
@@ -141,11 +116,10 @@ def lif_step(
     dv = (params.dt / params.tau_m) * (
         (params.v_rest - state.v) + params.r_m * i_syn
     )
-    v_new = state.v + dv
+    v_new, key = state.v + dv, state.key
     if params.noise_sigma:
-        v_new = v_new + (
-            params.noise_sigma * math.sqrt(params.dt) * _normal(state.v, state.key)
-        )
+        key, noise = _noise(state, state.v, params)
+        v_new = v_new + noise
     v = torch.where(refractory, state.v, v_new)
     spikes = (v >= params.v_thresh) & ~refractory
     v = torch.where(spikes, torch.full_like(v, params.v_reset), v)
@@ -154,20 +128,21 @@ def lif_step(
         torch.full_like(state.u, params.t_refrac),
         torch.clamp_min(state.u - params.dt, 0.0),
     )
-    return NeuronState(v=v, u=u, key=state.key), spikes.to(torch.float32)
+    return NeuronState(v=v, u=u, key=key), spikes.to(torch.float32)
 
 
 def izhikevich_step(
     state: NeuronState, i_syn: torch.Tensor, params: IzhikevichParams
 ) -> tuple[NeuronState, torch.Tensor]:
     """One Izhikevich step (two half-steps for v, standard trick)."""
-    v, u = state.v, state.u
+    v, u, key = state.v, state.u, state.key
     for _ in range(2):  # two half-dt substeps for numerical stability
         v = v + 0.5 * params.dt * (0.04 * v * v + 5.0 * v + 140.0 - u + i_syn)
     u = u + params.dt * params.a * (params.b * v - u)
     if params.noise_sigma:
-        v = v + params.noise_sigma * math.sqrt(params.dt) * _normal(v, state.key)
+        key, noise = _noise(state, v, params)
+        v = v + noise
     spikes = v >= params.v_thresh
     v = torch.where(spikes, torch.full_like(v, params.c), v)
     u = torch.where(spikes, u + params.d, u)
-    return NeuronState(v=v, u=u, key=state.key), spikes.to(torch.float32)
+    return NeuronState(v=v, u=u, key=key), spikes.to(torch.float32)

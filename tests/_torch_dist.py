@@ -117,8 +117,10 @@ def comm_calls(rank: int, n: int, mesh: tuple[int, ...], inputs: dict, pairs: di
 def snn_runs(rank: int, n: int, mesh: tuple[int, ...], w: np.ndarray, drive: np.ndarray,
              configs: tuple, steps: int) -> dict:
     """``DistributedSNN`` over a gloo ``ProcessGroupComm`` for each
-    ``(exchange, noise_sigma)`` of ``configs``: the rank's raster, the
-    gathered global raster, the rank's ledger and the summed one."""
+    ``(exchange, noise_sigma)`` of ``configs`` under the per-neuron
+    ``drive`` (or ``(exchange, noise_sigma, i_ext)`` under the scalar
+    ``i_ext``): the rank's raster, the gathered global raster, the rank's
+    ledger and the summed one."""
     from repro_torch import convert
     from repro_torch.snn import (
         BlockSynapses, DistributedSNN, LIFParams, ProcessGroupComm, gather_raster,
@@ -126,13 +128,15 @@ def snn_runs(rank: int, n: int, mesh: tuple[int, ...], w: np.ndarray, drive: np.
 
     syn = BlockSynapses.from_dense(w, n)
     out = {}
-    for exchange, noise in configs:
+    for config in configs:
+        exchange, noise = config[:2]
         kw = {"w_syn": w} if exchange in ("flat", "two_level") else {"syn": syn}
         eng = DistributedSNN(mesh=mesh, params=LIFParams(noise_sigma=noise),
-                             exchange=exchange, i_ext=drive, device="cpu", **kw)
+                             exchange=exchange, i_ext=drive if len(config) == 2 else config[2],
+                             device="cpu", **kw)
         comm = ProcessGroupComm(mesh, "gloo", "cpu")
         local = eng.run(steps, seed=3, comm=comm)
-        out[(exchange, noise)] = {
+        out[config] = {
             "local": local.numpy(), "raster": gather_raster(local, comm).numpy(),
             "step_bytes": list(comm.step_bytes), "ledger_total": comm.ledger_total(),
         }

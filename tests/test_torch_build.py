@@ -26,7 +26,7 @@ def csrc(tmp_path):
 
 
 def test_sources_and_headers_found():
-    assert SOURCES == ["attention", "scan", "spike_accum"]
+    assert SOURCES == ["attention", "random", "scan", "spike_accum"]
     assert (_build.CSRC / "hopper.cuh").exists()
     assert '#include "hopper.cuh"' in (_build.CSRC / "attention.cu").read_text()
 

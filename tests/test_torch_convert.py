@@ -121,6 +121,38 @@ def test_state_carried_across(model):
     np.testing.assert_allclose(ts.u.numpy(), np.asarray(js.u), atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("model", ["lif", "izhikevich"])
+def test_noisy_state_carried_across(model):
+    """A mid-run state with the reference's key (``neuron_state(..., key=)``
+    takes its uint32 words) steps as the reference's at ``noise_sigma=2``:
+    the same spikes every step and the same key after 20 steps."""
+    rng = np.random.default_rng(5)
+    n = 512
+    if model == "lif":
+        jp, jstep, tstep = JaxLIF(noise_sigma=2.0), jax_lif_step, lif_step
+        v = rng.uniform(-66.0, -49.0, n).astype(np.float32)
+        u = np.zeros(n, np.float32)
+        drive = 2.0
+    else:
+        jp, jstep, tstep = JaxIzhikevich(noise_sigma=2.0), jax_izhikevich_step, izhikevich_step
+        v = rng.uniform(-70.0, 25.0, n).astype(np.float32)
+        u = rng.uniform(-15.0, -10.0, n).astype(np.float32)
+        drive = 8.0
+    key = jax.random.split(jax.random.PRNGKey(8))[1]
+    js = JaxState(v=jnp.asarray(v), u=jnp.asarray(u), key=key)
+    ts = convert.neuron_state(v, u, CPU, key=np.asarray(key))
+    tp = convert.neuron_params(jp)
+    i_syn = np.full(n, drive, np.float32)
+    fired = 0
+    for _ in range(20):
+        js, jspk = jstep(js, jnp.asarray(i_syn), jp)
+        ts, tspk = tstep(ts, torch.from_numpy(i_syn), tp)
+        np.testing.assert_array_equal(tspk.numpy(), np.asarray(jspk))
+        fired += int(tspk.sum())
+    assert fired > 0
+    np.testing.assert_array_equal(ts.key.numpy(), np.asarray(js.key))
+
+
 @pytest.mark.parametrize("arch", ["deepseek-7b", "phi4-mini-3.8b", "mamba2-1.3b",
                                   "recurrentgemma-9b", "qwen3-moe-30b-a3b", "mixtral-8x22b",
                                   "llava-next-mistral-7b", "musicgen-large"])

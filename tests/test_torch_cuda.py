@@ -942,7 +942,7 @@ def _block_network(seed: int, m: int = 256, n_blocks: int = 8):
 def test_replayed_steps_equal_eager(dev, exchange, scatter, noise):
     """A run replayed from a CUDA graph gives the eager run's raster and
     probed currents bit for bit (with channel noise too: each rank's
-    generator advances as in eager), the same launches, and the same
+    key advances on the device as in eager), the same launches, and the same
     ledger, one entry per step (``exchange_volume`` for sparse / ragged)."""
     from repro_torch.kernels import LAUNCHES
     from repro_torch.snn import DistributedSNN, LIFParams, LoopbackComm
@@ -1090,3 +1090,101 @@ def test_sharded_serve_on_a_one_rank_mesh(dev):
         assert all(r["graph"] and r["captures"] for r in out["sharded"].values())
         dry = chip_smoke._dryrun_vs_card(mesh, None)
     assert dry["flops_per_step"] > 0 and dry["dominant"] == "memory"
+
+
+# -- threefry: JAX's random streams on the card ------------------------------
+
+
+@pytest.mark.parametrize("case", ["lif_noise", "phi4_sampler", "phi4_leaf"])
+def test_threefry_matches_plain(dev, case):
+    """``chip_smoke.py`` phase 2's ``threefry`` cases (a rank-stacked LIF
+    draw ``[8, 4096]`` after a split, phi4's sampler ``[4, vocab]``, one
+    full-width phi4 bfloat16 leaf): keys, split and raw bits bit-equal to the
+    plain version on the card, float32 normals and gumbels within 2 ulp,
+    bfloat16 normals within one bfloat16 ulp, reruns bit-identical."""
+    import chip_smoke
+    from repro_torch import random
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import threefry as k
+
+    _, rows, n, kind, dtype_name, split_first = next(
+        c for c in chip_smoke.THREEFRY_CASES if c[0] == case)
+    dtype = getattr(torch, dtype_name)
+    root = random.PRNGKey(3, device=dev)[None]
+    keys = k.split(root, rows)[0]
+    assert torch.equal(keys, random.split_ref(root, rows)[0])
+    bits = random.KINDS["bits"]
+    assert torch.equal(k.draw(keys, n, bits, torch.int64),
+                       random.draw_ref(keys, n, bits, torch.int64))
+    lo, diff = random.bounds(kind, dtype)
+    before = LAUNCHES["threefry"]
+    got, again = (k.draw(keys, n, random.KINDS[kind], dtype, lo, diff, split_first=split_first)
+                  for _ in range(2))
+    assert LAUNCHES["threefry"] == before + 2
+    want = random.draw_ref(keys, n, random.KINDS[kind], dtype, lo, diff,
+                           split_first=split_first)
+    if split_first:
+        assert torch.equal(got[0], want[0]) and torch.equal(again[0], want[0])
+        got, again, want = got[1], again[1], want[1]
+    assert torch.equal(got, again) and torch.isfinite(got).all()
+    limit = chip_smoke.THREEFRY_ULPS[f"{kind}/{dtype_name}"]
+    assert chip_smoke._ulps(got, want, dtype) <= limit
+
+
+def test_draws_on_the_card_equal_the_cpus(dev):
+    """The public draws on a CUDA key launch the kernel once each (split,
+    the draws, ``split_normal``, ``categorical``'s gumbel) and give the CPU
+    key's values: keys and bits bit-equal, float32 within 2 ulp, bfloat16
+    within one bfloat16 ulp, the categorical draw index for index."""
+    import chip_smoke
+    from repro_torch import random
+    from repro_torch.kernels import LAUNCHES
+
+    cpu = random.split(random.PRNGKey(11), 4)
+    card = cpu.to(dev)
+    before = LAUNCHES["threefry"]
+    assert torch.equal(random.split(card, 3).cpu(), random.split(cpu, 3))
+    assert torch.equal(random.random_bits(card, 16, (5, 7)).cpu(),
+                       random.random_bits(cpu, 16, (5, 7)))
+    for fn, dtype, limit in ((random.normal, torch.float32, 2),
+                             (random.normal, torch.bfloat16, 1),
+                             (random.gumbel, torch.float32, 2),
+                             (lambda k, s, d: random.uniform(k, s, d, 0.9, 0.999),
+                              torch.float32, 0)):
+        got, want = fn(card, (3, 1000), dtype), fn(cpu, (3, 1000), dtype)
+        assert got.device.type == "cuda"
+        assert chip_smoke._ulps(got.cpu(), want, dtype) <= limit
+    new, z = random.split_normal(card, (4096,))
+    want_new, want_z = random.split_normal(cpu, (4096,))
+    assert torch.equal(new.cpu(), want_new) and chip_smoke._ulps(z.cpu(), want_z,
+                                                                 torch.float32) <= 2
+    logits = torch.from_numpy(np.random.default_rng(2).normal(size=(4, 5000)).astype(np.float32))
+    assert torch.equal(random.categorical(card[0], logits.to(dev)).cpu(),
+                       random.categorical(cpu[0], logits))
+    assert LAUNCHES["threefry"] == before + 8
+
+
+def test_noisy_runs_and_weights_on_the_card_equal_the_cpus(dev):
+    """Channel noise at ``noise_sigma=2`` on the card: the distributed
+    engine's raster (replayed, one ``threefry`` launch a step) equals the
+    CPU engine's for the same seed; ``init_params`` of a reduced config
+    drawn on the card equals the CPU's draw leaf by leaf."""
+    import chip_smoke
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.snn import BlockSynapses, DistributedSNN, LIFParams
+
+    w, drive = _block_network(7)
+    steps = 60
+    runs = {}
+    for where in (dev, "cpu"):
+        before = LAUNCHES["threefry"]
+        runs[str(where)] = DistributedSNN(
+            mesh=(4, 2), params=LIFParams(noise_sigma=2.0), exchange="sparse", i_ext=drive,
+            syn=BlockSynapses.from_dense(w, 8), device=where).run(steps, seed=3).cpu()
+        launched = LAUNCHES["threefry"] - before
+        assert launched == (steps + 1 if where == dev else 0)  # the keys' split, then a step each
+    assert runs[str(dev)].sum() > 0 and torch.equal(runs[str(dev)], runs["cpu"])
+    cfg = ARCHS["mamba2-1.3b"].reduced()
+    chip_smoke._numpy_params(cfg, 4, dev)  # raises when a leaf differs

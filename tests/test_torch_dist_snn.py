@@ -3,10 +3,13 @@ over a gloo ``ProcessGroupComm`` on a ``(2, 2)`` mesh of 4 processes, for
 every exchange, at ``noise_sigma`` 0 and 2.  Each process runs its own
 rank; the gathered raster and the summed per-step slow-axis bytes equal
 the loopback's (every rank in one process) bit for bit, and at noise 0 the
-raster equals the JAX reference engine's.  Rank ``d``'s noise is the
-``d``-th generator of ``make_generators(seed, n_dev)`` in both, so the
-noisy rasters agree too.  Also: the launcher under
-``torch.distributed.run``, and the engine's refusals."""
+raster equals the JAX reference engine's.  Rank ``d``'s noise key is row
+``d`` of ``split(PRNGKey(seed), n_dev)`` wherever it runs, the key the
+reference's ``shard_map`` hands device ``d``: at ``noise_sigma=2`` under a
+scalar drive (the reference's distributed engine takes no per-neuron one)
+the processes' raster equals the reference's distributed engine's on 4
+fake host devices.  Also: the launcher under ``torch.distributed.run``, and
+the engine's refusals."""
 from __future__ import annotations
 
 import functools
@@ -21,7 +24,9 @@ import pytest
 from repro_torch.snn import BlockSynapses, DistributedSNN, LIFParams, LoopbackComm
 from tests._torch_dist import snn_runs, spawn
 from tests.test_snn_sparse import _clustered_w
-from tests.test_torch_snn import STEPS, _assert_sustained, _drive, _jax_raster
+from tests.test_torch_snn import (
+    NOISY, STEPS, _assert_sustained, _drive, _jax_noisy_distributed, _jax_raster,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 MESH = (2, 2)
@@ -29,6 +34,9 @@ N_BLOCKS = 4
 M = 64
 EXCHANGES = ("flat", "two_level", "sparse", "ragged")
 CONFIGS = tuple((ex, noise) for ex in EXCHANGES for noise in (0.0, 2.0))
+# noisy runs under the reference launcher's scalar drive, held to the
+# reference's distributed engine
+SCALAR = tuple((ex, 2.0, NOISY["lif"][2]) for ex in EXCHANGES)
 
 
 def _engine(exchange: str, noise: float) -> DistributedSNN:
@@ -49,7 +57,7 @@ def _loopback(exchange: str, noise: float) -> tuple[np.ndarray, list[int]]:
 @pytest.fixture(scope="module")
 def processes(tmp_path_factory):
     return spawn(snn_runs, N_BLOCKS, tmp_path_factory.mktemp("snn"), MESH,
-                 _clustered_w(M, N_BLOCKS), _drive(M), CONFIGS, STEPS, timeout=240)
+                 _clustered_w(M, N_BLOCKS), _drive(M), CONFIGS + SCALAR, STEPS, timeout=240)
 
 
 @pytest.mark.parametrize("exchange,noise", CONFIGS, ids=lambda v: str(v))
@@ -77,6 +85,17 @@ def test_ledger_equals_loopback(processes, exchange, noise):
 def test_noise_free_raster_equals_jax(processes, exchange):
     np.testing.assert_array_equal(processes[0][(exchange, 0.0)]["raster"],
                                   _jax_raster(M, N_BLOCKS))
+
+
+@pytest.mark.parametrize("exchange", EXCHANGES)
+def test_noisy_raster_equals_jax(processes, exchange):
+    """At ``noise_sigma=2`` every process gathers the reference's
+    distributed raster for the same seed, bit for bit."""
+    want = _jax_noisy_distributed(MESH, N_BLOCKS, STEPS)["lif", exchange]
+    _assert_sustained(want)
+    for rank, res in enumerate(processes):
+        np.testing.assert_array_equal(res[(exchange, 2.0, NOISY["lif"][2])]["raster"], want,
+                                      err_msg=f"rank {rank}")
 
 
 def test_tiles_staged_for_the_rank_held(processes):
@@ -122,7 +141,7 @@ def test_tile_ranks_validation():
 
 def test_noise_reaches_the_raster():
     """Channel noise changes the raster: the noisy parity above compares
-    two runs that draw from the generators."""
+    two runs that draw from the keys."""
     assert not np.array_equal(_loopback("ragged", 2.0)[0], _loopback("ragged", 0.0)[0])
 
 

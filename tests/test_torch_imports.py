@@ -119,6 +119,10 @@ def test_cpu_tensor_takes_the_plain_version():
     y = ssd(torch.ones(1, 2, 1, 1), torch.ones(1, 2, 1), torch.ones(1, 2, 1, 1),
             torch.ones(1, 2, 1, 1))
     assert torch.equal(y.flatten(), torch.tensor([1.0, 2.0]))
+    from repro_torch import random
+
+    key = random.PRNGKey(0)
+    assert random.normal(key, (3,)).shape == (3,) and random.split(key).shape == (2, 2)
     assert LAUNCHES == {"spike_accum_blocks": 0, "spike_accum": 0,
                         "flash_attention": 0, "decode_attention": 0,
-                        "ssd_scan": 0, "rglru_scan": 0}
+                        "ssd_scan": 0, "rglru_scan": 0, "threefry": 0}

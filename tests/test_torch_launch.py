@@ -54,6 +54,43 @@ def test_port_launcher_prints_the_reference_lines(exchange, capsys):
     assert res["raster"].sum() > 0
 
 
+def test_noisy_launcher_raster_equals_the_reference(tmp_path):
+    """``run_brainsim --noise 2 --seed 3``: the port's launcher draws the
+    reference launcher's channel noise (rank ``d`` under row ``d`` of
+    ``split(PRNGKey(3), 8)``), so its raster is the reference's bit for
+    bit; the noise reaches it."""
+    from repro_torch.launch import run_brainsim
+
+    argv = [*ARGS, "--exchange", "ragged", "--noise", "2", "--seed", "3"]
+    path = tmp_path / "raster.npy"
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [env.get("PYTHONPATH"), "src"]))
+    code = f"""
+import sys
+import numpy as np
+from repro.snn import DistributedSNN
+from repro.launch import run_brainsim
+real = DistributedSNN.run
+def run(self, *args, **kw):
+    raster = real(self, *args, **kw)
+    np.save({str(path)!r}, np.asarray(raster))
+    return raster
+DistributedSNN.run = run
+sys.argv = ["run_brainsim", *{argv!r}]
+run_brainsim.main()
+"""
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    want = np.load(path)
+    got = run_brainsim.main([*argv, "--device", "cpu", "--ranks", "8"])["raster"]
+    assert want.sum() > 0 and np.array_equal(got, want)
+    quiet = run_brainsim.main([*ARGS, "--exchange", "ragged", "--seed", "3", "--device", "cpu",
+                               "--ranks", "8"])["raster"]
+    assert not np.array_equal(got, quiet)
+
+
 def test_training_launcher_on_four_gloo_ranks_checkpoints_and_resumes(tmp_path, capsys):
     """``repro_torch.launch.train`` as ``torch.distributed.run`` starts it on
     4 gloo ranks (a ``(2, 2)`` ``("data", "model")`` mesh, ``make_policy``):

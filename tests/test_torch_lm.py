@@ -383,6 +383,49 @@ def test_init_params_structure_and_seed():
     assert 0.9 < a["embed"]["tok"].float().std().item() < 1.1
 
 
+def _leaves_with_paths(tree, path=""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves_with_paths(v, f"{path}/{k}")
+        else:
+            yield f"{path}/{k}", v
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b",
+                                  "qwen3-moe-30b-a3b"])
+def test_init_params_equal_the_reference(arch, record_property):
+    """``lm.init_params(cfg, s)`` draws the reference's
+    ``init_params(cfg, PRNGKey(s))`` (one mixer family each: full
+    attention, ssm, rglru with local attention, experts): every float32
+    leaf within 2 ulp, every bfloat16 leaf within one bfloat16 ulp; the
+    share of bit-equal leaves and values is recorded."""
+    jc, pc = JAX_ARCHS[arch].reduced(), ARCHS[arch].reduced()
+    ref = dict(_leaves_with_paths(jlm.init_params(jc, jax.random.PRNGKey(7))))
+    got = dict(_leaves_with_paths(lm.init_params(pc, 7, device=CPU)))
+    assert got.keys() == ref.keys()
+    equal_leaves, values, equal_values = 0, 0, 0
+    for path, t in got.items():
+        want = np.asarray(ref[path], np.float64)
+        mine = t.double().numpy()
+        assert mine.shape == want.shape, path
+        if t.dtype == torch.bfloat16:
+            step = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 2.0**-126))) - 7)
+            limit = 1
+        else:
+            step = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+            limit = 2
+        assert (np.abs(mine - want) <= limit * step).all(), path
+        equal_leaves += int(np.array_equal(mine, want))
+        values += want.size
+        equal_values += int((mine == want).sum())
+    record_property("bit_equal_leaves", f"{equal_leaves}/{len(got)}")
+    record_property("bit_equal_values", equal_values / values)
+    print(f"{arch}: {equal_leaves}/{len(got)} leaves and {equal_values / values:.6f} of "
+          "the values bit-equal")
+    assert equal_values / values > 0.99
+
+
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_recurrent_float32_compute_matches(arch, monkeypatch):
     """mamba2 / recurrentgemma reduced with ``COMPUTE_DTYPE`` float32 in

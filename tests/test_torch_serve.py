@@ -73,6 +73,30 @@ def test_greedy_tokens_equal_the_reference(float32_compute, arch, kv):
     assert LAUNCHES == before  # the CPU takes the plain versions
 
 
+# reduced phi4's random weights give logits so peaked (each prompt's last
+# token repeats) that sampling at 0.8 draws the greedy tokens; mamba2's not
+@pytest.mark.parametrize("arch,draws_differ", [("phi4-mini-3.8b", False),
+                                               ("mamba2-1.3b", True)])
+def test_sampled_tokens_equal_the_reference(float32_compute, arch, draws_differ):
+    """``temperature=0.8``: the engine holds ``PRNGKey(seed)`` and samples
+    ``categorical(sub, logits / T)`` after a split each step, so both
+    schedulers give the reference engine's tokens from the same seed and
+    ``init_params`` seed, with no parameter conversion, and end on the
+    reference's key (one split a sampled step)."""
+    jc, pc = JAX_ARCHS[arch].reduced(), ARCHS[arch].reduced()
+    ref = JaxServeEngine(jc, jlm.init_params(jc, jax.random.PRNGKey(1)), ShardingPolicy(),
+                         JaxServeConfig(batch_slots=2, temperature=0.8, seed=5))
+    eng = ServeEngine(pc, lm.init_params(pc, 1, device=CPU),
+                      ServeConfig(batch_slots=2, temperature=0.8, seed=5), device=CPU)
+    wave = eng.generate(PROMPTS, max_new_tokens=6)
+    assert wave == ref.generate(PROMPTS, max_new_tokens=6)
+    cont = eng.generate_continuous(PROMPTS, max_new_tokens=6)
+    assert cont == ref.generate_continuous(PROMPTS, max_new_tokens=6)
+    np.testing.assert_array_equal(eng._key.numpy(), np.asarray(ref._key))
+    greedy = ServeEngine(pc, eng.params, ServeConfig(batch_slots=2), device=CPU)
+    assert (wave != greedy.generate(PROMPTS, max_new_tokens=6)) == draws_differ
+
+
 @pytest.fixture(scope="module")
 def deepseek():
     cfg = ARCHS["deepseek-7b"].reduced()

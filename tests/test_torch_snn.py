@@ -3,9 +3,12 @@ the single-device engine, the distributed engine over loopback meshes
 (every exchange), the ragged scatter modes, the plan buffer, and the
 communicator's executed byte ledger.
 
-Parity holds at ``noise_sigma=0`` (JAX's threefry streams cannot be
-reproduced by ``torch.Generator``); noise is tested by its statistics.
-Rasters are 0/1, so "equal" means equal, not close.
+Parity holds with channel noise too: the port draws JAX's threefry streams
+(:mod:`repro_torch.random`), so a seed gives the reference's noise, and the
+noisy rasters (``noise_sigma=2``, LIF and Izhikevich) equal the
+reference's single-device engine and, on a ``(2, 4)`` mesh, its distributed
+engine (8 fake host devices in a subprocess).  Rasters are 0/1, so "equal"
+means equal, not close.
 
 The engines run under a per-neuron drive (:func:`_drive`), so neurons fire
 at different steps and the recurrent current reaches neurons outside their
@@ -17,6 +20,8 @@ hold, and such a raster would not see the synapses at all.
 from __future__ import annotations
 
 import functools
+import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -47,8 +52,9 @@ from repro_torch.snn import (
     init_state,
     izhikevich_step,
     lif_step,
-    make_generators,
 )
+from repro_torch import random
+from tests.conftest import run_devices
 from tests.test_snn_sparse import _clustered_w
 
 CPU = "cpu"
@@ -134,19 +140,41 @@ class TestNeuronSteps:
 
     def test_noise_statistics(self):
         """sigma > 0: one LIF step from rest with no drive moves v by
-        N(0, sigma²·dt); per-rank generators give independent streams and
-        the same seed gives the same noise."""
+        N(0, sigma²·dt); per-rank keys (rows of ``split(PRNGKey(3), n_dev)``)
+        give independent streams, the same key the same noise, and each
+        rank's key advances by ``split``."""
         p = LIFParams(noise_sigma=0.5)
         n_dev, n = 4, 50_000
-        st = init_state((n_dev, n), p, make_generators(3, n_dev, CPU), device=CPU)
+        keys = random.split(random.PRNGKey(3), n_dev)
+        st = init_state((n_dev, n), p, keys, device=CPU)
         st1, _ = lif_step(st, torch.zeros(n_dev, n), p)
         dv = (st1.v - p.v_rest).double()
         want = p.noise_sigma * np.sqrt(p.dt)
         assert abs(float(dv.mean())) < 5 * want / np.sqrt(n_dev * n)
         assert abs(float(dv.std()) / want - 1.0) < 0.02
         assert not torch.equal(dv[0], dv[1])  # ranks draw different noise
-        again = init_state((n_dev, n), p, make_generators(3, n_dev, CPU), device=CPU)
+        assert torch.equal(st1.key, random.split(keys)[:, 0])
+        again = init_state((n_dev, n), p, keys.clone(), device=CPU)
         assert torch.equal(lif_step(again, torch.zeros(n_dev, n), p)[0].v, st1.v)
+
+    @pytest.mark.parametrize("model", ["lif", "izhikevich"])
+    def test_noisy_step_matches_jax(self, model):
+        """One noisy step draws the reference's noise: split, then normal
+        from the subkey; the new key is the reference's."""
+        if model == "lif":
+            jp, tp, jstep, tstep = (JaxLIF(noise_sigma=2.0), LIFParams(noise_sigma=2.0),
+                                    jax_lif_step, lif_step)
+        else:
+            jp, tp, jstep, tstep = (JaxIzhikevich(noise_sigma=2.0),
+                                    IzhikevichParams(noise_sigma=2.0), jax_izhikevich_step,
+                                    izhikevich_step)
+        n = 4096
+        drive = np.random.default_rng(4).uniform(0.0, 2.0, n).astype(np.float32)
+        js, _ = jstep(jax_init_state(n, jp, jax.random.PRNGKey(9)), jnp.asarray(drive), jp)
+        ts, _ = tstep(init_state(n, tp, random.PRNGKey(9), device=CPU),
+                      torch.from_numpy(drive), tp)
+        np.testing.assert_array_equal(ts.key.numpy(), np.asarray(js.key))
+        np.testing.assert_allclose(ts.v.numpy(), np.asarray(js.v), rtol=0, atol=1e-5)
 
     def test_noise_raises_rate(self):
         w = torch.zeros(64, 64)
@@ -158,7 +186,64 @@ class TestNeuronSteps:
         assert rates[0] == 0.0 < rates[1]  # sub-threshold drive fires only with noise
 
 
+NOISY_STEPS = 100
+# a scalar drive (the reference's distributed engine takes no per-neuron
+# one) that channel noise spreads over the run: the launcher's for LIF
+NOISY = {"lif": (JaxLIF, LIFParams, 3.5), "izhikevich": (JaxIzhikevich, IzhikevichParams, 10.0)}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_noisy_distributed(mesh: tuple[int, ...], n_blocks: int,
+                           steps: int = NOISY_STEPS) -> dict:
+    """The reference's distributed engine at ``noise_sigma=2`` (key
+    ``PRNGKey(3)``) on ``_clustered_w(64, n_blocks)`` over ``mesh`` of fake
+    host devices, ``steps`` steps, for each model of :data:`NOISY` and
+    every exchange the mesh takes: ``{(model, exchange): raster}``."""
+    exchanges = ["flat", "sparse", "ragged"] + (["two_level"] if len(mesh) == 2 else [])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rasters.npz")
+        run_devices(f"""
+import numpy as np, jax, jax.numpy as jnp
+from repro.compat import make_mesh
+from repro.snn import BlockSynapses, DistributedSNN, IzhikevichParams, LIFParams
+from tests.test_snn_sparse import _clustered_w
+w = _clustered_w(64, {n_blocks})
+syn = BlockSynapses.from_dense(w, {n_blocks})
+mesh = make_mesh({mesh!r}, ("pod", "data")[:{len(mesh)}])
+out = {{}}
+for model, params, drive in [("lif", LIFParams(noise_sigma=2.0), {NOISY["lif"][2]}),
+                             ("izhikevich", IzhikevichParams(noise_sigma=2.0),
+                              {NOISY["izhikevich"][2]})]:
+    for exch in {exchanges!r}:
+        kw = dict(w_syn=jnp.asarray(w)) if exch in ("flat", "two_level") else dict(syn=syn)
+        eng = DistributedSNN(mesh=mesh, params=params, exchange=exch, i_ext=drive, **kw)
+        out[model + "/" + exch] = np.asarray(eng.run({steps}, key=jax.random.PRNGKey(3)))
+np.savez({path!r}, **out)
+""", n_devices=int(np.prod(mesh)))
+        with np.load(path) as got:
+            return {tuple(k.split("/")): got[k] for k in got.files}
+
+
 class TestSingleDeviceEngine:
+    @pytest.mark.parametrize("model", sorted(NOISY))
+    def test_noisy_raster_matches_jax(self, model):
+        """At ``noise_sigma=2`` the engine's raster is the reference's for
+        the same seed, bit for bit, under a per-neuron drive."""
+        jax_params, params, _ = NOISY[model]
+        w = _clustered_w(64, 8)
+        drive = _drive(64) * (1.0 if model == "lif" else 2.0)
+        ref = JaxEngine(w_syn=jnp.asarray(w), params=jax_params(noise_sigma=2.0),
+                        i_ext=jnp.asarray(drive)).run(NOISY_STEPS, key=jax.random.PRNGKey(3))
+        got = SNNEngine(w_syn=w, params=params(noise_sigma=2.0), i_ext=drive,
+                        device=CPU).run(NOISY_STEPS, seed=3)
+        raster = got.spikes.numpy()
+        _assert_sustained(raster)
+        np.testing.assert_array_equal(raster, np.asarray(ref.spikes))
+        quiet = SNNEngine(w_syn=w, params=params(), i_ext=drive, device=CPU).run(NOISY_STEPS)
+        assert not torch.equal(quiet.spikes, got.spikes)  # the noise reaches the raster
+        np.testing.assert_array_equal(got.final_state.key.numpy(),
+                                      np.asarray(ref.final_state.key))
+
     def test_raster_matches_jax(self):
         w = _clustered_w(64, 8)
         out = SNNEngine(w_syn=w, params=LIFParams(), i_ext=_drive(64), device=CPU).run(STEPS)
@@ -219,6 +304,22 @@ class TestDistributed:
         np.testing.assert_allclose(torch.stack(cur).numpy(),
                                    _prev_spikes(raster) @ w.astype(np.float64),
                                    rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("model", sorted(NOISY))
+    @pytest.mark.parametrize("exchange", ["flat", "two_level", "sparse", "ragged"])
+    def test_noisy_raster_matches_jax_distributed(self, exchange, model):
+        """At ``noise_sigma=2`` on a ``(2, 4)`` mesh, rank ``d`` draws under
+        row ``d`` of ``split(PRNGKey(3), 8)``, the key the reference's
+        ``shard_map`` hands device ``d``: the raster equals the reference's
+        distributed engine's, bit for bit."""
+        jax_params, params, drive = NOISY[model]
+        w = _clustered_w(64, 8)
+        kw = {"w_syn": w} if exchange in ("flat", "two_level") else {
+            "syn": BlockSynapses.from_dense(w, 8)}
+        raster = DistributedSNN(mesh=(2, 4), params=params(noise_sigma=2.0), exchange=exchange,
+                                i_ext=drive, device=CPU, **kw).run(NOISY_STEPS, seed=3).numpy()
+        _assert_sustained(raster)
+        np.testing.assert_array_equal(raster, _jax_noisy_distributed((2, 4), 8)[model, exchange])
 
     @pytest.mark.parametrize("exchange", ["flat", "two_level", "sparse", "ragged"])
     def test_planted_faults_change_the_raster(self, exchange, monkeypatch):
