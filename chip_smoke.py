@@ -35,7 +35,17 @@ nonzero.
    a 4-slot prefill of 1,024 tokens, decode of 4 slots at 1,040 of 1,056),
    llava-next-mistral-7b's (32 q / 8 KV heads: 2 rows of 1,024 positions,
    decode at 1,032 of 1,040) and musicgen-large's (32 / 32 heads of 64: 2
-   rows of 512, decode at 520 of 528).  The sharded serving route's splits
+   rows of 512, decode at 520 of 528); deepseek-7b's (MHA, 32 heads of
+   128), qwen2.5-14b's (GQA group 5) and yi-34b's (group 7) at phi4's wave
+   shapes, mixtral-8x22b's (group 6: window 4,096 over a batch-1 prefill
+   of 8,192, decode over its 4,096-slot ring after a misaligned 6,000-token
+   prefill) and phi4's decode over 32,800 slots; K3 over S = 32,768 (phi4
+   at batch 1; bf16 only at the dry-run's prefill_32k, batch 32, 3.2 G
+   elements of q) and K4 over decode_32k's cache (bf16, batch 128, 4.3 G
+   elements of K), held to the plain version on the first and last 512 q
+   rows of every batch row and head / on batch rows 0, 63 and 127, with a
+   zeroed 32-key tile planted past 2^31 elements that must fail the bf16
+   row bound.  The sharded serving route's splits
    on one card: K3 on the second half of phi4's 1,024 prefill rows with
    ``q_offset = 512``, K4 with ``return_lse`` on each half of phi4's
    1,040-slot decode cache and of recurrentgemma's misaligned ring, each
@@ -157,14 +167,15 @@ nonzero.
    freed before the next: (a) the reduced config, prefill of 64 tokens and
    8 teacher-forced decode steps on the card and on the CPU from the same
    numpy parameters (``init_params`` drawn on both, every leaf held card
-   against CPU), logits within two bf16 steps (bf16) and 1e-3 (float32);
+   against CPU, then every zero-initialised leaf, such as the q/k/v
+   biases, QK-norm and norm scales, made ``0.1 · normal``), logits within two bf16 steps (bf16) and 1e-3 (float32);
    (b) full width and depth, bf16, random weights from a seed (one
    ``threefry`` launch a leaf; ``leaf_card_vs_cpu``: 2^21 values of the
    last bf16 normal leaf drawn again on the CPU, within one bf16 ulp): 8
    requests (prompt lengths 64-1,000) through ``ServeEngine.generate``
    (waves of 4) and ``generate_continuous``, 64 greedy tokens each (for
    recurrentgemma-9b also one batch-1 request of 4,096 tokens, two
-   windows), every prefill and every decode step launching exactly one
+   windows, replayed and op by op), every prefill and every decode step launching exactly one
    kernel per layer of its mixer (no scan in decode), finite logits; the
    first wave's tokens equal under both schedulers (phi4-mini-3.8b), or,
    under float32 compute, its last request's (the only one the reference's
@@ -195,6 +206,25 @@ nonzero.
    dropped none of the last token's slots and its capacity is prefill(S)'s
    (the drop count and both capacities are printed); the decode profile and
    peak memory as in phase 5.
+``serve_deepseek_7b``, ``serve_qwen2_5_14b``, ``serve_yi_34b`` (after
+   ``frontends``): the three dense configs at full width and depth (13.8,
+   29.6 and 68.8 GB of bf16 from seed 0) through phase 5's (b) with 16
+   greedy tokens a request and the eager check on ``generate`` only (for
+   the clock); (a) card against CPU at the full configs' GQA groups (qwen2.5
+   10 / 2, with its q/k/v biases; yi 14 / 2; deepseek MHA as it reduces).
+``serve_mixtral_cut``: mixtral-8x22b at full width cut to its first 2 of 56
+   layers (8 experts top-2 in the reference's TP mode, ``swa`` window
+   4,096, 48 q / 8 KV heads), the same, plus a batch-1 prompt of 6,000
+   tokens (bucket 8,192), the prefill + decode check at S = 6,000 (a
+   misaligned ring) and layer 0's ``moe_block`` card against CPU; (a) at
+   12 / 2 heads (group 6).
+``long_context``: phi4-mini-3.8b at full width and depth, batch 1, a
+   32,000-token prompt through ``generate_continuous`` (bucket 32,768, a
+   cache of 32,800 slots): K3 at S = 32,768 and K4 over the whole cache in
+   every layer (their call shapes checked), 16 greedy tokens replayed equal
+   to eager, prefill and decode ms with device ms, peak memory; the float32
+   prefill(S) + decode against prefill(S + 1) at S = 32,767 on phi4 cut to
+   8 of 32 layers at full width, within 0.05.
 ``frontends`` (after ``serve_qwen3_moe``): llava-next-mistral-7b (576 random
    patch embeddings before 448 text tokens, 2 rows) and musicgen-large (2 ×
    512 steps of 4 codebooks) at full width and depth through ``lm.prefill``
@@ -261,14 +291,17 @@ nonzero.
 6. The launches of ``rglru_scan`` on recurrentgemma-9b's main path by
    input shape and by batch; a ``kernels`` line (all seven kernels; K2 at 1 %
    firing on W f32[32768, 4096] and at the oracle's shape, K3 and K4 at
-   phi4-mini-3.8b's, recurrentgemma-9b's and qwen3-moe's shapes, K6 at the batch-4
+   phi4-mini-3.8b's, recurrentgemma-9b's, qwen3-moe's, llava's, musicgen's,
+   deepseek's, qwen2.5's, yi's and mixtral's shapes and at S = 32,768
+   (phi4, the dry-run's prefill_32k and decode_32k), K6 at the batch-4
    wave and the batch-1 prefill of 1,024 tokens; K3 with ``q_offset`` and K4
    with ``return_lse`` at phi4's split shapes and recurrentgemma's ring),
    the card's name and power
    limit, and the last line, ``{"ok": true, "device": {...}}``.
 
 Each main path (phases 3-4, each model of phase 5, ``serve_qwen3_moe``,
-``frontends``, each part of phase ``train``, phase ``sharding``) runs with the
+``frontends``, the serving paths after it, each part of phase ``train``, phase
+``sharding``) runs with the
 launch counts set to 0 just before it and read just after, and must have
 launched each of its kernels (every path but ``recovery`` ``threefry``:
 noise or weights; the training parts (a) and (b) no other; ``sharding`` K3
@@ -353,7 +386,7 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timings(kern, plain, lib, main: bool, device: bool = False) -> dict:
+def timings(kern, plain, lib, main: bool, device: bool = False, reps: int = 20) -> dict:
     """Times of a kernel, its plain version and the library call (None
     where no single PyTorch call computes the function).  ``ms`` keys: CUDA
     events around back-to-back calls, which include the host's dispatch
@@ -365,12 +398,15 @@ def timings(kern, plain, lib, main: bool, device: bool = False) -> dict:
     ``device_ms`` sums each CUDA kernel's mean over the calls the profiler
     saw (it now and then misses some).  The plain versions and the library
     calls are timed by events only (their profiles were cut for the
-    script's clock)."""
-    out = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 5),
-           "library_ms": None if lib is None else cuda_ms(lib, 5)}
+    script's clock).  ``reps``: the kernel's timed calls (the plain version
+    and the library call take at most 5, the profile at most 10), fewer for
+    the calls that take a large share of a second."""
+    out = {"ms": cuda_ms(kern, reps), "plain_ms": cuda_ms(plain, min(5, reps)),
+           "library_ms": None if lib is None else cuda_ms(lib, min(5, reps))}
     if main or device:
         for _ in range(3):  # the profiler now and then reads no device time
-            prof = _device_profile(lambda n: [kern() for _ in range(n)], 10)
+            prof = _device_profile(lambda n: [kern() for _ in range(n)], min(10, reps),
+                                   warmup=min(2, reps))
             if prof["device_busy_s"] > 0:
                 break
         out["device_ms"] = sum(k["device_ms"] / k["calls"] for k in prof["kernels"])
@@ -578,13 +614,13 @@ def phase_kernels(dev, rate: float) -> dict:
 BF16_PEAK = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 ATTN_TOL = {"float32": dict(rtol=3e-3, atol=3e-3),  # tests/test_kernels.py:19-20
             "bfloat16": dict(rtol=2e-2, atol=2e-2)}
-# recurrentgemma's bf16 cases average 400-4,000 keys, so their outputs are
-# a few hundredths and 2e-2 would let a lost 32-key tile through.  They
-# are also held to one bf16 step of the reference value plus two steps of
-# the rms of its row (the head dim of one query): K3 and K4 round P to
-# bf16 before P V, as the TPU kernels do (flash_attention.py:97,
-# decode_attention.py:76), and that error scales with the row, not with
-# the whole output.  ``bf16_row_bound_used`` is the share of the row's
+# recurrentgemma's bf16 cases average 400-4,000 keys (ROW_BOUND's others
+# 500 to 32,768), so their outputs are a few hundredths and 2e-2 would let
+# a lost 32-key tile through.  They are also held to one bf16 step of the
+# reference value plus two steps of the rms of its row (the head dim of
+# one query): K3 and K4 round P to bf16 before P V, as the TPU kernels do
+# (flash_attention.py:97, decode_attention.py:76), and that error scales
+# with the row, not with the whole output.  ``bf16_row_bound_used`` is the share of the row's
 # allowance the worst element takes.  A planted fault (the values of one
 # 32-key tile zeroed) must fail the same bound.
 BF16_REL, BF16_ROW = 2**-7, 2**-6
@@ -612,7 +648,11 @@ def _zero_tile(v, start: int):
 # dim 256, window 2,048: a 4-slot wave of 1,024 tokens, and the batch-1
 # 4,096-token prompt), then qwen3-moe-30b-a3b's (GQA group 8: a 4-slot wave
 # padded to 1,024 tokens), llava-next-mistral-7b's (2 rows of 576 patch
-# embeddings and 448 tokens) and musicgen-large's (2 rows of 512 steps)
+# embeddings and 448 tokens) and musicgen-large's (2 rows of 512 steps),
+# then the remaining text configs' shapes: deepseek-7b's (MHA,
+# 32 heads of 128), qwen2.5-14b's (GQA group 5) and yi-34b's (group 7), each
+# a 4-slot wave padded to 1,024 tokens, and mixtral-8x22b's swa layer (group
+# 6, window 4,096) over a batch-1 prompt of 6,000 tokens padded to 8,192
 FLASH_CASES = [
     ("gqa", 2, 4, 2, 256, 256, 64, True, None),
     ("mqa", 1, 8, 1, 128, 128, 32, True, None),
@@ -625,12 +665,17 @@ FLASH_CASES = [
     ("qwen3_prefill", 4, 32, 4, 1024, 1024, 128, True, None),
     ("llava_prefill", 2, 32, 8, 1024, 1024, 128, True, None),
     ("musicgen_prefill", 2, 32, 32, 512, 512, 64, True, None),
+    ("deepseek_prefill", 4, 32, 32, 1024, 1024, 128, True, None),
+    ("qwen25_prefill", 4, 40, 8, 1024, 1024, 128, True, None),
+    ("yi_prefill", 4, 56, 8, 1024, 1024, 128, True, None),
+    ("mixtral_prefill", 1, 48, 8, 8192, 8192, 128, True, 4096),
 ]
 # (name, b, hq, hkv, s, d, valid): valid rows None for all, "ragged", a
 # prefix length, or slot_pos handed to the kernel with slot_lo = pos -
 # 2,048: ("prefix", n) fills slots [0, n) at decode position n - 1,
-# ("ring", n) holds positions [n - s, n) after a prefill of n tokens, slot
-# n % s then overwritten by position n.  tests/test_kernels.py:47-61, then
+# ("ring", n[, window]) holds positions [n - s, n) after a prefill of n
+# tokens, slot n % s then overwritten by position n (window 2,048 unless
+# given).  tests/test_kernels.py:47-61, then
 # phi4-mini-3.8b's decode (4 slots, cache 1,088 = 1,024 + 64 rows, 1,056 of
 # them valid half-way through the wave), recurrentgemma-9b's local decode
 # (the same wave: window 2,048 > 1,088, so its slot_pos is a prefix) and its
@@ -638,7 +683,12 @@ FLASH_CASES = [
 # 3,000; slot 0 holds 952, outside the window), then qwen3-moe-30b-a3b's
 # decode (4 slots, cache 1,056 = 1,024 + 32 rows, 1,040 valid half-way),
 # llava's (2 rows, cache 1,040 = 1,024 + 16, 1,032 valid half-way) and
-# musicgen's (2 rows, cache 528 = 512 + 16, 520 valid half-way)
+# musicgen's (2 rows, cache 528 = 512 + 16, 520 valid half-way), then
+# deepseek-7b's, qwen2.5-14b's and yi-34b's (phi4's wave: cache 1,088, 1,056
+# valid), mixtral-8x22b's ring of 4,096 slots after a misaligned prefill of
+# 6,000 tokens (slot 1,904 holds position 6,000; slot 0 holds 1,904, outside
+# the window) and phi4's long-context decode (batch 1, a cache of 32,768 + 32
+# slots, 32,768 valid: generate_continuous's 32,000-token request)
 DECODE_CASES = [
     ("full_cache", 2, 4, 2, 1024, 64, None),
     ("ragged_g4", 3, 8, 2, 512, 32, "ragged"),
@@ -649,21 +699,33 @@ DECODE_CASES = [
     ("qwen3_decode", 4, 32, 4, 1056, 128, 1040),
     ("llava_decode", 2, 32, 8, 1040, 128, 1032),
     ("musicgen_decode", 2, 32, 32, 528, 64, 520),
+    ("deepseek_decode", 4, 32, 32, 1088, 128, 1056),
+    ("qwen25_decode", 4, 40, 8, 1088, 128, 1056),
+    ("yi_decode", 4, 56, 8, 1088, 128, 1056),
+    ("mixtral_ring", 1, 48, 8, 4096, 128, ("ring", 6000, 4096)),
+    ("phi4_decode_32k", 1, 24, 8, 32800, 128, 32768),
 ]
 RG_WINDOW = 2048
+# the cases whose outputs average hundreds to thousands of keys, a few
+# hundredths each: held also to the bf16 row bound, with a zeroed 32-key
+# tile planted
+ROW_BOUND = ("rg_", "mixtral_", "phi4_decode_32k", "deepseek_", "qwen25_", "yi_")
+# the main paths' cases: their kernels' device time is profiled
+MAIN_CASES = ("phi4", "rg_", "qwen3", "llava", "musicgen", "deepseek", "qwen25", "yi_",
+              "mixtral")
+REPS = {"mixtral_prefill": 5}  # the float32 kernel takes about a tenth of a second
 
 
-def _valid_pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """(query, key) pairs the mask keeps: the work this input needs."""
+def _valid_pairs(sq: int, sk: int, causal: bool, window, q_offset: int = 0) -> int:
+    """(query, key) pairs the mask keeps: the work this input needs.  Query
+    row ``r`` holds position ``q_offset + r``; it keeps the keys ``(p -
+    window, p]`` (causal) or ``(p - window, sk)`` of the ``sk`` keys."""
     import numpy as np
 
-    qp, kp = np.arange(sq)[:, None], np.arange(sk)[None, :]
-    mask = np.ones((sq, sk), bool)
-    if causal:
-        mask &= kp <= qp
-    if window is not None:
-        mask &= kp > qp - window
-    return int(mask.sum())
+    qp = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(qp, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(qp - window + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def phase_attention(dev, rate: float) -> dict:
@@ -671,9 +733,12 @@ def phase_attention(dev, rate: float) -> dict:
     [B, S, H, D] activations and of a [B, W, Hkv, D] cache as the model
     passes them: the reference's sweep with its tolerances, and
     phi4-mini-3.8b's full-width shapes; float32 and bfloat16; two runs
-    bit-identical.  The library yardstick is one
-    ``scaled_dot_product_attention`` call on KV heads repeated beforehand
-    (the port never calls it)."""
+    bit-identical; then the shapes of the remaining text configs
+    (deepseek-7b, qwen2.5-14b, yi-34b, mixtral-8x22b's window and ring,
+    phi4's decode over 32,800 slots) and, in ``_long_checks``, K3 over
+    S = 32,768 and K4 over the dry-run's decode_32k cache.  The library
+    yardstick is one ``scaled_dot_product_attention`` call on KV heads
+    repeated beforehand (the port never calls it)."""
     import torch
     import torch.nn.functional as F
 
@@ -684,16 +749,18 @@ def phase_attention(dev, rate: float) -> dict:
     result = {"flash_attention": {}, "decode_attention": {}}
 
     def randn(*shape, dtype):
+        if math.prod(shape) > 1 << 30:  # the long cases: no float32 copy
+            return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def record(table, key, kern, plain, lib, nbytes, flops, dtype, planted=None):
+    def record(table, key, kern, plain, lib, nbytes, flops, dtype, planted=None, reps=20):
         out, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
         check(torch.equal(out, again), f"{key}: reruns differ")
         err = float((out.float() - want.float()).abs().max())
         check(torch.allclose(out.float(), want.float(), **ATTN_TOL[dtype]), f"{key}: max err {err}")
         extra = {}
-        if planted is not None:  # recurrentgemma's bf16 cases
+        if planted is not None:  # ROW_BOUND's bf16 cases
             excess, fault = _bf16_row_excess(out, want), _bf16_row_excess(planted(), want)
             check(excess <= 0, f"{key}: {excess} rms of its row over the bf16 bound")
             check(fault > 0, f"{key}: a zeroed 32-key tile passes the bf16 bound")
@@ -702,7 +769,7 @@ def phase_attention(dev, rate: float) -> dict:
         bound_ms, bound_by = _bound(nbytes, flops, rate,
                                     BF16_PEAK if dtype == "bfloat16" else F32_PEAK)
         table[key] = {"max_abs_err": err, "bit_identical_rerun": True, **extra,
-                      **timings(kern, plain, lib, key.startswith(("phi4", "rg_", "qwen3", "llava", "musicgen"))),
+                      **timings(kern, plain, lib, key.startswith(MAIN_CASES), reps=reps),
                       "bound_ms": bound_ms, "bound_by": bound_by}
 
     for dtype in ("float32", "bfloat16"):
@@ -725,21 +792,23 @@ def phase_attention(dev, rate: float) -> dict:
             nbytes = (q.numel() * 2 + kk.numel() * 2) * q.element_size()  # q, k, v, out
             planted = (lambda: attention_ref(q, kk, _zero_tile(v, sk // 2), causal=causal,
                                              window=window)) \
-                if dtype == "bfloat16" and name.startswith("rg_") else None
+                if dtype == "bfloat16" and name.startswith(ROW_BOUND) else None
             record(result["flash_attention"], f"{name}/{dtype}",
                    lambda: k.flash_attention(q, kk, v, causal=causal, window=window),
                    lambda: attention_ref(q, kk, v, causal=causal, window=window),
-                   lib, nbytes, 4.0 * b * hq * pairs * d, dtype, planted)
+                   lib, nbytes, 4.0 * b * hq * pairs * d, dtype, planted, REPS.get(name, 20))
+            del q, kk, v, kr, vr, mask
         for name, b, hq, hkv, s, d, valid in DECODE_CASES:
             q = randn(b, hq, d, dtype=td)
             kk, v = (randn(b, s, hkv, d, dtype=td).transpose(1, 2) for _ in "kv")
             idx = torch.arange(s, dtype=torch.int32, device=dev)
             if isinstance(valid, tuple):  # slot_pos, as the windowed decode passes it
-                kind, n = valid
+                kind, n, *win = valid
+                window = win[0] if win else RG_WINDOW
                 if kind == "prefix":
-                    sp, lo = torch.where(idx < n, idx, -1).to(torch.int32), n - 1 - RG_WINDOW
+                    sp, lo = torch.where(idx < n, idx, -1).to(torch.int32), n - 1 - window
                 else:  # a prefill of n rows kept the last s; decode at n wrote slot n % s
-                    sp, lo = idx + (n - s), n - RG_WINDOW
+                    sp, lo = idx + (n - s), n - window
                     sp[n % s] = n
                 # the bound as the model passes it: a device scalar
                 kw = {"slot_pos": sp, "slot_lo": torch.tensor(lo, dtype=torch.int32, device=dev)}
@@ -755,14 +824,16 @@ def phase_attention(dev, rate: float) -> dict:
             index_bytes = 4 * next(iter(kw.values())).numel()
             nbytes = (2 * rows * hkv * d + 2 * q.numel()) * q.element_size() + index_bytes
             planted = (lambda: decode_attention_ref(q, kk, _zero_tile(v, s // 2), **kw)) \
-                if dtype == "bfloat16" and name.startswith("rg_") else None
+                if dtype == "bfloat16" and name.startswith(ROW_BOUND) else None
             record(result["decode_attention"], f"{name}/{dtype}",
                    lambda: k.decode_attention(q, kk, v, **kw),
                    lambda: decode_attention_ref(q, kk, v, **kw),
                    lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr,
                                                           attn_mask=keep[:, None, None, :]),
                    nbytes, 4.0 * rows * hq * d, dtype, planted)
+            del q, kk, v, kr, vr
         _split_checks(dev, dtype, result, randn, record)
+        _long_checks(dev, dtype, result, randn, rate)
     for table in result.values():
         table["max_abs_err"] = max(c["max_abs_err"] for c in table.values())
     torch.cuda.empty_cache()
@@ -799,7 +870,7 @@ def _split_checks(dev, dtype: str, result: dict, randn, record) -> None:
     rows = q[:, :, off:]
     kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (kk, v))
     qp, kp = torch.arange(off, s, device=dev)[:, None], torch.arange(s, device=dev)[None, :]
-    pairs = sum(i + 1 for i in range(off, s))
+    pairs = _valid_pairs(s - off, s, True, None, off)
     key = f"{name}/{dtype}"
     record(result["flash_attention"], key,
            lambda: k.flash_attention(rows, kk, v, q_offset=off),
@@ -861,6 +932,134 @@ def _split_checks(dev, dtype: str, result: dict, randn, record) -> None:
         result["decode_attention"][key].update(
             combined_max_abs_diff=diffs, lse_max_abs_err=lse_err)
         del q, kk, v, halves, parts, got, whole, want
+
+
+ROW_BLOCK = 512  # K3's first and last q rows held to the plain version at S = 32,768
+# (name, b, hq, hkv, s, d, dtypes, reps): K3 over a whole prompt of S =
+# 32,768, phi4's at batch 1 and one phi4 layer of the dry-run's prefill_32k
+# at batch 32 (3.2 G elements of q), and K4 over the dry-run's decode_32k
+# cache at batch 128 (32,768 slots, all valid: 4.3 G elements of K).  The
+# plain version cannot hold them whole (phi4's [B, H, S, S] scores alone
+# take 103 GB at batch 1): K3 is held to it on the first and last ROW_BLOCK
+# q rows of every batch row and head (``q_offset`` places the last), K4 on
+# the batch rows LONG_DECODE names.  A zeroed 32-key tile planted in the
+# last batch row (past 2^31 elements of q at prefill_32k, of K and V at
+# decode_32k) must fail the bf16 row bound, so that a wrapped 32-bit offset
+# cannot pass unnoticed.  Timed with fewer repetitions.
+LONG_PREFILL = [("phi4_prefill_32k", 1, 24, 8, 32768, 128, ("float32", "bfloat16"), 2),
+                ("dryrun_prefill_32k", 32, 24, 8, 32768, 128, ("bfloat16",), 2)]
+LONG_DECODE = [("dryrun_decode_32k", 128, 24, 8, 32768, 128, (0, 63, 127), 3)]
+
+
+def _long_checks(dev, dtype: str, result: dict, randn, rate: float) -> None:
+    """K3 and K4 at S = 32,768 (``LONG_PREFILL``, ``LONG_DECODE``), each
+    held to its plain version on the rows it can hold, with its times
+    (``plain_ms`` on those rows of batch row 0), its bound and one
+    ``scaled_dot_product_attention`` call over the whole input (bf16: the
+    flash backend with ``enable_gqa``, which repeats no KV head; float32:
+    KV heads repeated beforehand)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import attention as k
+    from repro_torch.kernels.ref import attention_ref, decode_attention_ref
+
+    td, tol = getattr(torch, dtype), ATTN_TOL[dtype]
+    bf16 = dtype == "bfloat16"
+
+    def sdpa(q, kk, v, **kw):
+        if bf16:
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                return F.scaled_dot_product_attention(q, kk, v, enable_gqa=True, **kw)
+        g = q.shape[1] // kk.shape[1]
+        return F.scaled_dot_product_attention(q, kk.repeat_interleave(g, dim=1),
+                                              v.repeat_interleave(g, dim=1), **kw)
+
+    def held(key, pairs, bad) -> dict:
+        """Each (got, want) of ``pairs`` within the tolerance (and, in bf16,
+        the row bound); ``bad`` (got, want on a planted fault) past it."""
+        err, excess = 0.0, -math.inf
+        for where, got, want in pairs:
+            e = float((got.float() - want.float()).abs().max())
+            check(torch.allclose(got.float(), want.float(), **tol), f"{key} {where}: max err {e}")
+            err = max(err, e)
+            if bf16:
+                excess = max(excess, _bf16_row_excess(got, want))
+        if not bf16:
+            return {"max_abs_err": err}
+        fault = _bf16_row_excess(*bad)
+        check(excess <= 0, f"{key}: {excess} rms of its row over the bf16 bound")
+        check(fault > 0, f"{key}: a zeroed 32-key tile in the last batch row passes the bound")
+        return {"max_abs_err": err, "bf16_row_excess": excess, "planted_fault_row_excess": fault,
+                "bf16_row_bound_used": 1.0 + excess / BF16_ROW}
+
+    for name, b, hq, hkv, s, d, dtypes, reps in LONG_PREFILL:
+        if dtype not in dtypes:
+            continue
+        key = f"{name}/{dtype}"
+        q = randn(b, s, hq, d, dtype=td).transpose(1, 2)
+        kk, v = (randn(b, s, hkv, d, dtype=td).transpose(1, 2) for _ in "kv")
+        kern = lambda: k.flash_attention(q, kk, v)  # noqa: E731
+        out, again = kern(), kern()
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"{key}: reruns differ")
+        del again
+        last = s - ROW_BLOCK
+
+        def rows(i, lo, hi, vv=None):
+            return attention_ref(q[i:i + 1, :, lo:hi], kk[i:i + 1],
+                                 v[i:i + 1] if vv is None else vv, q_offset=lo)
+
+        pairs = ((f"batch row {i}, q rows [{lo}, {hi})", out[i:i + 1, :, lo:hi], rows(i, lo, hi))
+                 for i in range(b) for lo, hi in ((0, ROW_BLOCK), (last, s)))
+        bad = (out[b - 1:, :, last:], rows(b - 1, last, s, _zero_tile(v[b - 1:], s // 2)))
+        rec = held(key, pairs, bad)
+        flops = 4.0 * b * hq * _valid_pairs(s, s, True, None) * d
+        bound_ms, bound_by = _bound((2 * q.numel() + 2 * kk.numel()) * q.element_size(), flops,
+                                    rate, BF16_PEAK if bf16 else F32_PEAK)
+        result["flash_attention"][key] = {
+            **rec, "bit_identical_rerun": True, "q_elements": q.numel(),
+            "compared": f"q rows [0, {ROW_BLOCK}) and [{last}, {s}) of every batch row and head",
+            **timings(kern, lambda: rows(0, last, s), lambda: sdpa(q, kk, v, is_causal=True),
+                      bf16, reps=reps),
+            "plain_rows": f"q rows [{last}, {s}) of batch row 0",
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        del q, kk, v, out, bad
+        torch.cuda.empty_cache()
+
+    for name, b, hq, hkv, s, d, batch_rows, reps in LONG_DECODE:
+        if not bf16:
+            continue
+        key = f"{name}/{dtype}"
+        q = randn(b, hq, d, dtype=td)
+        kk, v = (randn(b, s, hkv, d, dtype=td).transpose(1, 2) for _ in "kv")
+        sl = torch.full((b,), s, dtype=torch.int32, device=dev)
+        kern = lambda: k.decode_attention(q, kk, v, seq_lens=sl)  # noqa: E731
+        out, again = kern(), kern()
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"{key}: reruns differ")
+
+        def plain(i, vv=None):
+            return decode_attention_ref(q[i:i + 1], kk[i:i + 1], v[i:i + 1] if vv is None else vv,
+                                        seq_lens=sl[i:i + 1])
+
+        pairs = ((f"batch row {i}", out[i:i + 1], plain(i)) for i in batch_rows)
+        bad = (out[b - 1:], plain(b - 1, _zero_tile(v[b - 1:], s // 2)))
+        rec = held(key, pairs, bad)
+        idx = torch.tensor(batch_rows, device=dev)
+        bound_ms, bound_by = _bound((2 * kk.numel() + 2 * q.numel()) * q.element_size() + 4 * b,
+                                    4.0 * b * s * hq * d, rate, BF16_PEAK)
+        result["decode_attention"][key] = {
+            **rec, "bit_identical_rerun": True, "k_elements": kk.numel(),
+            "compared": f"batch rows {list(batch_rows)}",
+            **timings(kern, lambda: decode_attention_ref(q[idx], kk[idx], v[idx],
+                                                         seq_lens=sl[idx]),
+                      lambda: sdpa(q[:, :, None], kk, v), True, reps=reps),
+            "plain_rows": f"batch rows {list(batch_rows)}",
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        del q, kk, v, out, again, bad
+        torch.cuda.empty_cache()
 
 
 SCAN_TOL = dict(rtol=3e-3, atol=3e-3)  # tests/test_kernels.py:74-76, 101-103
@@ -2239,24 +2438,46 @@ def phase_plan_paper_scale() -> dict:
 
 SERVE_ARCH = "phi4-mini-3.8b"
 MOE_ARCH = "qwen3-moe-30b-a3b"
+# the remaining dense text configs (phase name -> arch), at full
+# width and depth
+DENSE_PATHS = {"serve_deepseek_7b": "deepseek-7b", "serve_qwen2_5_14b": "qwen2.5-14b",
+               "serve_yi_34b": "yi-34b"}
+MIXTRAL_LAYERS = 2  # of mixtral-8x22b's 56: about 10.8 GB of its 281 GB
+MIXTRAL_PROMPT = 6000
 SERVE_REQUESTS, SERVE_SLOTS = 8, 4
 F32_LOGIT_BOUND = 0.05  # tests/test_models.py:94-114, float32 compute
 MOE_F32_REL = 1e-4  # one full-width MoE layer, card vs CPU, float32 compute
-_TEXT = {"kv": None, "consistency_len": None, "first_wave": False, "new": 64, "reduced": None}
-# per serving path: n_kv_heads of the reduced config checked card vs CPU (phi4
-# with 2 for GQA), the prompt length S + 1 of the prefill(S) + decode vs
-# prefill(S + 1) check (None: the first request's prompt plus one token;
-# mamba2: S = 127, since prefill(S) needs min(128, S) to divide S), whether
-# the first wave's tokens must agree between the schedulers, the greedy
-# tokens a request, and the reduced configs held card against CPU (None:
-# the arch's own)
+_TEXT = {"kv": None, "heads": None, "consistency_len": None,
+         "first_wave": False, "new": 64, "reduced": None,
+         "eager": ("generate", "generate_continuous"), "long_prompt": None}
+# the paths of DENSE_PATHS and mixtral, cut for the clock: 16 tokens, the eager
+# check on generate only
+_NEW = {**_TEXT, "new": 16, "eager": ("generate",)}
+# per serving path: n_kv_heads and n_heads of the reduced config checked card
+# vs CPU (phi4 with 2 KV heads for GQA; qwen2.5, mixtral and yi at their full
+# configs' groups, 5, 6 and 7, where reduced() makes them MHA), the prompt
+# length S + 1 of the prefill(S) + decode vs prefill(S + 1) check (None: the
+# first request's prompt plus one token; mamba2: S = 127, since prefill(S)
+# needs min(128, S) to divide S), whether the first wave's tokens must agree
+# between the schedulers (False: only its last request's, under float32
+# compute), the greedy tokens a request, the reduced configs held card
+# against CPU (None: the arch's own), the schedulers run again op by op, and
+# a batch-1 request of that many tokens
 SERVE_PATHS = {
     "phi4-mini-3.8b": {**_TEXT, "kv": 2, "first_wave": True},
     "mamba2-1.3b": {**_TEXT, "consistency_len": 128},
-    "recurrentgemma-9b": {**_TEXT, "consistency_len": LONG_PROMPT + 1},
-    # mixtral-8x22b (281 GB of bf16) runs reduced only: swa, window 64, 8
-    # experts in the reference's TP mode
+    "recurrentgemma-9b": {**_TEXT, "consistency_len": LONG_PROMPT + 1,
+                          "long_prompt": LONG_PROMPT},
     MOE_ARCH: {**_TEXT, "new": 32, "reduced": (MOE_ARCH, "mixtral-8x22b")},
+    "deepseek-7b": _NEW,
+    "qwen2.5-14b": {**_NEW, "heads": 10, "kv": 2},
+    "yi-34b": {**_NEW, "heads": 14, "kv": 2},
+    # mixtral-8x22b (281 GB of bf16) at full width, cut to MIXTRAL_LAYERS of
+    # its 56 layers: a batch-1 prompt of 6,000 tokens (the engine's bucket of
+    # 8,192 fills the 4,096-slot ring twice) and the prefill(S) + decode
+    # check at S = 6,000, whose ring is misaligned
+    "mixtral-8x22b": {**_NEW, "heads": 12, "kv": 2, "consistency_len": MIXTRAL_PROMPT + 1,
+                      "long_prompt": MIXTRAL_PROMPT},
 }
 
 
@@ -2321,11 +2542,33 @@ def _front_end_batch(cfg, b: int, s: int, seed: int) -> tuple[dict, int]:
     return batch, cfg.vision_tokens
 
 
-def _card_vs_cpu(dev, arch: str, kv) -> dict:
-    """(a) ``arch`` reduced: prefill of 64 tokens (a vlm's after its patch
-    embeddings; audio's of 4 codebooks) and 8 teacher-forced decode steps,
-    on the card (kernels) and on the CPU (plain versions), from one set of
-    numpy parameters; bf16 and float32 compute."""
+def _nonzero_leaves(tree: dict, cfg, seed: int) -> list[str]:
+    """Every leaf of the numpy tree ``tree`` that ``init_params`` makes zero
+    (``PDef.init == "zeros"``: q/k/v biases, QK-norm and norm scales, the
+    ssm skip) replaced in place by seeded ``0.1 · normal`` float32 values,
+    so that a bias or scale the card dropped shows; their paths."""
+    import numpy as np
+
+    from repro_torch.models import lm
+
+    rng, done = np.random.default_rng(seed), []
+    for path, pd in _paths(lm.param_defs(cfg)):
+        if pd.init == "zeros":
+            node = tree
+            for key in path[:-1]:
+                node = node[key]
+            node[path[-1]] = (0.1 * rng.standard_normal(pd.shape)).astype(np.float32)
+            done.append("/".join(path))
+    return done
+
+
+def _card_vs_cpu(dev, arch: str, kv, heads=None) -> dict:
+    """(a) ``arch`` reduced (with ``kv`` KV heads and ``heads`` q heads
+    where given, its zero-initialised leaves made non-zero): prefill of 64
+    tokens (a vlm's after its patch embeddings; audio's of 4 codebooks) and
+    8 teacher-forced decode steps, on the card
+    (kernels) and on the CPU (plain versions), from one set of numpy
+    parameters; bf16 and float32 compute."""
     import dataclasses
 
     import torch
@@ -2335,11 +2578,12 @@ def _card_vs_cpu(dev, arch: str, kv) -> dict:
     from repro_torch.models import lm
 
     cfg = ARCHS[arch].reduced()
-    if kv:
-        cfg = dataclasses.replace(cfg, n_kv_heads=kv)
+    over = {k: v for k, v in (("n_heads", heads), ("n_kv_heads", kv)) if v}
+    cfg = dataclasses.replace(cfg, **over)
     tree = _numpy_params(cfg, 0, dev)  # the card's draw held to the CPU's
+    out = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "nonzero_leaves": _nonzero_leaves(tree, cfg, 2)}
     batch, nv = _front_end_batch(cfg, 2, 72, 1)
-    out = {}
     for dtype, label in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
         logits = {}
         with compute_dtype(dtype):
@@ -2468,7 +2712,8 @@ def _moe_layer_vs_cpu(params, cfg, dev) -> dict:
     lp = lm._layer(params["seg0"], 0)
     with torch.inference_mode():
         x = lm.embed_inputs(params, {"tokens": toks}, cfg)
-        x = x + L.attention_block(L.rms_norm(x, lp["ln1_0"]), lp["m0"], cfg, "full")
+        x = x + L.attention_block(L.rms_norm(x, lp["ln1_0"]), lp["m0"], cfg,
+                                  cfg.layer_pattern[0])
         y = L.rms_norm(x, lp["ln2_0"])
         host = {k: v.cpu() for k, v in lp["mlp0"].items()}
         res, t = {}, {}
@@ -2590,14 +2835,16 @@ def _serve_timed(eng, name: str, prompts, cfg, per_call, new: int) -> dict:
             "distinct_tokens_per_request": [len(set(t)) for t in toks]}
 
 
-def phase_serve(dev, arch: str) -> dict:
-    """(b) ``arch`` at full width and depth (bf16, random weights from a
-    seed): 8 requests through ``ServeEngine.generate`` (two waves of 4) and
-    ``generate_continuous``, every prefill and decode step launching exactly
-    its layers' kernels; for recurrentgemma-9b also one batch-1 request of
-    4,096 tokens.  Decode replays a CUDA graph per batch (the engine's
-    default on the card); the same requests through both schedulers op by
-    op (``graph=False``) must give the same greedy tokens.  (a),
+def phase_serve(dev, arch: str, cfg=None) -> dict:
+    """(b) ``arch`` at full width and depth, or as ``cfg`` gives it (bf16,
+    random weights from a seed): 8 requests through ``ServeEngine.generate``
+    (two waves of 4) and ``generate_continuous``, every prefill and decode
+    step launching exactly its layers' kernels; for recurrentgemma-9b and
+    mixtral-8x22b also one batch-1 request of 4,096 / 6,000 tokens
+    (``_long_request``: replayed and op by op, the same tokens).  Decode
+    replays a CUDA graph per batch (the engine's default on the card); the
+    same requests through the path's schedulers op by op (``graph=False``)
+    must give the same greedy tokens.  (a),
     the eager runs, the prefill + decode consistency, the profiled decode
     windows (eager and replayed, their logits compared) and, with experts,
     one full-width MoE layer card against CPU run outside the launch
@@ -2608,14 +2855,13 @@ def phase_serve(dev, arch: str) -> dict:
     from repro_torch.configs import ARCHS
     from repro_torch.models import lm
     from repro_torch.serve import ServeConfig, ServeEngine
-    from repro_torch.serve import engine as serve_engine
 
     opts = SERVE_PATHS[arch]
-    out: dict = {"arch": arch}
+    cfg, new = ARCHS[arch] if cfg is None else cfg, opts["new"]
+    out: dict = {"arch": arch, "n_layers": cfg.n_layers}
     with uncounted():
-        out["card_vs_cpu_reduced"] = {a: _card_vs_cpu(dev, a, opts["kv"])
+        out["card_vs_cpu_reduced"] = {a: _card_vs_cpu(dev, a, opts["kv"], opts["heads"])
                                       for a in opts["reduced"] or (arch,)}
-    cfg, new = ARCHS[arch], opts["new"]
     per_call = _launches_per_call(cfg)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -2639,12 +2885,12 @@ def phase_serve(dev, arch: str) -> dict:
         eager = ServeEngine(cfg, params, ServeConfig(batch_slots=SERVE_SLOTS), device=dev,
                             graph=False)
         eager_runs = {name: _serve_timed(eager, name, prompts, cfg, per_call, new)
-                      for name in schedulers}
+                      for name in opts["eager"]}
     out["peak_memory_eager"] = torch.cuda.max_memory_allocated(dev)
-    for name in schedulers:
+    for name in opts["eager"]:
         check(eager_runs[name]["tokens_out"] == runs[name]["tokens_out"],
               f"{name}: replayed greedy tokens differ from eager")
-    out["replayed_tokens_equal_eager"] = list(schedulers)
+    out["replayed_tokens_equal_eager"] = list(opts["eager"])
     same = [runs["generate_continuous"]["tokens_out"][i] == runs["generate"]["tokens_out"][i]
             for i in range(SERVE_SLOTS)]
     if opts["first_wave"]:
@@ -2663,14 +2909,12 @@ def phase_serve(dev, arch: str) -> dict:
         check(f32[0] == f32[1], f"float32: the first wave's last request differs: {f32}")
         out["first_wave_last_equal_float32"] = True
     out["first_wave_equal"] = same
-    if opts["consistency_len"] == LONG_PROMPT + 1:
-        long_prompt = rng.integers(0, cfg.vocab_size, LONG_PROMPT).tolist()
-        one = ServeEngine(cfg, params, ServeConfig(batch_slots=1), device=dev)
-        runs["long_prompt_batch1"] = _serve_timed(one, "generate", [long_prompt], cfg, per_call,
-                                                  new)
     for run in (*runs.values(), *eager_runs.values()):
         run.pop("tokens_out")
         run.pop("first_decode_logits")
+    if opts["long_prompt"]:
+        long_prompt = rng.integers(0, cfg.vocab_size, opts["long_prompt"]).tolist()
+        runs["long_prompt_batch1"] = _long_request(dev, params, cfg, long_prompt, per_call, new)
     out["runs"] = runs
     out["eager_runs"] = eager_runs
 
@@ -2682,41 +2926,75 @@ def phase_serve(dev, arch: str) -> dict:
             params, cfg, {"tokens": torch.tensor([prompt], dtype=torch.int32, device=dev)}, dev)
         if cfg.n_experts:
             out["moe_layer_card_vs_cpu"] = _moe_layer_vs_cpu(params, cfg, dev)
-        # launches and busy share of decode steps, eager and replayed, and
-        # their logits: a 4-slot wave at plen 1,024, teacher-forced, each
-        # mode on its own copy of the caches (the profile's steps 3-10; the
-        # capture is the second step)
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_SLOTS, 1024 + 16))
-                                .astype(np.int32)).to(dev)
-        modes = {}
-        with torch.inference_mode():
-            _, cache0 = lm.prefill(params, {"tokens": toks[:, :1024]}, cfg, max_len=1024 + 16)
-            for graph in (False, True):
-                cache = _clone(cache0)
-                decode = serve_engine._Decode(ServeEngine(cfg, params, device=dev, graph=graph),
-                                              cache, SERVE_SLOTS, 1024)
-                seen = []
-
-                def steps(n, decode=decode, seen=seen):
-                    for _ in range(n):
-                        seen.append(decode(toks[:, 1024 + len(seen)]).clone())
-
-                modes[graph] = (_per_step(_device_profile(steps, 8), 8), torch.stack(seen))
-                del cache, decode
-            del cache0
-        (eager_prof, want), (prof, got) = modes[False], modes[True]
-        err, over = _bf16_close(got, want, cfg.vocab_size)
-        check(over <= 0, f"replayed vs eager decode logits: {err} exceeds two bf16 steps")
-        out["decode_profile"] = {
-            "replayed": prof, "eager": eager_prof, "logits_bit_equal": bool(torch.equal(got, want)),
-            "max_abs_logit_diff": err, "bound": "rtol 2^-6 + atol 2^-6 rms",
-            "profiler_sees_graph_kernels":
-                prof["kernels_per_step"] >= 0.9 * eager_prof["kernels_per_step"]}
-        del got, want
+        out["decode_profile"] = _decode_profile(params, cfg, dev, rng, SERVE_SLOTS, 1024)
     out["peak_memory"] = torch.cuda.max_memory_allocated(dev)
     del params, eng
     torch.cuda.empty_cache()
     return out
+
+
+def _long_request(dev, params, cfg, prompt, per_call, new: int,
+                  scheduler: str = "generate") -> dict:
+    """One batch-1 request of ``prompt`` through ``ServeEngine.<scheduler>``
+    (``new`` greedy tokens), decode replayed, then again op by op
+    (uncounted): the same tokens; with the shapes K3 and K4 were called at
+    in the replayed run (``kernel_shapes``)."""
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    one = ServeConfig(batch_slots=1)
+    with attention_shapes() as shapes:
+        run = _serve_timed(ServeEngine(cfg, params, one, device=dev), scheduler, [prompt], cfg,
+                           per_call, new)
+    with uncounted():
+        eager = _serve_timed(ServeEngine(cfg, params, one, device=dev, graph=False), scheduler,
+                             [prompt], cfg, per_call, new)
+    check(eager.pop("tokens_out") == run["tokens_out"],
+          f"{scheduler}, {len(prompt)} tokens: replayed greedy tokens differ from eager")
+    for r in (run, eager):
+        r.pop("first_decode_logits")
+    return {**run, "prompt_tokens": len(prompt), "kernel_shapes": shapes,
+            "replayed_tokens_equal_eager": True, "eager": eager}
+
+
+def _decode_profile(params, cfg, dev, rng, slots: int, plen: int) -> dict:
+    """Launches and busy share of decode steps, eager and replayed, and
+    their logits: ``slots`` rows prefilled with ``plen`` random tokens, then
+    teacher-forced steps, each mode on its own copy of the caches (the
+    profile's steps 3-10; the capture is the second step); the replayed
+    logits within two bf16 steps of the eager ones."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import engine as serve_engine
+
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (slots, plen + 16))
+                            .astype(np.int32)).to(dev)
+    modes = {}
+    with torch.inference_mode():
+        _, cache0 = lm.prefill(params, {"tokens": toks[:, :plen]}, cfg, max_len=plen + 16)
+        for graph in (False, True):
+            cache = _clone(cache0)
+            decode = serve_engine._Decode(ServeEngine(cfg, params, device=dev, graph=graph),
+                                          cache, slots, plen)
+            seen = []
+
+            def steps(n, decode=decode, seen=seen):
+                for _ in range(n):
+                    seen.append(decode(toks[:, plen + len(seen)]).clone())
+
+            modes[graph] = (_per_step(_device_profile(steps, 8), 8), torch.stack(seen))
+            del cache, decode
+        del cache0
+    (eager_prof, want), (prof, got) = modes[False], modes[True]
+    err, over = _bf16_close(got, want, cfg.vocab_size)
+    check(over <= 0, f"replayed vs eager decode logits: {err} exceeds two bf16 steps")
+    return {"slots": slots, "prompt_tokens": plen, "replayed": prof, "eager": eager_prof,
+            "logits_bit_equal": bool(torch.equal(got, want)), "max_abs_logit_diff": err,
+            "bound": "rtol 2^-6 + atol 2^-6 rms",
+            "profiler_sees_graph_kernels":
+                prof["kernels_per_step"] >= 0.9 * eager_prof["kernels_per_step"]}
 
 
 LEAF_VALUES = 1 << 21  # values of one weight leaf drawn again on the CPU
@@ -2774,6 +3052,101 @@ def _clone(tree):
     if isinstance(tree, list):
         return [_clone(v) for v in tree]
     return tree.clone()
+
+
+@contextlib.contextmanager
+def attention_shapes():
+    """The shapes K3 (q) and K4 (the K cache view) are called at inside, as
+    ``kernels.ops`` calls them: ``{"flash_attention": {shape: calls},
+    "decode_attention": {...}}`` (a replayed decode step calls the wrapper
+    once, at its capture)."""
+    from repro_torch.kernels import attention as k
+
+    seen: dict = {"flash_attention": {}, "decode_attention": {}}
+    real = k.flash_attention, k.decode_attention
+
+    def count(name, shape):
+        key = "x".join(map(str, shape))
+        seen[name][key] = seen[name].get(key, 0) + 1
+
+    def flash(q, *args, **kw):
+        count("flash_attention", q.shape)
+        return real[0](q, *args, **kw)
+
+    def decode(q, kk, *args, **kw):
+        count("decode_attention", kk.shape)
+        return real[1](q, kk, *args, **kw)
+
+    k.flash_attention, k.decode_attention = flash, decode
+    try:
+        yield seen
+    finally:
+        k.flash_attention, k.decode_attention = real
+
+
+LONG_CONTEXT = 32_000  # phi4's batch-1 prompt: the engine's bucket of 32,768 tokens
+LONG_NEW = 16  # greedy tokens: a cache of 32,768 + 2 · 16 slots
+LONG_CUT = 8  # phi4 layers of the float32 prefill(S) + decode check at S = 32,767
+
+
+def phase_long_context(dev) -> dict:
+    """phi4-mini-3.8b at full width and depth, batch 1, a prompt of 32,000
+    tokens through ``ServeEngine.generate_continuous`` (bucket 32,768, a
+    cache of 32,800 slots, 4.3 GB of K/V) by phase 5's ``_long_request``:
+    K3 at S = 32,768 in every layer of the prefill and K4 over the whole
+    cache in every decode step (their call shapes checked), 16 greedy tokens
+    replayed and again op by op (equal); the device ms of one prefill and
+    phase 5's decode profile at that length (``torch.profiler``,
+    uncounted), peak memory; then prefill(S) + decode against prefill(S +
+    1) at S = 32,767 on phi4 cut to its first LONG_CUT layers at full width
+    (for the clock), within 0.05 under float32 compute.  Phase 5's
+    requests are not served again: its ``serve`` path serves them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import lm
+
+    cfg = ARCHS[SERVE_ARCH]
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(0, cfg.vocab_size, LONG_CONTEXT).tolist()
+    run = _long_request(dev, params, cfg, prompt, _launches_per_call(cfg), LONG_NEW,
+                        "generate_continuous")
+    bucket = 1 << (LONG_CONTEXT - 1).bit_length()
+    want = {"flash_attention": ["x".join(map(str, (1, cfg.n_heads, bucket, cfg.head_dim)))],
+            "decode_attention": ["x".join(map(str, (1, cfg.n_kv_heads, bucket + 2 * LONG_NEW,
+                                                    cfg.head_dim)))]}
+    shapes = run["kernel_shapes"]
+    check({k: sorted(v) for k, v in shapes.items()} == want,
+          f"long context: kernel shapes {shapes}, expected {want}")
+    out: dict = {"arch": SERVE_ARCH, "new": LONG_NEW, "tokens": run.pop("tokens_out"),
+                 "run": run, "peak_memory_replayed": torch.cuda.max_memory_allocated(dev)}
+    with uncounted():
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, bucket))
+                                .astype(np.int32)).to(dev)
+
+        def prefill(n):
+            for _ in range(n):
+                lm.prefill(params, {"tokens": toks}, cfg, max_len=bucket + 16)
+
+        with torch.inference_mode():
+            out["prefill_profile"] = _device_profile(prefill, 1, warmup=0)
+        out["decode_profile"] = _decode_profile(params, cfg, dev, rng, 1, bucket)
+    out["peak_memory"] = torch.cuda.max_memory_allocated(dev)
+    del params
+    torch.cuda.empty_cache()
+    with uncounted():
+        cut = _depth_cut(SERVE_ARCH, LONG_CUT)
+        params = lm.init_params(cut, 0, device=dev)
+        toks = torch.from_numpy(rng.integers(0, cut.vocab_size, (1, bucket)).astype(np.int32))
+        out["prefill_decode_consistency"] = {
+            "n_layers": LONG_CUT, **_prefill_decode_consistency(
+                params, cut, {"tokens": toks.to(dev)}, dev)}
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_serve_launcher() -> dict:
@@ -3670,6 +4043,17 @@ def main() -> int:
          ("serve_qwen3_moe", lambda: phase_serve(dev, MOE_ARCH)))
     path(("flash_attention", "decode_attention", "threefry"),
          ("frontends", lambda: phase_frontends(dev)))
+    # the remaining text configs and the dry-run's lengths: deepseek-7b, qwen2.5-14b
+    # and yi-34b at full width and depth, mixtral-8x22b at full width cut to
+    # its first layers, phi4 over a 32,000-token prompt
+    for phase, arch in DENSE_PATHS.items():
+        path(("flash_attention", "decode_attention", "threefry"),
+             (phase, lambda arch=arch: phase_serve(dev, arch)))
+    path(("flash_attention", "decode_attention", "threefry"),
+         ("serve_mixtral_cut", lambda: phase_serve(
+             dev, "mixtral-8x22b", _depth_cut("mixtral-8x22b", MIXTRAL_LAYERS))))
+    path(("flash_attention", "decode_attention", "threefry"),
+         ("long_context", lambda: phase_long_context(dev)))
     # training: (a) and (b) take the training route, which launches no
     # hand-written kernel but threefry's weights; (c) serves the trained
     # params through K3 and K4
@@ -3712,6 +4096,12 @@ def main() -> int:
          "phi4_decode_lse_half/bfloat16"),
         ("decode_attention", "attention.cu", "decode_attention.py:94",
          "rg_ring_lse_half/bfloat16"),
+        *(("flash_attention", "attention.cu", "flash_attention.py:116", f"{case}/bfloat16")
+          for case in ("deepseek_prefill", "qwen25_prefill", "yi_prefill", "mixtral_prefill",
+                       "phi4_prefill_32k", "dryrun_prefill_32k")),
+        *(("decode_attention", "attention.cu", "decode_attention.py:94", f"{case}/bfloat16")
+          for case in ("deepseek_decode", "qwen25_decode", "yi_decode", "mixtral_ring",
+                       "phi4_decode_32k", "dryrun_decode_32k")),
         ("ssd_scan", "scan.cu", "ssd_scan.py:81", "mamba2_prefill"),
         ("rglru_scan", "scan.cu", "rglru_scan.py:53", "rg_prefill"),
         ("rglru_scan", "scan.cu", "rglru_scan.py:53", "rg_continuous"),
@@ -3734,8 +4124,8 @@ def main() -> int:
                      **({"process_rank_launches": {"ranks": comm_real["processes"],
                                                    "per_rank": per_rank}}
                         if kname == "spike_accum_blocks" else {}),
-                     **{key: c[key] for key in ("bound_ms_bytes", "main_path_device_ms")
-                        if key in c}})
+                     **{key: c[key] for key in ("bound_ms_bytes", "main_path_device_ms",
+                                                "plain_rows") if key in c}})
     emit({"phase": "done", "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": rows})

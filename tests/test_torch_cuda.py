@@ -278,6 +278,12 @@ def _assert_bf16_step(out, want):
         # from row 384 on need no KV tile at all (window 10 starts past the
         # 100 keys) and must leave the K/V ring's bookkeeping as it was
         (1, 64, 8, 600, 100, 64, False, 10),
+        # the groups of qwen2.5-14b (5), mixtral-8x22b (6, windowed) and
+        # yi-34b (7), and deepseek-7b's MHA, at head dim 128
+        (2, 10, 2, 300, 300, 128, True, None),
+        (1, 12, 2, 333, 333, 128, True, 128),
+        (1, 14, 2, 257, 257, 128, True, None),
+        (2, 8, 8, 200, 200, 128, True, None),
     ],
 )
 def test_flash_attention_matches_plain(dev, dtype, b, hq, hkv, sq, sk, d, causal, window):
@@ -314,7 +320,11 @@ def test_flash_attention_matches_plain(dev, dtype, b, hq, hkv, sq, sk, d, causal
      # single valid row ("one")
      (2, 6, 2, 700, 128, True), (1, 12, 1, 513, 128, True), (1, 32, 2, 777, 128, True),
      (2, 32, 1, 300, 128, True), (1, 9, 3, 300, 256, False), (3, 36, 3, 400, 256, True),
-     (1, 32, 1, 900, 256, True), (1, 48, 1, 300, 128, True), (2, 16, 1, 640, 256, "one")],
+     (1, 32, 1, 900, 256, True), (1, 48, 1, 300, 128, True), (2, 16, 1, 640, 256, "one"),
+     # groups 5, 6 and 7 (qwen2.5-14b, mixtral-8x22b, yi-34b) and MHA
+     # (deepseek-7b) at head dim 128
+     (2, 10, 2, 700, 128, True), (1, 12, 2, 513, 128, True), (2, 14, 2, 600, 128, True),
+     (2, 8, 8, 640, 128, True)],
 )
 def test_decode_attention_matches_plain(dev, dtype, b, hq, hkv, s, d, ragged):
     """The reference's sweep (``tests/test_kernels.py:47-61``) on
@@ -415,6 +425,48 @@ def test_decode_attention_lse_combines_over_slot_splits(dev, dtype, b, hq, hkv, 
     o, l = k.decode_attention(q, kv[0][:, :, :half], kv[1][:, :, :half], slot_pos=none,
                               return_lse=True)
     assert torch.equal(o, torch.zeros_like(o)) and torch.isneginf(l).all()
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention"])
+def test_attention_past_2_31_elements_matches_plain_on_rows(dev, kernel):
+    """Inputs of more than 2^31 elements (a [B, S, H, D] q of 2.4 G for K3,
+    a [B, S, Hkv, D] K and V of 2.2 G each for K4), whose element offsets
+    past 2^31 a 32-bit index would wrap: K3's first and last 512 q rows of
+    each batch row (the last lie past 2^31 in batch row 1), K4's batch rows
+    0, 32 and 63, against the plain version on those rows alone (it cannot
+    hold the whole input)."""
+    from repro_torch.kernels import attention as k
+    from repro_torch.kernels.ref import attention_ref, decode_attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    tol = ATTN_TOL[torch.bfloat16]
+    if kernel == "flash_attention":
+        b, hq, hkv, sq, sk, d = 2, 8, 2, 1 << 20 | 1 << 17, 1024, 128
+        q = torch.randn((b, sq, hq, d), generator=gen, device=dev, dtype=torch.bfloat16)
+        kk, v = (torch.randn((b, sk, hkv, d), generator=gen, device=dev, dtype=torch.bfloat16)
+                 .transpose(1, 2) for _ in "kv")
+        q = q.transpose(1, 2)
+        assert q.numel() > 1 << 31
+        out = k.flash_attention(q, kk, v, causal=False)
+        for i in range(b):
+            for lo in (0, sq - 512):
+                want = attention_ref(q[i:i + 1, :, lo:lo + 512], kk[i:i + 1], v[i:i + 1],
+                                     causal=False)
+                got = out[i:i + 1, :, lo:lo + 512]
+                torch.testing.assert_close(got.float(), want.float(), **tol)
+                _assert_bf16_step(got, want)
+    else:
+        b, hq, hkv, s, d = 64, 24, 8, 33_000, 128
+        q = torch.randn((b, hq, d), generator=gen, device=dev, dtype=torch.bfloat16)
+        kk, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev, dtype=torch.bfloat16)
+                 .transpose(1, 2) for _ in "kv")
+        assert kk.numel() > 1 << 31
+        sl = torch.randint(s - 100, s + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+        out = k.decode_attention(q, kk, v, seq_lens=sl)
+        for i in (0, 32, 63):
+            want = decode_attention_ref(q[i:i + 1], kk[i:i + 1], v[i:i + 1], seq_lens=sl[i:i + 1])
+            torch.testing.assert_close(out[i:i + 1].float(), want.float(), **tol)
+            _assert_bf16_step(out[i:i + 1], want)
 
 
 def test_kernels_launch_nothing_on_an_empty_batch(dev):

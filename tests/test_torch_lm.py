@@ -8,8 +8,21 @@ heads (GQA, group 2), ``mamba2-1.3b`` reduced (ssm),
 ring-buffer decode is checked on an aligned and a misaligned prefill),
 ``qwen2.5-14b`` reduced (the one served config with q/k/v biases),
 ``yi-34b`` reduced, and the mixtures of experts (``qwen3-moe-30b-a3b``,
-``mixtral-8x22b``) and the vlm and audio front ends
-(``llava-next-mistral-7b``, ``musicgen-large``) reduced.
+``mixtral-8x22b``, whose ``swa`` ring is misaligned after its prefill) and
+the vlm and audio front ends (``llava-next-mistral-7b``,
+``musicgen-large``) reduced.
+
+Two blind spots of the reduced configs are closed here.  ``reduced()``
+caps the q heads at 4 and lowers the KV heads until they divide, so it
+makes qwen2.5, mixtral and yi MHA: they run with 2 KV heads and their full
+configs' groups instead (``HEADS``: 10, 12 and 14 q heads, groups 5, 6 and
+7).  ``init_params`` makes the q/k/v biases, the QK-norm scales and every
+norm scale zero (``PDef.init == "zeros"``), so a port that dropped one
+would still equal the reference: for ``NONZERO``'s configs (qwen2.5's
+biases, qwen3-moe's QK-norm, phi4 with neither) every such leaf of the
+reference's tree is made ``0.1 · normal`` before both packages get it, and
+zeroing the biases or QK-norm scales of the port again must fail the
+float32 bound.
 
 Tolerance.  Both packages compute in bfloat16 with float32 softmax and
 norms and round at the same places, but their matmuls sum in other orders,
@@ -39,22 +52,41 @@ from repro_torch.models import lm
 
 POL = ShardingPolicy()
 CPU = "cpu"
-MODELS = {"deepseek-7b": None, "phi4-mini-3.8b": 2,  # arch -> n_kv_heads override
-          "mamba2-1.3b": None, "recurrentgemma-9b": None,
-          "qwen2.5-14b": None, "yi-34b": None}
+MODELS = ["deepseek-7b", "mamba2-1.3b", "phi4-mini-3.8b", "qwen2.5-14b", "recurrentgemma-9b",
+          "yi-34b"]
 RECURRENT = ["mamba2-1.3b", "recurrentgemma-9b"]
+# arch -> (n_heads, n_kv_heads) of its reduced config: phi4 GQA (group 2);
+# qwen2.5, mixtral and yi grouped as their full configs (groups 5, 6, 7)
+HEADS = {"phi4-mini-3.8b": (4, 2), "qwen2.5-14b": (10, 2), "mixtral-8x22b": (12, 2),
+         "yi-34b": (14, 2)}
+# the configs whose zero-initialised leaves are made 0.1 · normal
+NONZERO = ("phi4-mini-3.8b", "qwen2.5-14b", "qwen3-moe-30b-a3b")
 
 
 def _cfgs(arch: str):
     jc, pc = JAX_ARCHS[arch].reduced(), ARCHS[arch].reduced()
-    if MODELS.get(arch):
-        jc = dataclasses.replace(jc, n_kv_heads=MODELS[arch])
-        pc = dataclasses.replace(pc, n_kv_heads=MODELS[arch])
+    if arch in HEADS:
+        heads, kv = HEADS[arch]
+        jc, pc = (dataclasses.replace(c, n_heads=heads, n_kv_heads=kv) for c in (jc, pc))
     return jc, pc
 
 
 def _params(jc, pc, seed: int = 0):
+    """The reference's ``init_params`` tree, for ``NONZERO``'s configs with
+    every zero-initialised leaf (q/k/v biases, QK-norm and norm scales)
+    replaced by seeded ``0.1 · normal`` values in the leaf's dtype, and the
+    port's parameters converted from it."""
     jp = jlm.init_params(jc, jax.random.PRNGKey(seed))
+    if jc.name in NONZERO:
+        rng = np.random.default_rng(seed + 100)
+
+        def fill(defs, leaf):
+            if isinstance(defs, jlm.PDef):
+                return (jnp.asarray(0.1 * rng.standard_normal(defs.shape), defs.dtype)
+                        if defs.init == "zeros" else leaf)
+            return {k: fill(defs[k], leaf[k]) for k in sorted(defs)}
+
+        jp = fill(jlm.param_defs(jc), jp)
     tree = jax.tree.map(lambda x: np.asarray(x, np.float32), jp)
     return jp, convert.lm_params(tree, pc, CPU)
 
@@ -155,27 +187,46 @@ def test_attention_decode_matches(phi4):
         np.testing.assert_array_equal(tcache["slot_pos"].numpy(), np.asarray(jcache["slot_pos"]))
 
 
-@pytest.mark.parametrize("arch", sorted(MODELS))
-def test_prefill_and_decode_match(arch):
-    """prefill(S) and 4 teacher-forced decode steps: logits and caches
-    equal the reference's (bf16 bound above); the port's forward over all
-    S + 4 tokens agrees with its own last decode step."""
-    jc, pc = _cfgs(arch)
-    jp, tp = _params(jc, pc)
-    b, s, extra = 2, 48, 4
-    toks = np.random.default_rng(3).integers(0, jc.vocab_size, (b, s + extra)).astype(np.int32)
+def _prefill_and_decode(jc, pc, jp, tp, toks: np.ndarray, s: int):
+    """prefill(S) and teacher-forced decode steps over ``toks[:, S:]`` in
+    both packages, the reference jitted: ``[(call, port logits, reference
+    logits)]`` and both final caches."""
+    extra = toks.shape[1] - s
     jl, jcache = jax.jit(lambda p, t: jlm.prefill(p, {"tokens": t}, jc, POL, max_len=s + extra))(
         jp, jnp.asarray(toks[:, :s]))
     tl, tcache = lm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :s])}, pc, max_len=s + extra)
-    assert tl.shape == (b, lm.padded_vocab(pc)) and tl.dtype == torch.float32
-    assert_bf16_close(tl, jl, jc.vocab_size, f"{arch} prefill")
-    assert (tl[:, jc.vocab_size:] == -1e30).all()
+    calls = [("prefill", tl, jl)]
     dec = jax.jit(lambda p, c, t, pos: jlm.decode_step(p, c, {"tokens": t}, pos, jc, POL))
     for i in range(extra):
         jl, jcache = dec(jp, jcache, jnp.asarray(toks[:, s + i : s + i + 1]), jnp.int32(s + i))
         tl, tcache = lm.decode_step(tp, tcache, {"tokens": torch.from_numpy(toks[:, s + i : s + i + 1])},
                                     s + i, pc)
-        assert_bf16_close(tl, jl, jc.vocab_size, f"{arch} decode {i}")
+        calls.append((f"decode {i}", tl, jl))
+    return calls, tcache, jcache
+
+
+def _f32_excess(port, ref, n_vocab: int) -> float:
+    """How far the port's logits lie past the float32 bound, ``1e-4``
+    relative and ``1e-4`` of the reference's largest logit (<= 0: within)."""
+    port, ref = _f32(port)[..., :n_vocab], _f32(ref)[..., :n_vocab]
+    return float((np.abs(port - ref) - 1e-4 * np.abs(ref) - 1e-4 * np.abs(ref).max()).max())
+
+
+@pytest.mark.parametrize("arch", MODELS)
+def test_prefill_and_decode_match(arch):
+    """prefill(S) and 8 teacher-forced decode steps: logits and caches
+    equal the reference's (bf16 bound above); the port's forward over all
+    S + 8 tokens agrees with its own last decode step."""
+    jc, pc = _cfgs(arch)
+    jp, tp = _params(jc, pc)
+    b, s, extra = 2, 48, 8
+    toks = np.random.default_rng(3).integers(0, jc.vocab_size, (b, s + extra)).astype(np.int32)
+    calls, tcache, jcache = _prefill_and_decode(jc, pc, jp, tp, toks, s)
+    tl = calls[0][1]
+    assert tl.shape == (b, lm.padded_vocab(pc)) and tl.dtype == torch.float32
+    assert (tl[:, jc.vocab_size:] == -1e30).all()
+    for name, tl, jl in calls:
+        assert_bf16_close(tl, jl, jc.vocab_size, f"{arch} {name}")
     for path, (t, j) in _cache_leaves(tcache, jcache):
         if path.endswith("slot_pos"):
             np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=path)
@@ -191,6 +242,48 @@ def test_prefill_and_decode_match(arch):
     assert_bf16_close(tl, lm.lm_logits(tp, h[:, -1:], pc)[:, 0], pc.vocab_size, "forward")
 
 
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "yi-34b"])
+def test_float32_prefill_and_decode_match(arch, monkeypatch):
+    """qwen2.5 (group 5, non-zero q/k/v biases) and yi (group 7) with
+    ``COMPUTE_DTYPE`` float32 in both packages: prefill and 8 teacher-forced
+    decode steps within ``1e-4``."""
+    monkeypatch.setattr(JL, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
+    jc, pc = _cfgs(arch)
+    assert pc.n_heads // pc.n_kv_heads == {"qwen2.5-14b": 5, "yi-34b": 7}[arch]
+    jp, tp = _params(jc, pc)
+    toks = np.random.default_rng(3).integers(0, jc.vocab_size, (2, 48 + 8)).astype(np.int32)
+    for name, tl, jl in _prefill_and_decode(jc, pc, jp, tp, toks, 48)[0]:
+        assert _f32_excess(tl, jl, jc.vocab_size) <= 0, f"{arch} {name}"
+
+
+@pytest.mark.parametrize("arch,leaves", [("qwen2.5-14b", ("bq", "bk", "bv")),
+                                         ("qwen3-moe-30b-a3b", ("q_norm", "k_norm"))])
+def test_zeroed_leaves_fail_the_bound(arch, leaves, monkeypatch):
+    """The bounds see the leaves ``init_params`` makes zero: under float32
+    compute the port's prefill is within ``1e-4`` of the reference's with
+    ``NONZERO``'s leaves and falls outside it with these zeroed again in
+    every layer (under bf16 compute zeroed QK-norm scales stay within two
+    bf16 steps: random weights give the attention little weight in the
+    logits)."""
+    monkeypatch.setattr(JL, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
+    jc, pc = _cfgs(arch)
+    jp, tp = _params(jc, pc)
+    toks = np.random.default_rng(4).integers(0, jc.vocab_size, (2, 40)).astype(np.int32)
+    jl, _ = jlm.prefill(jp, {"tokens": jnp.asarray(toks)}, jc, POL)
+    tl, _ = lm.prefill(tp, {"tokens": torch.from_numpy(toks)}, pc)
+    assert _f32_excess(tl, jl, jc.vocab_size) <= 0
+    mixers = [m for seg, node in tp.items() if seg.startswith("seg")
+              for m in node.values() if isinstance(m, dict) and leaves[0] in m]
+    assert mixers
+    for m in mixers:
+        for k in leaves:
+            m[k] = torch.zeros_like(m[k])
+    tl, _ = lm.prefill(tp, {"tokens": torch.from_numpy(toks)}, pc)
+    assert _f32_excess(tl, jl, jc.vocab_size) > 0, f"{leaves} zeroed: unseen"
+
+
 def _cache_leaves(tcache, jcache, path=""):
     """(path, (port leaf, reference leaf)) over both caches' nested dicts."""
     if isinstance(tcache, (list, dict)):
@@ -204,19 +297,21 @@ def _cache_leaves(tcache, jcache, path=""):
 
 
 def test_float32_compute_matches(phi4, monkeypatch):
-    """With ``COMPUTE_DTYPE`` float32 in both packages the logits agree to
-    float32 rounding: the algorithm, not the bf16 rounding, is compared."""
+    """With ``COMPUTE_DTYPE`` float32 in both packages the logits of the
+    prefill and of the 8th decode step agree to float32 rounding: the
+    algorithm, not the bf16 rounding, is compared (phi4's norm scales
+    non-zero)."""
     monkeypatch.setattr(JL, "COMPUTE_DTYPE", jnp.float32)
     monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
     jc, pc, jp, tp = phi4
     b, s = 2, 40
-    toks = np.random.default_rng(4).integers(0, jc.vocab_size, (b, s + 2)).astype(np.int32)
-    jl, jcache = jlm.prefill(jp, {"tokens": jnp.asarray(toks[:, :s])}, jc, POL, max_len=s + 2)
-    tl, tcache = lm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :s])}, pc, max_len=s + 2)
+    toks = np.random.default_rng(4).integers(0, jc.vocab_size, (b, s + 8)).astype(np.int32)
+    jl, jcache = jlm.prefill(jp, {"tokens": jnp.asarray(toks[:, :s])}, jc, POL, max_len=s + 8)
+    tl, tcache = lm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :s])}, pc, max_len=s + 8)
     assert tcache[0]["0"]["k"].dtype == torch.float32
     np.testing.assert_allclose(tl.numpy()[:, : jc.vocab_size], np.asarray(jl)[:, : jc.vocab_size],
                                rtol=1e-4, atol=1e-4 * float(np.abs(np.asarray(jl)).max()))
-    for i in range(2):
+    for i in range(8):
         jl, jcache = jlm.decode_step(jp, jcache, {"tokens": jnp.asarray(toks[:, s + i : s + i + 1])},
                                      jnp.int32(s + i), jc, POL)
         tl, tcache = lm.decode_step(tp, tcache, {"tokens": torch.from_numpy(toks[:, s + i : s + i + 1])},
@@ -310,12 +405,14 @@ def _tokens(cfg, shape, seed: int) -> np.ndarray:
 @pytest.mark.parametrize("compute", ["bfloat16", "float32"])
 @pytest.mark.parametrize("arch", NEW_PATHS)
 def test_moe_and_front_ends_prefill_and_decode_match(arch, compute, monkeypatch):
-    """qwen3-moe and mixtral (experts; mixtral's layers ``swa``, window 64),
-    llava (16 patch embeddings before 48 text tokens; decode continues at
-    position 16 + 48) and musicgen (4 codebooks: tokens ``[B, S, 4]``,
-    logits ``[B, 4, Vp]``) reduced: prefill(S) and 4 teacher-forced decode
-    steps, logits and caches as the reference's — two bf16 steps under
-    bf16 compute, 1e-5 of the largest logit under float32 compute.  The
+    """qwen3-moe (non-zero QK-norm scales) and mixtral (experts; 12 q / 2
+    KV heads, group 6; its layers ``swa``, window 64, after a prefill of 96
+    tokens, so that its ring is misaligned), llava (16 patch embeddings
+    before 48 text tokens; decode continues at position 16 + 48) and
+    musicgen (4 codebooks: tokens ``[B, S, 4]``, logits ``[B, 4, Vp]``)
+    reduced: prefill(S) and 4 teacher-forced decode steps (qwen3-moe 8),
+    logits and caches as the reference's — two bf16 steps under bf16
+    compute, 1e-5 of the largest logit under float32 compute.  The
     reference runs op by op: under ``jax.jit`` XLA fuses musicgen's bf16
     sum of four codebook embeddings and rounds it elsewhere than its own
     eager run, which rounds after each add, as the port does."""
@@ -324,7 +421,7 @@ def test_moe_and_front_ends_prefill_and_decode_match(arch, compute, monkeypatch)
         monkeypatch.setattr(L, "COMPUTE_DTYPE", torch.float32)
     jc, pc = _cfgs(arch)
     jp, tp = _params(jc, pc)
-    b, s, extra = 2, 48, 4
+    b, s, extra = 2, 96 if pc.window else 48, 8 if arch in NONZERO else 4
     toks = _tokens(pc, (b, s + extra), 7)
     rng = np.random.default_rng(8)
     jb, tb, nv = _batch(pc, toks[:, :s], rng)

@@ -6,7 +6,11 @@ hold for the port.
 
 The mixtures of experts (``qwen3-moe-30b-a3b``, ``mixtral-8x22b``) are
 served through the same schedules: their left-padding tokens take expert
-capacity before the prompt does, in both packages.
+capacity before the prompt does, in both packages.  qwen2.5-14b, mixtral
+and yi-34b are served with 2 KV heads at their full configs' groups (5, 6
+and 7; ``reduced()`` alone makes them MHA), and qwen2.5's q/k/v biases,
+qwen3-moe's QK-norm and phi4's norm scales non-zero
+(``tests/test_torch_lm.py``'s ``HEADS``, ``NONZERO`` and ``_params``).
 
 Token equality is asked with ``COMPUTE_DTYPE`` float32 in both packages'
 ``layers`` modules, so that near-ties in bf16 cannot flip an argmax; the
@@ -28,13 +32,13 @@ from repro.models import lm as jlm
 from repro.serve import ServeConfig as JaxServeConfig
 from repro.serve import ServeEngine as JaxServeEngine
 from repro.sharding.policies import ShardingPolicy
-from repro_torch import convert
 from repro_torch.configs import ARCHS
 from repro_torch.kernels import LAUNCHES
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.serve.engine import _splice_cache, _tile_cache
+from tests.test_torch_lm import HEADS, _params
 
 CPU = "cpu"
 PROMPTS = [[1, 2, 3], [4, 5], [6, 7, 8], [9], [10, 11, 12, 13, 14, 15, 16, 17, 18]]
@@ -47,17 +51,20 @@ def float32_compute(monkeypatch):
 
 
 def _models(arch: str, kv: int | None = None):
+    """The reduced configs, with ``kv`` KV heads (and ``HEADS``' q heads),
+    and the parameters of both packages from one tree."""
     jc, pc = JAX_ARCHS[arch].reduced(), ARCHS[arch].reduced()
     if kv:
-        jc, pc = (dataclasses.replace(c, n_kv_heads=kv) for c in (jc, pc))
-    jp = jlm.init_params(jc, jax.random.PRNGKey(0))
-    tp = convert.lm_params(jax.tree.map(lambda x: np.asarray(x, np.float32), jp), pc, CPU)
+        heads = HEADS.get(arch, (pc.n_heads,))[0]
+        jc, pc = (dataclasses.replace(c, n_heads=heads, n_kv_heads=kv) for c in (jc, pc))
+    jp, tp = _params(jc, pc)
     return jc, pc, jp, tp
 
 
 @pytest.mark.parametrize("arch,kv", [("deepseek-7b", None), ("phi4-mini-3.8b", 2),
                                      ("mamba2-1.3b", None), ("recurrentgemma-9b", None),
-                                     ("qwen3-moe-30b-a3b", None), ("mixtral-8x22b", None)])
+                                     ("qwen3-moe-30b-a3b", None), ("mixtral-8x22b", 2),
+                                     ("qwen2.5-14b", 2), ("yi-34b", 2)])
 def test_greedy_tokens_equal_the_reference(float32_compute, arch, kv):
     """Both schedulers, 5 prompts on 2 slots (three waves; two refills),
     6 new tokens: the same greedy tokens as ``repro.serve.ServeEngine``."""
