@@ -160,8 +160,9 @@ nonzero.
    NCCL across ranks takes a card per rank, so with one card it says it
    was not run.
 5. Serving (``repro_torch.serve``) of phi4-mini-3.8b (attention: prefill
-   runs ``flash_attention``, decode ``decode_attention``), mamba2-1.3b (48
-   ssm layers: prefill runs ``ssd_scan``, decode plain recurrence steps)
+   runs ``flash_attention``, decode ``decode_attention``), mamba2-1.3b (24
+   of its 48 ssm layers, ``SERVE_LAYERS``: prefill runs ``ssd_scan``,
+   decode plain recurrence steps)
    and recurrentgemma-9b (26 rglru layers running ``rglru_scan`` in
    prefill, 12 local-attention layers with a ring-buffer cache), each
    freed before the next: (a) the reduced config, prefill of 64 tokens and
@@ -191,9 +192,10 @@ nonzero.
    reported); capture seconds and the peak memory of each.  (c) the
    serving launcher ``python -m repro_torch.launch.serve`` at its
    defaults.
-``serve_qwen3_moe`` (after phase 5): qwen3-moe-30b-a3b, 48 layers of 128
-   experts (top-8) and 32 q / 4 KV heads with QK-norm, at full width and
-   depth (30.5 B parameters, 61 GB of bf16 made on the card from seed 0),
+``serve_qwen3_moe`` (after phase 5): qwen3-moe-30b-a3b, layers of 128
+   experts (top-8) and 32 q / 4 KV heads with QK-norm, at full width cut
+   to 16 of its 48 layers (``SERVE_LAYERS``, for the script's clock; whole
+   it is 30.5 B parameters, 61 GB of bf16 made on the card from seed 0),
    through phase 5's (b) with 32 greedy tokens a request (both schedulers
    run again eagerly give the replayed tokens); (a) the reduced
    qwen3-moe and mixtral-8x22b (``swa``, window 64, 8 experts: the
@@ -234,9 +236,10 @@ nonzero.
    (musicgen ``[B, 4, Vp]``), prefill(S) + decode against prefill(S + 1)
    within 0.05 under float32 compute, and each reduced config card against
    CPU.
-``train`` (after phase 5; three lines, ``train_phi4``, ``train_mamba2`` and
-   ``train_serve``): the training path (``repro_torch.data``, ``lm.loss_fn``,
-   ``repro_torch.train``) on the card.  (a) phi4-mini-3.8b at full width,
+``train`` (after phase 5; the lines ``train_phi4``, ``train_mamba2``, the six
+   of ``TRAIN_FULL``, ``train_reduced`` and ``train_serve``): the training
+   path (``repro_torch.data``, ``lm.loss_fn``, ``repro_torch.train``) on
+   the card.  (a) phi4-mini-3.8b at full width,
    8 of its 32 layers (full depth's params, AdamW state and gradient sums
    alone are 76.8 GB; the reckoning is printed), and (b) mamba2-1.3b at full
    width, 24 of its 48 layers (both cut for the script's clock):
@@ -257,8 +260,28 @@ nonzero.
    ``RuntimeError`` naming the training route, nothing launched), and step
    1's loss on the card (bf16) is within 2e-2 relative of the same params
    and batch on the CPU under float32 compute (computed in a thread while
-   the Supervisor waits for its last checkpoint write: (a)'s and (b)'s in
-   (a)'s wait).
+   the Supervisor waits for its last checkpoint write: (a)'s, (b)'s and
+   the small-batch ones below in (a)'s wait).
+   ``TRAIN_FULL``: the families that had only served on the card, at full
+   width with layers cut, in (b)'s plain loop (3 steps, 2 microbatches, AdamW
+   with one warmup step to a peak of 1e-5) and (b)'s record:
+   qwen3-moe-30b-a3b 2 of 48 layers (128 experts, top-8), mixtral-8x22b 1 of
+   56 (top-2 of 8, GQA group 6, ``swa``), recurrentgemma-9b 3 of 38 at 2 ×
+   4,096 tokens (its 2,048-token local window bites; ``rglru_trace``'s
+   backward at 4,096 channels), llava-next-mistral-7b 2 of 32 (576 vision
+   rows + 448 text tokens a row), musicgen-large 2 of 48 (4 codebooks),
+   qwen2.5-14b 2 of 48 (q/k/v biases, group 5); the model-FLOP share counts
+   the experts a token runs and the (query, key) pairs each attention layer
+   keeps (``_model_flops``).  Step 1's params on row 0 of batch 0 cut to 256
+   tokens (llava: 576 vision rows + 64 text tokens): the card's bf16 loss
+   within 2e-2 of the CPU's float32 loss.  Each path, and ``train_reduced``
+   for deepseek-7b and yi-34b, also holds its reduced config
+   (``SERVE_PATHS``' heads: groups 5, 6 and 7; every zero-initialised leaf
+   non-zero) card against CPU at 2 × 128 tokens, past the reduced windows of
+   64 (``_train_card_vs_cpu``): float32 loss within 1e-5 and each gradient
+   leaf within 1e-4 · max|g_cpu| + 1e-6, bf16 loss within 2e-2 and each
+   leaf's cosine at least 0.99, and a planted fault (``TRAIN_FAULTS``)
+   outside the float32 bound.
 ``sharding`` (after ``train``): the sharding layer (``repro_torch.sharding``)
    on the card.  (a) The DTensor train step: a world-size-1 NCCL group and
    a ``(1, 1)`` ``("data", "model")`` ``DeviceMesh``, ``make_policy``, the
@@ -2443,6 +2466,10 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 DENSE_PATHS = {"serve_deepseek_7b": "deepseek-7b", "serve_qwen2_5_14b": "qwen2.5-14b",
                "serve_yi_34b": "yi-34b"}
 MIXTRAL_LAYERS = 2  # of mixtral-8x22b's 56: about 10.8 GB of its 281 GB
+# layers served of two paths cut in depth to keep the script's clock with
+# phase train's full-width paths: their depth is the largest host cost among
+# the serving paths (eager decode, the float32 checks)
+SERVE_LAYERS = {MOE_ARCH: 16, "mamba2-1.3b": 24}
 MIXTRAL_PROMPT = 6000
 SERVE_REQUESTS, SERVE_SLOTS = 8, 4
 F32_LOGIT_BOUND = 0.05  # tests/test_models.py:94-114, float32 compute
@@ -2518,12 +2545,13 @@ def _numpy_params(cfg, seed: int, dev) -> dict:
         ulps = _ulps(card[path].cpu(), want, want.dtype)
         check(ulps <= (2 if want.dtype == torch.float32 else 1),
               f"{cfg.name} {'/'.join(path)}: card and CPU draws {ulps} ulp apart")
+    return _to_numpy(host)
 
-    def to_np(node):
-        return {k: to_np(v) for k, v in node.items()} if isinstance(node, dict) \
-            else node.float().numpy()
 
-    return to_np(host)
+def _to_numpy(node):
+    """A parameter tree as numpy float32, on the host."""
+    return {k: _to_numpy(v) for k, v in node.items()} if isinstance(node, dict) \
+        else node.float().cpu().numpy()
 
 
 def _front_end_batch(cfg, b: int, s: int, seed: int) -> tuple[dict, int]:
@@ -2562,6 +2590,17 @@ def _nonzero_leaves(tree: dict, cfg, seed: int) -> list[str]:
     return done
 
 
+def _reduced(arch: str, kv=None, heads=None):
+    """``arch``'s reduced config with ``kv`` KV heads and ``heads`` q heads
+    where given."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    over = {k: v for k, v in (("n_heads", heads), ("n_kv_heads", kv)) if v}
+    return dataclasses.replace(ARCHS[arch].reduced(), **over)
+
+
 def _card_vs_cpu(dev, arch: str, kv, heads=None) -> dict:
     """(a) ``arch`` reduced (with ``kv`` KV heads and ``heads`` q heads
     where given, its zero-initialised leaves made non-zero): prefill of 64
@@ -2569,17 +2608,12 @@ def _card_vs_cpu(dev, arch: str, kv, heads=None) -> dict:
     8 teacher-forced decode steps, on the card
     (kernels) and on the CPU (plain versions), from one set of numpy
     parameters; bf16 and float32 compute."""
-    import dataclasses
-
     import torch
 
     from repro_torch import convert
-    from repro_torch.configs import ARCHS
     from repro_torch.models import lm
 
-    cfg = ARCHS[arch].reduced()
-    over = {k: v for k, v in (("n_heads", heads), ("n_kv_heads", kv)) if v}
-    cfg = dataclasses.replace(cfg, **over)
+    cfg = _reduced(arch, kv, heads)
     tree = _numpy_params(cfg, 0, dev)  # the card's draw held to the CPU's
     out = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
            "nonzero_leaves": _nonzero_leaves(tree, cfg, 2)}
@@ -3409,17 +3443,19 @@ def _train_supervised(dev, cfg, data, ts, steps: int, ckpt_every: int, cpu_jobs:
     return sup, hist, record
 
 
-def _train_loop(dev, cfg, data, ts, steps: int):
+def _train_loop(dev, cfg, data, ts, steps: int, params=None):
     """``make_train_step`` in a plain loop for ``steps`` steps from
-    ``init_params(cfg, 0)`` on the card, each step timed as the Supervisor
-    times one (the batch to the card, the step, its loss read back), every
-    step's gradients checked.  Returns (params, opt_state, history)."""
+    ``params`` (default ``init_params(cfg, 0)`` on the card), each step
+    timed as the Supervisor times one (the batch to the card, the step, its
+    loss read back), every step's gradients checked.  Returns (params,
+    opt_state, history)."""
     import torch
 
     from repro_torch.models import lm
     from repro_torch.train import StepResult, init_opt_state, make_train_step
 
-    params = lm.init_params(cfg, 0, device=dev)
+    if params is None:
+        params = lm.init_params(cfg, 0, device=dev)
     opt_state, step, hist = init_opt_state(params), make_train_step(cfg, ts), []
     with _checked_grads() as bad:
         for s in range(steps):
@@ -3443,12 +3479,41 @@ def _cpu_loss(cfg, host_params, batch) -> float:
                                 cfg))
 
 
-def _train_record(hist, cfg, sizes: dict, batch: int, seq: int, falls: bool = True) -> dict:
+EXPERT_LEAVES = ("w_in", "w_gate", "w_out")
+
+
+def _model_flops(cfg, batch: int, seq: int) -> dict:
+    """Model FLOPs of one train step of ``batch`` × ``seq`` positions
+    (forward 1, backward 2): 6 a weight a position for every weight that
+    multiplies each position, and 12 · head_dim a head for each (query,
+    key) pair an attention layer keeps, causal and windowed
+    (``_valid_pairs``).  The lookups (``embed/tok`` unless tied,
+    ``embed/codebooks``) multiply nothing; ``embed/vision_proj``
+    multiplies the ``vision_tokens`` rows alone; the experts count at
+    ``top_k / n_experts`` of their weights, since a token runs ``top_k``
+    of them (the router runs whole).  The recurrences' scans and the
+    norms' arithmetic are not counted."""
+    from repro_torch.models import lm
+
+    count = {"/".join(p): t.numel() for p, t in _paths(lm.abstract_params(cfg))}
+    lookup = count["embed/tok"] * (not cfg.tie_embeddings) + count.get("embed/codebooks", 0)
+    vision = count.get("embed/vision_proj", 0)
+    experts = sum(n for p, n in count.items() if p.rsplit("/", 1)[-1] in EXPERT_LEAVES)
+    active = experts * cfg.top_k // cfg.n_experts if cfg.n_experts else 0
+    dense = sum(count.values()) - lookup - vision - experts
+    windows = {"full": None, "swa": cfg.window, "local": cfg.local_window}
+    pairs = sum(_valid_pairs(seq, seq, True, windows[m]) for m in cfg.layer_pattern
+                if m in windows)
+    weights = 6 * (batch * seq * (dense + active) + batch * cfg.vision_tokens * vision)
+    attention = 12 * batch * pairs * cfg.n_heads * cfg.head_dim
+    return {"weights": weights, "attention": attention, "total": weights + attention,
+            "active_weights": dense + active, "attention_pairs": pairs}
+
+
+def _train_record(hist, cfg, batch: int, seq: int, falls: bool = True) -> dict:
     """Losses (finite; with ``falls`` the last below the first), wall ms a
-    step, tokens/s and the model-FLOP share of the bf16 dense peak:
-    6 · (matmul params) · tokens plus causal attention's 6 · B · S² · Hq ·
-    hd a layer (forward 2, backward 4; the scans of the recurrent mixers
-    are not counted)."""
+    step, tokens/s (positions: a vlm's vision rows count) and the
+    model-FLOP share of the bf16 dense peak (``_model_flops``)."""
     import numpy as np
 
     losses = [h.loss for h in hist]
@@ -3457,13 +3522,12 @@ def _train_record(hist, cfg, sizes: dict, batch: int, seq: int, falls: bool = Tr
     ms = [h.wall_time * 1e3 for h in hist]
     steady = float(np.mean(ms[1:])) if len(ms) > 1 else ms[0]
     tokens = batch * seq
-    matmul = sizes["params"] - (0 if cfg.tie_embeddings else sizes["embed_params"])
-    n_attn = sum(m in ("full", "swa", "local") for m in cfg.layer_pattern)
-    flops = 6 * matmul * tokens + 6 * batch * seq**2 * cfg.n_heads * cfg.head_dim * n_attn
+    flops = _model_flops(cfg, batch, seq)
     return {"losses": losses, "ms_per_step": ms, "steady_ms_per_step": steady,
             "tokens_per_step": tokens, "tokens_per_s": tokens / (steady / 1e3),
-            "model_flops_per_step": flops, "bf16_peak_flops": BF16_PEAK,
-            "model_flop_share": flops / (steady / 1e3) / BF16_PEAK,
+            "model_flops_per_step": flops["total"], "model_flops": flops,
+            "bf16_peak_flops": BF16_PEAK,
+            "model_flop_share": flops["total"] / (steady / 1e3) / BF16_PEAK,
             "restarts": sum(h.restarted for h in hist)}
 
 
@@ -3508,7 +3572,8 @@ def _train_part(dev, arch: str, shared: dict) -> dict:
     Supervisor with one checkpoint (step 0's), or (b) mamba2-1.3b at full
     width, 24 of 48 layers, in a plain loop of the same step: batch 4 ×
     1,024 tokens in 2 microbatches, 3 steps.  The CPU's float32 losses of
-    both run in (a)'s checkpoint wait (``shared`` carries (b)'s to (b))."""
+    both, and the small-batch ones of ``TRAIN_FULL``'s paths, run in (a)'s
+    checkpoint wait (``shared["cpu"]`` carries them on)."""
     import torch
 
     from repro_torch.configs import ARCHS
@@ -3539,7 +3604,8 @@ def _train_part(dev, arch: str, shared: dict) -> dict:
     if arch == "phi4-mini-3.8b":
         mamba2 = _train_cfg("mamba2-1.3b")
         jobs = {arch: _cpu_job(cfg, dev=dev, data=data),
-                mamba2.name: _cpu_job(mamba2, dev=dev, data=data_of(mamba2))}
+                mamba2.name: _cpu_job(mamba2, dev=dev, data=data_of(mamba2)),
+                **{args[0]: _small_job(dev, *args) for args in TRAIN_FULL.values()}}
         torch.cuda.empty_cache()
         sup, hist, rec = _train_supervised(dev, cfg, data, ts, TRAIN_STEPS,
                                            ckpt_every=TRAIN_STEPS + 1, cpu_jobs=jobs)
@@ -3551,7 +3617,7 @@ def _train_part(dev, arch: str, shared: dict) -> dict:
         params, opt_state, hist = _train_loop(dev, cfg, data, ts, TRAIN_STEPS)
     out["train_s"] = time.perf_counter() - t0
     out["peak_memory"] = torch.cuda.max_memory_allocated(dev)
-    out.update(_train_record(hist, cfg, sizes, TRAIN_BATCH, TRAIN_SEQ))
+    out.update(_train_record(hist, cfg, TRAIN_BATCH, TRAIN_SEQ))
     out.update(_loss_vs_cpu(out["losses"][0], shared["cpu"].pop(arch)))
     out["step_profile"] = _profiled_step(dev, cfg, ts, data, params, opt_state)
     del params, opt_state, hist
@@ -3596,7 +3662,7 @@ def _train_then_serve(dev) -> dict:
     sup, hist, rec = _train_supervised(
         dev, cfg, data, ts, TRAIN_SERVE_STEPS, ckpt_every=max(TRAIN_SERVE_STEPS // 4, 10),
         cpu_jobs={"100m": _cpu_job(cfg, dev=dev, data=data)})
-    run = _train_record(hist, cfg, _train_sizes(cfg), pre["batch"], pre["seq"], falls=False)
+    run = _train_record(hist, cfg, pre["batch"], pre["seq"], falls=False)
     out.update({k: run[k] for k in ("ms_per_step", "steady_ms_per_step", "tokens_per_s",
                                      "restarts")},
                losses_first_last=[run["losses"][0], run["losses"][-1]])
@@ -3621,6 +3687,281 @@ def _train_then_serve(dev) -> dict:
     del trained
     torch.cuda.empty_cache()
     return out
+
+
+# -- phase train: the families that had only served on the card --------------
+
+# phase -> (arch, layers kept of its depth, batch, sequence), at full width,
+# cut in depth to fit 80 GB with AdamW's state (20 B a parameter) and to keep
+# the script's clock; recurrentgemma at 2 x 4,096 so that its 2,048-token
+# local window bites.  2 microbatches, TRAIN_STEPS steps each.
+TRAIN_FULL = {
+    "train_qwen3_moe": ("qwen3-moe-30b-a3b", 2, 4, 1024),
+    "train_mixtral_cut": ("mixtral-8x22b", 1, 4, 1024),
+    "train_recurrentgemma": ("recurrentgemma-9b", 3, 2, 4096),
+    "train_llava": ("llava-next-mistral-7b", 2, 4, 1024),
+    "train_musicgen": ("musicgen-large", 2, 4, 1024),
+    "train_qwen2_5_14b": ("qwen2.5-14b", 2, 4, 1024),
+}
+# AdamW's peak learning rate on these paths (one warmup step; the cosine
+# then runs toward AdamW's default min_lr, 3e-5, so step 2 takes 2e-5).
+# Their first updates move every weight by about the rate, which at a
+# width of 4,096 or more overshoots: at 3e-4 step 2's loss was 1.8-2.1
+# times step 1's for mixtral, llava and qwen2.5, and from 2e-5 up some
+# path's step-3 loss stayed above step 1's (tools/train_lr_sweep.py); at
+# 1e-5 every path's loss falls at every step
+TRAIN_FULL_LR = 1e-5
+# check (2): row 0 of batch 0 cut to this many tokens (llava: its 576
+# vision rows and 64 text tokens): the CPU's float32 loss of the whole batch
+# would take minutes at a vocabulary of 256,000
+TRAIN_SMALL, TRAIN_SMALL_TEXT = 256, 64
+# check (3): the reduced configs' loss and gradients card vs CPU, at a batch
+# past the reduced windows of 64; the bounds of tests/test_torch_train.py
+TRAIN_GRAD_BATCH, TRAIN_GRAD_SEQ = 2, 128
+TRAIN_F32_LOSS, TRAIN_F32_LEAF, TRAIN_F32_ATOL = 1e-5, 1e-4, 1e-6
+TRAIN_BF16_LOSS, TRAIN_BF16_COS = 2e-2, 0.99
+# the configs that train on the card reduced only: no training path that
+# TRAIN_FULL's lack (MHA; GQA group 7)
+TRAIN_REDUCED_ONLY = ("deepseek-7b", "yi-34b")
+TRAIN_CARD_VS_CPU = (*(arch for arch, *_ in TRAIN_FULL.values()), *TRAIN_REDUCED_ONLY)
+
+
+@contextlib.contextmanager
+def attention_changed(**over):
+    """The training route's attention (``layers.blocked_attention``) with
+    the keywords ``over`` in place of the model's: ``window=None`` drops
+    the window, ``causal=False`` the causal mask."""
+    from repro_torch.models import layers
+
+    real = layers.blocked_attention
+    layers.blocked_attention = lambda *a, **kw: real(*a, **{**kw, **over})
+    try:
+        yield
+    finally:
+        layers.blocked_attention = real
+
+
+@contextlib.contextmanager
+def heads_regrouped():
+    """The training route's GQA grouped the wrong way: q head ``h`` reads
+    KV head ``h mod Hkv`` in place of ``h // group``."""
+    import torch
+
+    from repro_torch.models import layers
+
+    real = layers.blocked_attention
+
+    def regrouped(q, k, v, **kw):
+        hq, hkv = q.shape[2], k.shape[2]
+        h = torch.arange(hq, device=q.device)
+        at = (h % hkv) * (hq // hkv) + h // hkv  # the place that reads KV head h mod Hkv
+        return real(q[:, :, torch.argsort(at)], k, v, **kw)[:, :, at]
+
+    layers.blocked_attention = regrouped
+    try:
+        yield
+    finally:
+        layers.blocked_attention = real
+
+
+# check (3)'s planted fault of each config, which the float32 bound must
+# catch: (what, a context the faulty gradients are taken in, or the path of
+# the gradient zeroed after)
+TRAIN_FAULTS = {
+    "qwen3-moe-30b-a3b": ("the router's gradient zeroed", None, ("seg0", "mlp0", "router")),
+    "mixtral-8x22b": ("the router's gradient zeroed", None, ("seg0", "mlp0", "router")),
+    "recurrentgemma-9b": ("the local layer's window dropped",
+                          lambda: attention_changed(window=None), None),
+    "llava-next-mistral-7b": ("vision_proj's gradient zeroed", None, ("embed", "vision_proj")),
+    "musicgen-large": ("the first extra codebook's embedding gradient zeroed", None,
+                       ("embed", "codebooks", 0)),
+    "qwen2.5-14b": ("the q bias's gradient zeroed", None, ("seg0", "m0", "bq")),
+    "deepseek-7b": ("the causal mask dropped", lambda: attention_changed(causal=False), None),
+    "yi-34b": ("the KV heads regrouped (h mod Hkv)", heads_regrouped, None),
+}
+
+
+def _reduced_heads(arch: str) -> tuple:
+    """(n_kv_heads, n_heads) of ``arch``'s reduced config in the card-vs-CPU
+    checks, as ``SERVE_PATHS`` gives them (None: ``reduced()``'s own)."""
+    p = SERVE_PATHS.get(arch, _TEXT)
+    return p["kv"], p["heads"]
+
+
+def _zero_grad(grads: dict, path: tuple) -> None:
+    node = grads
+    for key in path:
+        node = node[key]
+    node.zero_()
+
+
+def _train_card_vs_cpu(dev, arch: str, kv=None, heads=None) -> dict:
+    """(3) ``arch`` reduced (``kv`` KV heads and ``heads`` q heads where
+    given, its zero-initialised leaves made non-zero), one numpy tree on
+    both sides: the loss and every gradient leaf of ``SyntheticLM``'s batch
+    0 at ``TRAIN_GRAD_BATCH`` × ``TRAIN_GRAD_SEQ`` (one microbatch), the
+    card's against the CPU's.  float32 compute and float32 parameters: the
+    loss within 1e-5 relative, each leaf within 1e-4 · max|g_cpu| + 1e-6;
+    bf16 compute: the loss within 2e-2 relative, each leaf's cosine with
+    the CPU's at least 0.99.  The planted fault of ``TRAIN_FAULTS``, taken
+    on the card under float32, must exceed the float32 bound."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.models import lm
+    from repro_torch.train import make_grad_fn
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = _reduced(arch, kv, heads)
+    # the card's draw (the serving paths hold it to the CPU's), to the host
+    tree = _to_numpy(lm.init_params(cfg, 0, device=dev))
+    out = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+           "batch": [TRAIN_GRAD_BATCH, TRAIN_GRAD_SEQ], "window": cfg.window or cfg.local_window,
+           "nonzero_leaves": _nonzero_leaves(tree, cfg, 2)}
+    batch = _train_data(cfg, TRAIN_GRAD_BATCH, TRAIN_GRAD_SEQ)(0)
+    grad_fn = make_grad_fn(cfg, 1)
+
+    def grads(where, dtype, fault=None):
+        params = convert.lm_params(tree, cfg, where)
+        if dtype == torch.float32:
+            params = tree_map(lambda t: t.float(), params)
+        on = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        with compute_dtype(dtype), (fault[1]() if fault and fault[1]
+                                    else contextlib.nullcontext()):
+            loss, g = grad_fn(params, on)
+        if fault and fault[2]:
+            _zero_grad(g, fault[2])
+        return float(loss), [("/".join(p), x.float().cpu()) for p, x in _paths(g)]
+
+    def f32_excess(got, want) -> dict:
+        """Each bound's excess (> 0: outside it), and the worst leaf."""
+        (gl, gg), (wl, wg) = got, want
+        leaf = []
+        for (p, x), (_, w) in zip(gg, wg):
+            diff = float((x - w).abs().max())
+            bound = TRAIN_F32_LEAF * float(w.abs().max()) + TRAIN_F32_ATOL
+            leaf.append((diff - bound, p, diff / bound))
+        worst = max(leaf)
+        return {"loss_rel_diff": abs(gl - wl) / abs(wl),
+                "loss_excess": abs(gl - wl) - TRAIN_F32_LOSS * abs(wl),
+                "worst_leaf": worst[1], "leaf_excess": worst[0],
+                "leaf_diff_over_bound": max(ratio for _, _, ratio in leaf)}
+
+    f32 = torch.float32
+    cpu32 = grads("cpu", f32)
+    res = f32_excess(grads(dev, f32), cpu32)
+    check(res["loss_excess"] <= 0 and res["leaf_excess"] <= 0,
+          f"{arch} reduced, float32 loss and gradients card vs CPU: {res}")
+    out["float32"] = {**res, "bound": "loss 1e-5 rel; leaf 1e-4 max|g_cpu| + 1e-6",
+                      "loss": cpu32[0]}
+    (cl, cg), (wl, wg) = grads(dev, torch.bfloat16), grads("cpu", torch.bfloat16)
+    cos = []
+    for (p, x), (_, w) in zip(cg, wg):
+        x, w = x.double().reshape(-1), w.double().reshape(-1)
+        cos.append((float(x @ w / max(float(x.norm() * w.norm()), 1e-300)), p))
+    rel = abs(cl - wl) / abs(wl)
+    check(rel <= TRAIN_BF16_LOSS and min(cos)[0] >= TRAIN_BF16_COS,
+          f"{arch} reduced, bf16 loss {rel} / least gradient cosine {min(cos)}")
+    out["bfloat16"] = {"loss_rel_diff": rel, "least_cosine": min(cos)[0],
+                       "least_cosine_leaf": min(cos)[1], "bound": "loss 2e-2 rel; cosine 0.99"}
+    fault = TRAIN_FAULTS[arch]
+    res = f32_excess(grads(dev, f32, fault), cpu32)
+    excess = max(res["loss_excess"], res["leaf_excess"])
+    check(excess > 0, f"{arch} reduced: planted fault ({fault[0]}) within the float32 bound")
+    out["planted_fault"] = {"fault": fault[0], **res, "excess": excess}
+    out["leaves"] = len(cpu32[1])
+    return out
+
+
+def _small_batch(cfg, batch: dict) -> dict:
+    """Check (2)'s batch: row 0 of ``batch`` cut to ``TRAIN_SMALL`` tokens
+    (a vlm's vision rows whole and ``TRAIN_SMALL_TEXT`` text tokens)."""
+    n = TRAIN_SMALL_TEXT if cfg.modality == "vlm" else TRAIN_SMALL
+    return {k: v[:1] if k == "vision_embed" else v[:1, :n] for k, v in batch.items()}
+
+
+def _train_data(cfg, batch: int, seq: int):
+    """``SyntheticLM`` (seed 0) of ``batch`` × ``seq`` for ``cfg``."""
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    return SyntheticLM(cfg, DataConfig(seq_len=seq, global_batch=batch))
+
+
+def _small_job(dev, arch: str, n_layers: int, batch: int, seq: int) -> tuple:
+    """``_cpu_job`` of a ``TRAIN_FULL`` path's check (2): step 1's params
+    (drawn on the card) on the host and ``_small_batch`` of batch 0."""
+    cfg = _depth_cut(arch, n_layers)
+    data = _train_data(cfg, batch, seq)
+    return _cpu_job(cfg, dev=dev, data=lambda s: _small_batch(cfg, data(s)))
+
+
+def _train_full(dev, arch: str, n_layers: int, batch: int, seq: int,
+                cpu: dict | None = None) -> dict:
+    """One of ``TRAIN_FULL``'s paths: ``arch`` at full width, cut to its
+    first ``n_layers`` layers, trained ``TRAIN_STEPS`` steps of ``batch`` ×
+    ``seq`` in 2 microbatches from ``init_params(cfg, 0)`` on the card in a
+    plain loop, AdamW with one warmup step to ``TRAIN_FULL_LR``.  (1) the run: every gradient
+    leaf of every step non-zero and finite, the losses finite and falling,
+    ms a step, tokens/s, the model-FLOP share, the peak memory and one
+    profiled step; (2) step 1's params on ``_small_batch``: the card's bf16
+    loss within ``TRAIN_LOSS_RTOL`` of the CPU's float32 loss, taken from
+    ``cpu`` (arch → (loss, seconds): phase ``train``'s (a) computes them in
+    its checkpoint wait) or computed here; (3) the reduced config's
+    gradients card vs CPU (``_train_card_vs_cpu``)."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import lm
+    from repro_torch.train import AdamWConfig, TrainStepConfig
+
+    full, cfg = ARCHS[arch], _depth_cut(arch, n_layers)
+    whole, sizes = _train_sizes(full), _train_sizes(cfg)
+    out: dict = {
+        "arch": arch, "n_layers": n_layers, "sizes": sizes, "batch": batch, "seq": seq,
+        "microbatches": TRAIN_MICROBATCHES,
+        "depth_cut": {"layers": f"{n_layers} of {full.n_layers}", "full_depth": whole,
+                      "why": f"full depth: {whole['state_bytes'] / 1e9:.1f} GB of params, "
+                             f"AdamW state and gradient sums before activations, of 80 GB; "
+                             f"{n_layers} layers: {sizes['state_bytes'] / 1e9:.1f} GB"}}
+    ts = TrainStepConfig(n_microbatches=TRAIN_MICROBATCHES, adamw=AdamWConfig(
+        peak_lr=TRAIN_FULL_LR, warmup_steps=1, total_steps=TRAIN_STEPS))
+    data = _train_data(cfg, batch, seq)
+    small = _small_batch(cfg, data(0))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    out["init_params_s"] = time.perf_counter() - t0
+    with torch.no_grad():
+        card = float(lm.loss_fn(params, {k: torch.from_numpy(v).to(dev)
+                                         for k, v in small.items()}, cfg))
+    done = (cpu or {}).pop(arch, None)
+    waited = done is not None
+    if not waited:
+        t0 = time.perf_counter()
+        done = (_cpu_loss(cfg, _tree_cpu(params), small), time.perf_counter() - t0)
+    small_rec = _loss_vs_cpu(card, done)
+    t0 = time.perf_counter()
+    params, opt_state, hist = _train_loop(dev, cfg, data, ts, TRAIN_STEPS, params)
+    out["train_s"] = time.perf_counter() - t0
+    out["peak_memory"] = torch.cuda.max_memory_allocated(dev)
+    out.update(_train_record(hist, cfg, batch, seq))
+    out["small_batch"] = {"shape": {k: list(v.shape) for k, v in small.items()},
+                          **small_rec["step1_loss_vs_cpu_float32"], "card_bf16": card,
+                          "cpu_in_checkpoint_wait": waited}
+    out["step_profile"] = _profiled_step(dev, cfg, ts, data, params, opt_state)
+    del params, opt_state, hist
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["grads_card_vs_cpu"] = _train_card_vs_cpu(dev, arch, *_reduced_heads(arch))
+    out["grads_card_vs_cpu"]["s"] = time.perf_counter() - t0
+    return out
+
+
+def _train_reduced(dev) -> dict:
+    """Check (3) for the configs that train on the card reduced only."""
+    return {arch: _train_card_vs_cpu(dev, arch, *_reduced_heads(arch))
+            for arch in TRAIN_REDUCED_ONLY}
 
 
 # -- phase sharding -----------------------------------------------------------
@@ -4024,7 +4365,8 @@ def main() -> int:
     # every LM path draws its weights on the card: threefry, one launch a leaf
     path(("flash_attention", "decode_attention", "threefry"),
          ("serve", lambda: phase_serve(dev, SERVE_ARCH)))
-    path(("ssd_scan", "threefry"), ("serve_mamba2", lambda: phase_serve(dev, "mamba2-1.3b")))
+    path(("ssd_scan", "threefry"), ("serve_mamba2", lambda: phase_serve(
+        dev, "mamba2-1.3b", _depth_cut("mamba2-1.3b", SERVE_LAYERS["mamba2-1.3b"]))))
     with shapes_of_rglru() as shapes:
         got = path(("rglru_scan", "flash_attention", "decode_attention", "threefry"),
                    ("serve_recurrentgemma", lambda: phase_serve(dev, "recurrentgemma-9b")))
@@ -4037,10 +4379,11 @@ def main() -> int:
           "launches_by_shape": {"x".join(map(str, k)): n for k, n in sorted(shapes.items())},
           "launches_by_batch": by_batch})
     emit({"phase": "serve_launcher", **phase_serve_launcher()})
-    # the mixture of experts served at full width and depth, then the vlm
+    # the mixture of experts served at full width (16 of 48 layers), then the vlm
     # and audio front ends through lm.prefill / lm.decode_step
     path(("flash_attention", "decode_attention", "threefry"),
-         ("serve_qwen3_moe", lambda: phase_serve(dev, MOE_ARCH)))
+         ("serve_qwen3_moe", lambda: phase_serve(dev, MOE_ARCH,
+                                                 _depth_cut(MOE_ARCH, SERVE_LAYERS[MOE_ARCH]))))
     path(("flash_attention", "decode_attention", "threefry"),
          ("frontends", lambda: phase_frontends(dev)))
     # the remaining text configs and the dry-run's lengths: deepseek-7b, qwen2.5-14b
@@ -4060,6 +4403,11 @@ def main() -> int:
     shared: dict = {}
     path(("threefry",), ("train_phi4", lambda: _train_part(dev, "phi4-mini-3.8b", shared)),
          ("train_mamba2", lambda: _train_part(dev, "mamba2-1.3b", shared)))
+    # the families that had only served on the card, at full width with
+    # layers cut, and the reduced configs' gradients card vs CPU
+    for phase, args in TRAIN_FULL.items():
+        path(("threefry",), (phase, lambda args=args: _train_full(dev, *args, shared["cpu"])))
+    path(("threefry",), ("train_reduced", lambda: _train_reduced(dev)))
     path(("flash_attention", "decode_attention", "threefry"),
          ("train_serve", lambda: _train_then_serve(dev)))
     # sharding: (a) the DTensor train step on a one-rank NCCL mesh (training

@@ -810,12 +810,14 @@ def rglru_trace(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The training route's RG-LRU recurrence: ``h_t = a_t ⊙ h_{t-1} + b_t``
     from ``h_0 = 0`` in float32, step by step as ``rglru_ref``
     (``repro/kernels/ref.py:117``), the trace ``[B, S, D]`` stacked once in
-    a's dtype, so autograd differentiates it."""
-    af, bf = a.float(), b.float()
+    a's dtype, so autograd differentiates it.  One ``unbind`` splits each
+    input into its steps, and its backward stacks their gradients once:
+    indexing step by step would give each step a backward that writes a
+    whole ``[B, S, D]`` gradient."""
     h = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32, device=a.device)
     hs = []
-    for t in range(a.shape[1]):
-        h = af[:, t] * h + bf[:, t]
+    for at, bt in zip(a.float().unbind(1), b.float().unbind(1)):
+        h = at * h + bt
         hs.append(h)
     return torch.stack(hs, dim=1).to(a.dtype)
 

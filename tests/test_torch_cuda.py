@@ -797,11 +797,19 @@ def test_kernels_refuse_inputs_that_require_grad(dev):
         assert LAUNCHES[name] == before + 1
 
 
-@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b", "recurrentgemma-9b",
+                                  "qwen3-moe-30b-a3b", "mixtral-8x22b", "llava-next-mistral-7b",
+                                  "musicgen-large", "qwen2.5-14b", "deepseek-7b", "yi-34b"])
 def test_train_step_on_the_card(dev, arch):
     """Two train steps of the reduced config on the card launch no kernel
     (the training route) and give the CPU's losses under float32 compute;
-    every gradient reaches its parameter."""
+    every gradient reaches its parameter.  For every config of
+    ``chip_smoke.py``'s check (3), also its loss and gradients on the card
+    against the CPU's (``chip_smoke._train_card_vs_cpu``: groups 5-7,
+    non-zero zero-initialised leaves, 2 × 128 tokens past the reduced
+    windows; float32 and bf16 bounds, and the planted fault outside the
+    float32 one)."""
+    import chip_smoke
     from repro_torch.configs import ARCHS
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.kernels import LAUNCHES
@@ -831,6 +839,11 @@ def test_train_step_on_the_card(dev, arch):
         np.testing.assert_allclose(losses[str(dev)], losses["cpu"], rtol=1e-4)
     finally:
         L.COMPUTE_DTYPE = saved
+    if arch in chip_smoke.TRAIN_CARD_VS_CPU:
+        out = chip_smoke._train_card_vs_cpu(dev, arch, *chip_smoke._reduced_heads(arch))
+        assert out["float32"]["leaf_excess"] <= 0 and out["float32"]["loss_excess"] <= 0
+        assert out["bfloat16"]["least_cosine"] >= chip_smoke.TRAIN_BF16_COS
+        assert out["planted_fault"]["excess"] > 0
 
 
 def _to(tree, where):
