@@ -184,7 +184,11 @@ nonzero.
    prefill(S) + decode(S) against prefill(S + 1) within 0.05 under float32
    compute (S = 861, 127, 4,096); no ssm layer recomputing its final state
    with the CPU path's closed form; prefill / decode times, tokens/s,
-   launches and device busy share of decode steps, peak memory.  Decode
+   launches and device busy share of decode steps, peak memory.  Each
+   prefill bucket ``(batch, plen, max_len)`` is captured at its second
+   call and replayed after (the continuous scheduler's batch-1 bucket: its
+   eager and replayed ms a call, capture s, and both engines' device ms a
+   call from the profiler, ``prefill_profile``); decode
    replays a CUDA graph per batch; the same requests eager (uncounted,
    both schedulers) give the same greedy tokens, and a teacher-forced
    window of each (profiled: device ms, kernels and graph launches per
@@ -209,11 +213,12 @@ nonzero.
    (the drop count and both capacities are printed); the decode profile and
    peak memory as in phase 5.
 ``serve_deepseek_7b``, ``serve_qwen2_5_14b``, ``serve_yi_34b`` (after
-   ``frontends``): the three dense configs at full width and depth (13.8,
-   29.6 and 68.8 GB of bf16 from seed 0) through phase 5's (b) with 16
-   greedy tokens a request and the eager check on ``generate`` only (for
-   the clock); (a) card against CPU at the full configs' GQA groups (qwen2.5
-   10 / 2, with its q/k/v biases; yi 14 / 2; deepseek MHA as it reduces).
+   ``frontends``): the three dense configs at full width, deepseek at full
+   depth (13.8 GB of bf16 from seed 0), qwen2.5 24 of its 48 layers and yi
+   30 of its 60 (``SERVE_LAYERS``, for the clock; whole they are 29.6 and
+   68.8 GB) through phase 5's (b) with 16 greedy tokens a request; (a) card
+   against CPU at the full configs' GQA groups (qwen2.5 10 / 2, with its
+   q/k/v biases; yi 14 / 2; deepseek MHA as it reduces).
 ``serve_mixtral_cut``: mixtral-8x22b at full width cut to its first 2 of 56
    layers (8 experts top-2 in the reference's TP mode, ``swa`` window
    4,096, 48 q / 8 KV heads), the same, plus a batch-1 prompt of 6,000
@@ -244,15 +249,25 @@ nonzero.
    alone are 76.8 GB; the reckoning is printed), and (b) mamba2-1.3b at full
    width, 24 of its 48 layers (both cut for the script's clock):
    ``SyntheticLM`` batches of 4 × 1,024 tokens (seed 0) in 2 microbatches,
-   3 steps of ``make_train_step`` ((a) under the ``Supervisor`` with one
-   checkpoint, step 0's; (b) in a plain loop timed the same way, so the
-   script writes one multi-GB checkpoint, not two): the loss finite and
+   3 steps of ``compile_train_step`` (step 1 eager, step 2 captured into a
+   CUDA graph and replayed, step 3 replayed; (a) under the ``Supervisor``
+   with one checkpoint, step 0's; (b) in a plain loop timed the same way,
+   so the script writes one multi-GB checkpoint, not two): the loss finite and
    lower at step 3 than at step 1, no gradient leaf None, all zero or
    non-finite at any step, no hand-written kernel launched (the training
    route, as the reference's training forward calls no Pallas kernel); ms
-   a step (eager), tokens/s, the model-FLOP share of the bf16 dense peak,
-   peak memory, (a)'s checkpoint bytes and wait, and one more step under
-   the profiler.
+   a step (step 1 eager, the rest replayed), the capture's seconds,
+   tokens/s and the model-FLOP share of the bf16 dense peak at the
+   replayed steps, peak memory with the graph, (a)'s checkpoint bytes and
+   wait, and a fourth, replayed step under the profiler (device and wall
+   ms, busy share, the graph's CUDA kernels).  The gradient check runs
+   inside the captured step and is read after each step.  Then the
+   replayed-against-eager check (``_replay_vs_eager``) at full width cut
+   to 2 layers, batch 4 × 512: 4 steps from one seed, two eager runs and a
+   replayed one, losses, learning rates and every parameter, moment,
+   master and count bit for bit (or within twice the eager runs' spread,
+   should they differ), and a planted fault, a replay whose ``count`` does
+   not advance, that must fail it.
    (c) ``examples/train_lm.py``'s 100m preset trained 30 steps, then served
    greedy from its trained params on the card through K3 and K4 (counted):
    the card's tokens under float32 compute equal the CPU's.  In every part
@@ -281,7 +296,9 @@ nonzero.
    64 (``_train_card_vs_cpu``): float32 loss within 1e-5 and each gradient
    leaf within 1e-4 · max|g_cpu| + 1e-6, bf16 loss within 2e-2 and each
    leaf's cosine at least 0.99, and a planted fault (``TRAIN_FAULTS``)
-   outside the float32 bound.
+   outside the float32 bound; and the replayed-against-eager check on the
+   same reduced config at 2 × 128 (int8 residuals on deepseek, top-k on
+   yi, inside the capture).
 ``sharding`` (after ``train``): the sharding layer (``repro_torch.sharding``)
    on the card.  (a) The DTensor train step: a world-size-1 NCCL group and
    a ``(1, 1)`` ``("data", "model")`` ``DeviceMesh``, ``make_policy``, the
@@ -462,11 +479,15 @@ SHAPES: dict[tuple, int] = {}
 def shapes_of_rglru():
     """Counts the shapes ``rglru_scan`` launches at, where the model's
     dispatch (``kernels.ops.rglru``) calls it; launches made inside
-    :func:`uncounted` are put back as they were."""
+    :func:`uncounted` are put back as they were.  A CUDA graph's shapes
+    are counted as its launches are: recorded at the capture and credited
+    at each replay (``graphs.StepGraph``)."""
+    from repro_torch import graphs
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels import scan
 
-    real = scan.rglru_scan
+    real, real_capture, real_call = (scan.rglru_scan, graphs.StepGraph._capture,
+                                     graphs.StepGraph.__call__)
 
     def counted(a, b):
         before = LAUNCHES["rglru_scan"]
@@ -476,12 +497,31 @@ def shapes_of_rglru():
             SHAPES[key] = SHAPES.get(key, 0) + 1
         return out
 
+    def capture(self):
+        before = dict(SHAPES)
+        try:
+            real_capture(self)
+        finally:
+            self.rglru_shapes = {k: n - before.get(k, 0) for k, n in SHAPES.items()
+                                 if n != before.get(k, 0)}
+            SHAPES.clear()
+            SHAPES.update(before)
+
+    def call(self):
+        out = real_call(self)
+        if self.graph is not None:  # a replay (the capture's call replays too)
+            for k, n in getattr(self, "rglru_shapes", {}).items():
+                SHAPES[k] = SHAPES.get(k, 0) + n
+        return out
+
     SHAPES.clear()
     scan.rglru_scan = counted
+    graphs.StepGraph._capture, graphs.StepGraph.__call__ = capture, call
     try:
         yield SHAPES
     finally:
         scan.rglru_scan = real
+        graphs.StepGraph._capture, graphs.StepGraph.__call__ = real_capture, real_call
 
 
 @contextlib.contextmanager
@@ -2466,10 +2506,12 @@ MOE_ARCH = "qwen3-moe-30b-a3b"
 DENSE_PATHS = {"serve_deepseek_7b": "deepseek-7b", "serve_qwen2_5_14b": "qwen2.5-14b",
                "serve_yi_34b": "yi-34b"}
 MIXTRAL_LAYERS = 2  # of mixtral-8x22b's 56: about 10.8 GB of its 281 GB
-# layers served of two paths cut in depth to keep the script's clock with
-# phase train's full-width paths: their depth is the largest host cost among
-# the serving paths (eager decode, the float32 checks)
-SERVE_LAYERS = {MOE_ARCH: 16, "mamba2-1.3b": 24}
+# layers served of the paths cut in depth to keep the script's clock: with
+# phase train's full-width paths (PR 28) qwen3-moe and mamba2, whose depth is
+# the largest host cost among the serving paths (eager decode, the float32
+# checks); with the replayed-against-eager train checks, the prefill profiles
+# and both schedulers' eager runs (PR 29) the two largest dense paths
+SERVE_LAYERS = {MOE_ARCH: 16, "mamba2-1.3b": 24, "yi-34b": 30, "qwen2.5-14b": 24}
 MIXTRAL_PROMPT = 6000
 SERVE_REQUESTS, SERVE_SLOTS = 8, 4
 F32_LOGIT_BOUND = 0.05  # tests/test_models.py:94-114, float32 compute
@@ -2477,9 +2519,8 @@ MOE_F32_REL = 1e-4  # one full-width MoE layer, card vs CPU, float32 compute
 _TEXT = {"kv": None, "heads": None, "consistency_len": None,
          "first_wave": False, "new": 64, "reduced": None,
          "eager": ("generate", "generate_continuous"), "long_prompt": None}
-# the paths of DENSE_PATHS and mixtral, cut for the clock: 16 tokens, the eager
-# check on generate only
-_NEW = {**_TEXT, "new": 16, "eager": ("generate",)}
+# the paths of DENSE_PATHS and mixtral, cut for the clock: 16 tokens
+_NEW = {**_TEXT, "new": 16}
 # per serving path: n_kv_heads and n_heads of the reduced config checked card
 # vs CPU (phi4 with 2 KV heads for GQA; qwen2.5, mixtral and yi at their full
 # configs' groups, 5, 6 and 7, where reduced() makes them MHA), the prompt
@@ -2798,11 +2839,12 @@ def _launches_per_call(cfg) -> tuple[dict, dict]:
 
 
 class _Timed:
-    """Counts and times (synchronised, on the host clock) calls of
-    ``lm.prefill`` and of a batch's decode step (``serve.engine._Decode``:
-    the first eager, the second capturing its CUDA graph and replaying it,
-    the rest replaying) as the engine makes them, records each call's kernel
-    launches and checks its logits are finite."""
+    """Counts and times (synchronised, on the host clock) calls of a
+    prefill bucket (``serve.engine._Prefill``) and of a batch's decode step
+    (``serve.engine._Decode``): each the first eager, the second capturing
+    its CUDA graph and replaying it, the rest replaying, as the engine makes
+    them; records each call's kernel launches and checks its logits are
+    finite."""
 
     def __init__(self, fn, n_vocab: int):
         self.fn, self.n_vocab, self.ms, self.launches = fn, n_vocab, [], []
@@ -2839,9 +2881,10 @@ def _serve_timed(eng, name: str, prompts, cfg, per_call, new: int) -> dict:
     from repro_torch.models import lm
     from repro_torch.serve import engine as serve_engine
 
-    real = lm.prefill, serve_engine._Decode.__call__
+    real = serve_engine._Prefill.__call__, serve_engine._Decode.__call__
     pre, dec = _Timed(real[0], cfg.vocab_size), _Timed(real[1], cfg.vocab_size)
-    lm.prefill, serve_engine._Decode.__call__ = pre, lambda self, tokens: dec(self, tokens)
+    serve_engine._Prefill.__call__ = lambda self, tokens: pre(self, tokens)
+    serve_engine._Decode.__call__ = lambda self, tokens: dec(self, tokens)
     try:
         t0 = time.perf_counter()
         with captures() as caps:
@@ -2849,7 +2892,7 @@ def _serve_timed(eng, name: str, prompts, cfg, per_call, new: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        lm.prefill, serve_engine._Decode.__call__ = real
+        serve_engine._Prefill.__call__, serve_engine._Decode.__call__ = real
     for kind, timed, want in (("prefill", pre, per_call[0]), ("decode", dec, per_call[1])):
         for i, got in enumerate(timed.launches):
             check(got == want, f"{name}: {kind} call {i} launched {got}, expected {want}")
@@ -2862,6 +2905,13 @@ def _serve_timed(eng, name: str, prompts, cfg, per_call, new: int) -> dict:
             "capture_s": caps, "wall_s": wall, "tokens": len(prompts) * new,
             "tokens_per_s": len(prompts) * new / wall,
             "prefill_calls": len(pre.ms), "prefill_ms": pre.ms,
+            # one bucket a scheduler here: call 1 eager, call 2 captures, 3+ replay
+            "prefill_ms_eager": pre.ms[0],
+            "prefill_ms_replayed": float(np.mean(pre.ms[2:])) if len(pre.ms) > 2 else None,
+            "prefill_buckets": {"x".join(map(str, key)): {
+                "calls": getattr(b.run, "calls", None),
+                "capture_s": getattr(b.run, "capture_s", None)}
+                for key, b in eng._prefills.items()},
             "decode_steps": len(dec.ms), "decode_ms_per_step_mean": float(np.mean(dec.ms)),
             "decode_ms_per_step_median": float(np.median(dec.ms)),
             "decode_tokens_per_s": slots * len(dec.ms) / (sum(dec.ms) / 1e3),
@@ -2914,6 +2964,9 @@ def phase_serve(dev, arch: str, cfg=None) -> dict:
     schedulers = ("generate", "generate_continuous")
     runs = {name: _serve_timed(eng, name, prompts, cfg, per_call, new) for name in schedulers}
     out["peak_memory_replayed"] = torch.cuda.max_memory_allocated(dev)
+    # the pool as the two schedulers left it (the float32 checks below add
+    # buckets of their own)
+    out["prefill_graph_bytes"] = _prefill_graph_bytes(eng)
     torch.cuda.reset_peak_memory_stats(dev)
     with uncounted():  # the same requests op by op: the replayed tokens' check
         eager = ServeEngine(cfg, params, ServeConfig(batch_slots=SERVE_SLOTS), device=dev,
@@ -2961,10 +3014,45 @@ def phase_serve(dev, arch: str, cfg=None) -> dict:
         if cfg.n_experts:
             out["moe_layer_card_vs_cpu"] = _moe_layer_vs_cpu(params, cfg, dev)
         out["decode_profile"] = _decode_profile(params, cfg, dev, rng, SERVE_SLOTS, 1024)
+        out["prefill_profile"] = {"replayed": _prefill_profile(eng),
+                                  "eager": _prefill_profile(eager)}
     out["peak_memory"] = torch.cuda.max_memory_allocated(dev)
-    del params, eng
+    del params, eng, eager
     torch.cuda.empty_cache()
     return out
+
+
+def _prefill_profile(eng, calls: int = 2) -> dict:
+    """Device time and kernels of a call of the continuous scheduler's
+    prefill bucket ``(1, plen, max_len)`` as ``eng`` left it (replayed where
+    it captured), over ``calls`` calls of its last request's tokens."""
+    import torch
+
+    key = next(k for k in eng._prefills if k[0] == 1)
+    bucket = eng._prefills[key]
+    with torch.inference_mode():
+        toks = bucket.tokens.clone()
+        for _ in range(3):  # the profiler now and then reads no device time
+            prof = _per_step(_device_profile(lambda n: [bucket(toks) for _ in range(n)], calls,
+                                             warmup=1, cpu=False), calls)
+            if prof["device_busy_s"] > 0:
+                break
+    prof["bucket"] = list(key)
+    prof["kernels"] = prof["kernels"][:5]
+    return prof
+
+
+def _prefill_graph_bytes(eng) -> dict:
+    """The device memory of ``eng``'s prefill pool (each captured bucket's
+    static caches and logits, and its capture's temporaries): the reserved
+    and allocated bytes of the allocator's segments in that pool."""
+    import torch
+
+    pool = tuple(eng._prefill_pool)
+    segs = [seg for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool]
+    return {"reserved": sum(seg["total_size"] for seg in segs),
+            "allocated": sum(seg["allocated_size"] for seg in segs)}
 
 
 def _long_request(dev, params, cfg, prompt, per_call, new: int,
@@ -3346,28 +3434,53 @@ def _train_sizes(cfg) -> dict:
             / cfg.n_layers}
 
 
+class _GradCheck:
+    """Per step, the gradient leaves that are all zero or non-finite: the
+    check runs inside the step (so inside its CUDA graph) and writes its
+    count to a device tensor made at the step's first, eager call;
+    ``read()`` after each step appends that step's count."""
+
+    def __init__(self):
+        self.slot, self.counts = None, []
+
+    def read(self) -> None:
+        self.counts.append(int(self.slot))
+
+    def __len__(self) -> int:
+        return len(self.counts)
+
+    def __iter__(self):
+        return iter(self.counts)
+
+    def __repr__(self) -> str:
+        return repr(self.counts)
+
+
 @contextlib.contextmanager
 def _checked_grads():
-    """Counts, per call of ``adamw_update`` from the train step, the
-    gradient leaves that are all zero or non-finite (a None leaf fails at
-    once); yields the list of counts, one a step."""
+    """Checks, in every call of ``adamw_update`` from the train step, the
+    gradient leaves (a None leaf fails at once, at the eager call or the
+    capture); yields a :class:`_GradCheck`, read after each step."""
     import torch
 
     from repro_torch.train import train_step as train_step_mod
     from repro_torch.train.optimizer import tree_leaves
 
-    real, counts = train_step_mod.adamw_update, []
+    real, rec = train_step_mod.adamw_update, _GradCheck()
 
     def checked(params, grads, opt_state, cfg_):
         leaves = tree_leaves(grads)
         check(all(g is not None for g in leaves), "a gradient leaf is None")
         amax = torch.stack([g.detach().abs().amax().float() for g in leaves])
-        counts.append(int(((amax == 0) | ~torch.isfinite(amax)).sum()))
+        bad = ((amax == 0) | ~torch.isfinite(amax)).sum()
+        if rec.slot is None:  # the first call is eager: no capture holds this tensor's memory
+            rec.slot = torch.zeros_like(bad)
+        rec.slot.copy_(bad)
         return real(params, grads, opt_state, cfg_)
 
     train_step_mod.adamw_update = checked
     try:
-        yield counts
+        yield rec
     finally:
         train_step_mod.adamw_update = real
 
@@ -3381,13 +3494,14 @@ def _cpu_job(cfg, seed: int = 0, *, dev, data) -> tuple:
 
 
 def _train_supervised(dev, cfg, data, ts, steps: int, ckpt_every: int, cpu_jobs: dict):
-    """``make_train_step`` under the ``Supervisor`` for ``steps`` steps from
-    ``init_params(cfg, 0)`` on the card, batches from ``data`` (a
-    ``SyntheticLM``), every step's gradients checked.  ``cpu_jobs`` (name →
-    ``_cpu_job``) are computed in a thread started after the last step,
-    while the Supervisor waits for its checkpoint write.  Returns (the
-    supervisor, its history, a record: each job's CPU loss and seconds, the
-    checkpoints, the wait)."""
+    """The compiled train step (``compile_train_step``: step 1 eager, step 2
+    captured and replayed, then replayed) under the ``Supervisor`` for
+    ``steps`` steps from ``init_params(cfg, 0)`` on the card, batches from
+    ``data`` (a ``SyntheticLM``), every step's gradients checked.
+    ``cpu_jobs`` (name → ``_cpu_job``) are computed in a thread started
+    after the last step, while the Supervisor waits for its checkpoint
+    write.  Returns (the supervisor, its history, a record: each job's CPU
+    loss and seconds, the checkpoints, the wait, the capture seconds)."""
     import shutil
     import tempfile
     import threading
@@ -3395,13 +3509,14 @@ def _train_supervised(dev, cfg, data, ts, steps: int, ckpt_every: int, cpu_jobs:
     import torch
 
     from repro_torch.models import lm
-    from repro_torch.train import Supervisor, SupervisorConfig, init_opt_state, make_train_step
+    from repro_torch.train import Supervisor, SupervisorConfig, init_opt_state
     from repro_torch.train import checkpoint as ck
+    from repro_torch.train.train_step import compile_train_step
 
     params = lm.init_params(cfg, 0, device=dev)
     record: dict = {"cpu": {}}
     threads: list = []
-    step = make_train_step(cfg, ts)
+    step = compile_train_step(cfg, ts, device=dev)
 
     def cpu_losses():
         for name, job in cpu_jobs.items():
@@ -3409,10 +3524,11 @@ def _train_supervised(dev, cfg, data, ts, steps: int, ckpt_every: int, cpu_jobs:
             record["cpu"][name] = (_cpu_loss(*job), time.perf_counter() - t0)
 
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    with _checked_grads() as bad:
+    with _checked_grads() as bad, captures() as caps:
 
         def counted_step(params, opt_state, batch):
             out = step(params, opt_state, batch)
+            bad.read()
             if len(bad) == steps:  # the last step: the card is done with the run
                 torch.cuda.synchronize()
                 record["t_last_step"] = time.perf_counter()
@@ -3440,32 +3556,44 @@ def _train_supervised(dev, cfg, data, ts, steps: int, ckpt_every: int, cpu_jobs:
     check(len(bad) == steps and not any(bad),
           f"gradient leaves all zero or non-finite, by step: {bad}")
     check(sorted(record["cpu"]) == sorted(cpu_jobs), "a CPU loss was not computed")
-    return sup, hist, record
+    record["graph"] = _graph_record(step, caps, steps)
+    return sup, hist, record, step
+
+
+def _graph_record(step, caps: list, steps: int) -> dict:
+    """How a run of the compiled step replayed: one capture (on the card,
+    at step 2 of ``steps`` >= 2), its seconds."""
+    check(step.graph and len(step.runs) == 1 and len(caps) == (steps >= 2),
+          f"the train step was captured {len(caps)} times over {len(step.runs)} batch shapes")
+    return {"replayed": True, "capture_s": caps[0] if caps else None,
+            "eager_steps": 1, "replayed_steps": steps - 1}
 
 
 def _train_loop(dev, cfg, data, ts, steps: int, params=None):
-    """``make_train_step`` in a plain loop for ``steps`` steps from
+    """The compiled train step in a plain loop for ``steps`` steps from
     ``params`` (default ``init_params(cfg, 0)`` on the card), each step
     timed as the Supervisor times one (the batch to the card, the step, its
-    loss read back), every step's gradients checked.  Returns (params,
-    opt_state, history)."""
+    loss read back), every step's gradients checked.  Returns (the step,
+    params, opt_state, history, the graph's record)."""
     import torch
 
     from repro_torch.models import lm
-    from repro_torch.train import StepResult, init_opt_state, make_train_step
+    from repro_torch.train import StepResult, init_opt_state
+    from repro_torch.train.train_step import compile_train_step
 
     if params is None:
         params = lm.init_params(cfg, 0, device=dev)
-    opt_state, step, hist = init_opt_state(params), make_train_step(cfg, ts), []
-    with _checked_grads() as bad:
+    opt_state, step, hist = init_opt_state(params), compile_train_step(cfg, ts, device=dev), []
+    with _checked_grads() as bad, captures() as caps:
         for s in range(steps):
             t0 = time.perf_counter()
             batch = {k: torch.from_numpy(v).to(dev) for k, v in data(s).items()}
             loss, params, opt_state, _ = step(params, opt_state, batch)
             hist.append(StepResult(s + 1, float(loss), time.perf_counter() - t0))
+            bad.read()
     check(len(bad) == steps and not any(bad),
           f"gradient leaves all zero or non-finite, by step: {bad}")
-    return params, opt_state, hist
+    return step, params, opt_state, hist, _graph_record(step, caps, steps)
 
 
 def _cpu_loss(cfg, host_params, batch) -> float:
@@ -3513,17 +3641,19 @@ def _model_flops(cfg, batch: int, seq: int) -> dict:
 def _train_record(hist, cfg, batch: int, seq: int, falls: bool = True) -> dict:
     """Losses (finite; with ``falls`` the last below the first), wall ms a
     step, tokens/s (positions: a vlm's vision rows count) and the
-    model-FLOP share of the bf16 dense peak (``_model_flops``)."""
+    model-FLOP share of the bf16 dense peak (``_model_flops``), the last two
+    at the replayed steps' mean (step 1 runs eagerly, step 2 captures)."""
     import numpy as np
 
     losses = [h.loss for h in hist]
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(not falls or losses[-1] < losses[0], f"loss did not fall: {losses}")
     ms = [h.wall_time * 1e3 for h in hist]
-    steady = float(np.mean(ms[1:])) if len(ms) > 1 else ms[0]
+    steady = float(np.mean(ms[2:])) if len(ms) > 2 else ms[-1]
     tokens = batch * seq
     flops = _model_flops(cfg, batch, seq)
-    return {"losses": losses, "ms_per_step": ms, "steady_ms_per_step": steady,
+    return {"losses": losses, "ms_per_step": ms, "eager_ms_step1": ms[0],
+            "steady_ms_per_step": steady,
             "tokens_per_step": tokens, "tokens_per_s": tokens / (steady / 1e3),
             "model_flops_per_step": flops["total"], "model_flops": flops,
             "bf16_peak_flops": BF16_PEAK,
@@ -3541,24 +3671,29 @@ def _loss_vs_cpu(card: float, cpu: tuple) -> dict:
                                           "cpu_s": seconds}}
 
 
-def _profiled_step(dev, cfg, ts, data, params, opt_state) -> dict:
-    """Where a step's time goes: one more step (off the run's record, on
-    batch ``TRAIN_STEPS``) under the profiler; the five longest kernels."""
+def _profiled_step(dev, step, data, params, opt_state) -> dict:
+    """Where a replayed step's time goes: a fourth call of the run's
+    compiled ``step`` (off the run's record, on batch ``TRAIN_STEPS``: one
+    graph replay) under the profiler; its CUDA kernels are the graph's, and
+    the five longest."""
     import torch
 
-    from repro_torch.train import make_train_step
-
     batch = {k: torch.from_numpy(v).to(dev) for k, v in data(TRAIN_STEPS).items()}
-    step, state = make_train_step(cfg, ts), [params, opt_state]
+    state = [params, opt_state]
+    replays = [r for _, r in step.runs.values()]
 
     def one(n):
         for _ in range(n):
             _, state[0], state[1], _ = step(state[0], state[1], batch)
 
     t0 = time.perf_counter()
+    calls = [r.calls for r in replays]
     prof = _per_step(_device_profile(one, 1, warmup=0, cpu=False), 1)
+    check(len(step.runs) == 1 and [r.calls for r in replays] == [c + 1 for c in calls],
+          "the profiled step was not a replay of the run's graph")
     prof["profiler_s"] = time.perf_counter() - t0
     prof["kernels"] = prof["kernels"][:5]
+    prof["replayed"] = True
     return prof
 
 
@@ -3607,21 +3742,26 @@ def _train_part(dev, arch: str, shared: dict) -> dict:
                 mamba2.name: _cpu_job(mamba2, dev=dev, data=data_of(mamba2)),
                 **{args[0]: _small_job(dev, *args) for args in TRAIN_FULL.values()}}
         torch.cuda.empty_cache()
-        sup, hist, rec = _train_supervised(dev, cfg, data, ts, TRAIN_STEPS,
-                                           ckpt_every=TRAIN_STEPS + 1, cpu_jobs=jobs)
+        sup, hist, rec, step = _train_supervised(dev, cfg, data, ts, TRAIN_STEPS,
+                                                 ckpt_every=TRAIN_STEPS + 1, cpu_jobs=jobs)
         params, opt_state = sup.params, sup.opt_state
         del sup
         shared["cpu"] = rec.pop("cpu")
         out.update(rec)
     else:
-        params, opt_state, hist = _train_loop(dev, cfg, data, ts, TRAIN_STEPS)
+        step, params, opt_state, hist, out["graph"] = _train_loop(dev, cfg, data, ts,
+                                                                  TRAIN_STEPS)
     out["train_s"] = time.perf_counter() - t0
     out["peak_memory"] = torch.cuda.max_memory_allocated(dev)
     out.update(_train_record(hist, cfg, TRAIN_BATCH, TRAIN_SEQ))
     out.update(_loss_vs_cpu(out["losses"][0], shared["cpu"].pop(arch)))
-    out["step_profile"] = _profiled_step(dev, cfg, ts, data, params, opt_state)
-    del params, opt_state, hist
+    out["step_profile"] = _profiled_step(dev, step, data, params, opt_state)
+    del step, params, opt_state, hist
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["replay_vs_eager"] = _replay_vs_eager(dev, _depth_cut(arch, REPLAY_FULL[0]),
+                                              *REPLAY_FULL[1:])
+    out["replay_vs_eager"]["s"] = time.perf_counter() - t0
     return out
 
 
@@ -3659,16 +3799,16 @@ def _train_then_serve(dev) -> dict:
         peak_lr=6e-4, warmup_steps=20, total_steps=TRAIN_SERVE_STEPS))
     torch.cuda.reset_peak_memory_stats(dev)
     data = SyntheticLM(cfg, DataConfig(seq_len=pre["seq"], global_batch=pre["batch"]))
-    sup, hist, rec = _train_supervised(
+    sup, hist, rec, step = _train_supervised(
         dev, cfg, data, ts, TRAIN_SERVE_STEPS, ckpt_every=max(TRAIN_SERVE_STEPS // 4, 10),
         cpu_jobs={"100m": _cpu_job(cfg, dev=dev, data=data)})
     run = _train_record(hist, cfg, pre["batch"], pre["seq"], falls=False)
-    out.update({k: run[k] for k in ("ms_per_step", "steady_ms_per_step", "tokens_per_s",
-                                     "restarts")},
+    out.update({k: run[k] for k in ("ms_per_step", "eager_ms_step1", "steady_ms_per_step",
+                                     "tokens_per_s", "restarts")},
                losses_first_last=[run["losses"][0], run["losses"][-1]])
     out.update(_loss_vs_cpu(run["losses"][0], rec.pop("cpu")["100m"]), **rec)
     trained = sup.params
-    del sup
+    del sup, step
     new = 12
     tokens = ServeEngine(cfg, trained, device=dev).generate(TRAIN_SERVE_PROMPTS, new)
     on_cpu = _tree_cpu(trained)
@@ -3942,26 +4082,127 @@ def _train_full(dev, arch: str, n_layers: int, batch: int, seq: int,
         done = (_cpu_loss(cfg, _tree_cpu(params), small), time.perf_counter() - t0)
     small_rec = _loss_vs_cpu(card, done)
     t0 = time.perf_counter()
-    params, opt_state, hist = _train_loop(dev, cfg, data, ts, TRAIN_STEPS, params)
+    step, params, opt_state, hist, out["graph"] = _train_loop(dev, cfg, data, ts, TRAIN_STEPS,
+                                                              params)
     out["train_s"] = time.perf_counter() - t0
     out["peak_memory"] = torch.cuda.max_memory_allocated(dev)
     out.update(_train_record(hist, cfg, batch, seq))
     out["small_batch"] = {"shape": {k: list(v.shape) for k, v in small.items()},
                           **small_rec["step1_loss_vs_cpu_float32"], "card_bf16": card,
                           "cpu_in_checkpoint_wait": waited}
-    out["step_profile"] = _profiled_step(dev, cfg, ts, data, params, opt_state)
-    del params, opt_state, hist
+    out["step_profile"] = _profiled_step(dev, step, data, params, opt_state)
+    del step, params, opt_state, hist
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out["grads_card_vs_cpu"] = _train_card_vs_cpu(dev, arch, *_reduced_heads(arch))
     out["grads_card_vs_cpu"]["s"] = time.perf_counter() - t0
+    out["replay_vs_eager"] = _replay_vs_eager_reduced(dev, arch)
     return out
 
 
 def _train_reduced(dev) -> dict:
-    """Check (3) for the configs that train on the card reduced only."""
-    return {arch: _train_card_vs_cpu(dev, arch, *_reduced_heads(arch))
+    """Check (3) and the replayed-against-eager check for the configs that
+    train on the card reduced only."""
+    return {arch: {**_train_card_vs_cpu(dev, arch, *_reduced_heads(arch)),
+                   "replay_vs_eager": _replay_vs_eager_reduced(dev, arch)}
             for arch in TRAIN_REDUCED_ONLY}
+
+
+# the replayed-against-eager check: REPLAY_STEPS steps from one seed, the
+# reduced configs of check (3) at its batch (2 microbatches of 1 row; the
+# gradient compressions on two of them, inside the capture) and phi4 and
+# mamba2 at full width cut to REPLAY_FULL's layers, batch and sequence
+REPLAY_STEPS = 4
+REPLAY_FULL = (2, 4, 512)
+REPLAY_COMPRESSION = {"deepseek-7b": "int8_ef", "yi-34b": "topk_ef"}
+
+
+def _replay_vs_eager_reduced(dev, arch: str) -> dict:
+    t0 = time.perf_counter()
+    out = _replay_vs_eager(dev, _reduced(arch, *_reduced_heads(arch)), TRAIN_GRAD_BATCH,
+                           TRAIN_GRAD_SEQ, REPLAY_COMPRESSION.get(arch, "none"))
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _replay_vs_eager(dev, cfg, batch: int, seq: int, compression: str = "none") -> dict:
+    """``cfg`` trained ``REPLAY_STEPS`` steps from ``init_params(cfg, 0)``
+    on the card (bf16, 2 microbatches, AdamW with one warmup step, the
+    batches of ``SyntheticLM`` seed 0), twice eagerly (``make_train_step``)
+    and once replayed (``compile_train_step(graph=True)``: step 1 eager,
+    step 2 captured and replayed, steps 3-4 replayed).  The replayed run's
+    losses, learning rates, count and every parameter, ``m``, ``v``,
+    ``master`` (and residual) leaf equal the first eager run's bit for bit;
+    where the two eager runs already differ (atomics), the replayed run's
+    largest difference from the first, per quantity, is at most twice the
+    eager runs' own.  The planted fault — the same replayed run with
+    ``count`` put back after every step, a replay that does not advance it —
+    must fail the same check."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.train import AdamWConfig, TrainStepConfig, init_opt_state, make_train_step
+    from repro_torch.train.train_step import compile_train_step
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    ts = TrainStepConfig(n_microbatches=2, compression=compression,
+                         adamw=AdamWConfig(warmup_steps=1, total_steps=REPLAY_STEPS))
+    data = _train_data(cfg, batch, seq)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data(s).items()}
+               for s in range(REPLAY_STEPS)]
+    init = lm.init_params(cfg, 0, device=dev)
+
+    def run(kind: str) -> dict:
+        params = tree_map(lambda t: t.clone(), init)
+        opt = init_opt_state(params)
+        step = (make_train_step(cfg, ts) if kind == "eager"
+                else compile_train_step(cfg, ts, device=dev, graph=True))
+        losses, lrs = [], []
+        for b in batches:
+            loss, params, opt, metrics = step(params, opt, b)
+            if kind == "frozen":
+                opt["count"].sub_(1)
+            losses.append(loss.clone())
+            lrs.append(metrics["lr"].clone())
+        torch.cuda.synchronize()
+        return {"loss": [torch.stack(losses)], "lr": [torch.stack(lrs)],
+                "count": [opt["count"]], "params": tree_leaves(params),
+                **{k: tree_leaves(opt[k]) for k in ("m", "v", "master", "ef") if k in opt}}
+
+    def diff(a: dict, b: dict) -> dict:
+        """Per quantity: (bit-equal, the largest |a - b| over its leaves)."""
+        out = {}
+        for key in a:
+            pairs = list(zip(a[key], b[key]))
+            eq = [torch.equal(x, y) for x, y in pairs]
+            out[key] = (all(eq), max([float((x.float() - y.float()).abs().max())
+                                      for (x, y), e in zip(pairs, eq) if not e], default=0.0))
+        return out
+
+    first = run("eager")
+    spread = diff(first, run("eager"))
+    exact = all(eq for eq, _ in spread.values())
+
+    def holds(got: dict) -> tuple[bool, dict]:
+        d = diff(first, got)
+        if exact:
+            return all(eq for eq, _ in d.values()), d
+        return all(d[k][1] <= 2 * spread[k][1] for k in d), d
+
+    ok, got = holds(run("replayed"))
+    check(ok, f"{cfg.name} ({cfg.n_layers} layers): replayed train steps differ from eager: "
+              f"{got} (eager spread {spread})")
+    bad, planted = holds(run("frozen"))
+    check(not bad, f"{cfg.name}: the planted frozen count passed the replay check: {planted}")
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "batch": [batch, seq], "compression": compression, "steps": REPLAY_STEPS,
+            "eager_runs_bit_equal": exact,
+            "check": "bit for bit" if exact else "within 2x the eager runs' spread",
+            "eager_spread": {k: d for k, (_, d) in spread.items()},
+            "replayed_diff": {k: d for k, (_, d) in got.items()},
+            "planted_frozen_count": {"fault": "count put back after every replayed step",
+                                     "failed_the_check": True,
+                                     "diff": {k: d for k, (_, d) in planted.items()}}}
 
 
 # -- phase sharding -----------------------------------------------------------
@@ -4386,12 +4627,14 @@ def main() -> int:
                                                  _depth_cut(MOE_ARCH, SERVE_LAYERS[MOE_ARCH]))))
     path(("flash_attention", "decode_attention", "threefry"),
          ("frontends", lambda: phase_frontends(dev)))
-    # the remaining text configs and the dry-run's lengths: deepseek-7b, qwen2.5-14b
-    # and yi-34b at full width and depth, mixtral-8x22b at full width cut to
-    # its first layers, phi4 over a 32,000-token prompt
+    # the remaining text configs and the dry-run's lengths: deepseek-7b,
+    # qwen2.5-14b and yi-34b at full width (the last two cut in depth,
+    # SERVE_LAYERS), mixtral-8x22b at full width cut to its first layers,
+    # phi4 over a 32,000-token prompt
     for phase, arch in DENSE_PATHS.items():
+        cut = _depth_cut(arch, SERVE_LAYERS[arch]) if arch in SERVE_LAYERS else None
         path(("flash_attention", "decode_attention", "threefry"),
-             (phase, lambda arch=arch: phase_serve(dev, arch)))
+             (phase, lambda arch=arch, cut=cut: phase_serve(dev, arch, cut)))
     path(("flash_attention", "decode_attention", "threefry"),
          ("serve_mixtral_cut", lambda: phase_serve(
              dev, "mixtral-8x22b", _depth_cut("mixtral-8x22b", MIXTRAL_LAYERS))))

@@ -1,14 +1,17 @@
 """CUDA graphs of the port: one step of a main path captured once and
 replayed, the counterpart of the reference's ``jax.jit`` (a whole SNN run
-under ``lax.scan``, ``repro/snn/engine.py:246``; each serve call,
-``repro/serve/engine.py:61``).
+under ``lax.scan``, ``repro/snn/engine.py:246``; each decode step and each
+prefill bucket, ``repro/serve/engine.py:53-61``; the train step,
+``repro/launch/train.py:62``).
 
 A step is a function of no arguments that reads its inputs from tensors it
 closes over and writes its state back into them in place (a
-``DistributedSNN`` step, an ``SNNEngine`` step, one ``lm.decode_step``),
-so the same tensors serve every call.  :func:`stepper` returns the step
-itself when it runs eagerly, or a :class:`StepGraph` that runs the first
-call eagerly and replays a CUDA graph of the step from the second on.
+``DistributedSNN`` step, an ``SNNEngine`` step, one ``lm.decode_step``,
+one ``lm.prefill`` of a bucket's token buffer, one train step with its
+AdamW update), so the same tensors serve every call.  :func:`stepper`
+returns the step itself when it runs eagerly, or a :class:`StepGraph` that
+runs the first call eagerly and replays a CUDA graph of the step from the
+second on.
 
 * **Warm-up.**  The first call is a real step, run on the stream the graph
   is captured on.  It fills what a capture cannot make: the loopback
@@ -24,9 +27,16 @@ call eagerly and replays a CUDA graph of the step from the second on.
 * **Replay** is one graph launch, after which the recorded launches and
   ledger entries are credited again: the counts read exactly what an eager
   step would leave, once per replayed step.
+* **Memory.**  ``torch.cuda.graph`` synchronises and empties the caching
+  allocator's cache before it begins a capture, so the blocks the eager
+  warm-up freed are returned to the device and the capture's private pool
+  can take them.
 * Tensors the step allocates come from the graph's memory pool (one pool
   per graph unless the caller passes one to share) and keep their
   addresses: what the step returns is the static output of every replay.
+  Graphs that share a pool must replay in their capture order, or while
+  the outputs of the others are dead: a capture may place its outputs in
+  memory another graph of the pool uses for temporaries.
   A step that draws random numbers carries its key in a device tensor
   (:mod:`repro_torch.random`) and writes the next key back into it, so a
   replay advances the stream as an eager step does.
@@ -62,7 +72,8 @@ class StepGraph:
 
     ``ledger``: an object whose ``step_bytes`` list the step appends to
     (:class:`~repro_torch.snn.comm.LoopbackComm`).  ``pool``: a memory pool
-    handle shared with other graphs (``torch.cuda.graph_pool_handle()``).
+    handle shared with other graphs (``torch.cuda.graph_pool_handle()``);
+    ``None`` gives the graph a pool of its own.
     """
 
     def __init__(

@@ -17,7 +17,10 @@ batches from the seed, the parameters from ``PRNGKey(--seed)`` as the
 reference's (``repro_torch.random``: the same values within an ulp); they
 are laid out by
 ``lm.distribute_params`` (FSDP over ``data``, TP/EP over ``model``) and the
-step is ``make_train_step(cfg, ts, pol)``.  There, as in the reference, the
+step is ``make_train_step(cfg, ts, pol)``, eager.  On one device the step is
+``compile_train_step``'s: replayed from a CUDA graph on the card, eager
+with ``--device cpu``, as the reference's launcher jits the step whatever
+its backend (``repro/launch/train.py:62``).  There, as in the reference, the
 full config trains unless ``--reduced`` is given.  Only rank 0 prints.
 Batches come from ``SyntheticLM`` (numpy, seeded), are put on the device,
 and go through the step under the fault-tolerant ``Supervisor``, which
@@ -54,8 +57,8 @@ from repro_torch.train import (
     SupervisorConfig,
     TrainStepConfig,
     init_opt_state,
-    make_train_step,
 )
+from repro_torch.train.train_step import compile_train_step
 
 
 def main(argv: list[str] | None = None) -> list[StepResult]:
@@ -107,7 +110,7 @@ def _train(args, device: torch.device, pol: ShardingPolicy) -> list[StepResult]:
     params = lm.distribute_params(lm.init_params(cfg, args.seed, device=device), cfg, pol)
     opt = init_opt_state(params)
     data = SyntheticLM(cfg, DataConfig(seq_len=args.seq, global_batch=args.batch, seed=args.seed))
-    step = make_train_step(
+    step = compile_train_step(
         cfg,
         TrainStepConfig(
             n_microbatches=args.microbatches,
@@ -115,6 +118,7 @@ def _train(args, device: torch.device, pol: ShardingPolicy) -> list[StepResult]:
             compression=args.compression,
         ),
         pol,
+        device=device,
     )
     sup = Supervisor(
         step,

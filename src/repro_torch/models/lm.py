@@ -463,12 +463,16 @@ def forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     """Residual stream through all layers.  x: [B, S, D] → [B, S, D].
 
     ``train`` takes the mixers' training route and recomputes each layer
-    in the backward from its input (``checkpoint(..., use_reentrant=False)``).
+    in the backward from its input (``checkpoint(..., use_reentrant=False)``;
+    ``preserve_rng_state=False``: a layer draws nothing from torch's
+    generators, the port's draws being threefry keys, and saving the CUDA
+    generator's state could not be captured in a CUDA graph of the step).
     ``pol``: the layers' sharding constraints (no-ops without a mesh)."""
     for i, (unit, r) in enumerate(segments(cfg)):
         for lp in _unbound(params[f"seg{i}"], r):
             if train:
-                x = checkpoint(_unit_apply, x, lp, unit, cfg, True, pol, use_reentrant=False)
+                x = checkpoint(_unit_apply, x, lp, unit, cfg, True, pol, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = _unit_apply(x, lp, unit, cfg, False, pol)
     return L.rms_norm(x, params["final_norm"])

@@ -15,18 +15,34 @@ DTensor's indexing of a parameter fails in inference mode), for every text archi
 LM serves (attention K/V caches, Mamba-2 and RG-LRU states, dense MLPs or
 experts: ``_tile_cache`` and ``_splice_cache`` walk the nested cache and
 treat every ``[R, B, ...]`` leaf alike, as the reference's do); vlm and
-audio configs are refused, as the reference's demo engine refuses them.  Prefill
-(:func:`repro_torch.models.lm.prefill`) runs eagerly.  Decode is one
-:func:`~repro_torch.models.lm.decode_step` per step over caches that stay
-where prefill (or the tiling of the first fill) put them: the tokens and
-the position sit in static device tensors and the position advances on the
-device.  With ``graph`` (the default on the card, the counterpart of the
-reference's jitted decode) the first step of a batch runs eagerly and the
-rest replay its CUDA graph (:mod:`repro_torch.graphs`), one capture per
-wave of ``generate`` and one per ``generate_continuous``, all in one memory
-pool of the engine; ``graph=False`` runs every step eagerly.  Sampling and
-the host's token bookkeeping stay outside the graph, as in the reference,
-and ``_splice_cache`` copies a refill into the captured cache in place.
+audio configs are refused, as the reference's demo engine refuses them.
+Prefill (:func:`repro_torch.models.lm.prefill`) runs per bucket ``(batch,
+plen, max_len)``, the reference's one compile per bucket
+(``repro/serve/engine.py:53-57``): each bucket has a static token buffer,
+and with ``graph`` its first call runs eagerly, its second is captured and
+every later call replays that CUDA graph, returning the bucket's static
+logits and caches (valid until the bucket's next call).  The continuous
+scheduler prefills every request at one bucket ``(1, plen, max_len)``.
+Decode is one :func:`~repro_torch.models.lm.decode_step` per step over
+caches that stay where prefill (or the tiling of the first fill) put them:
+the tokens and the position sit in static device tensors and the position
+advances on the device.  With ``graph`` (the default on the card, the
+counterpart of the reference's jitted decode) the first step of a batch
+runs eagerly and the rest replay its CUDA graph (:mod:`repro_torch.graphs`),
+one capture per wave of ``generate`` and one per ``generate_continuous``;
+``graph=False`` runs every step eagerly.  The decode graphs share one memory
+pool of the engine and the prefill graphs another: graphs that share a pool
+must replay in their capture order, or one's temporaries overwrite
+another's live outputs, and a refill's prefill replays between decode
+steps.  Within the prefill pool only one bucket's outputs are live at a
+time (a wave's, or the continuous scheduler's while it refills).  A wave
+decodes in its prefill's static caches: a later wave of the same bucket
+replays into the same tensors, which is safe because the earlier wave has
+finished.  ``_tile_cache`` copies every leaf of the continuous scheduler's
+batch-1 cache (``slot_pos`` too), so a refill's prefill, replayed into that
+bucket's caches, leaves the decode cache as it was.  Sampling and the host's
+token bookkeeping stay outside the graphs, as in the reference, and
+``_splice_cache`` copies a refill into the captured cache in place.
 
 The schedules, and the reference's quirks, are kept as they are: the
 initial fill of ``generate_continuous`` leaves every slot with the last
@@ -92,9 +108,9 @@ class ServeEngine:
         device: str | torch.device | None = None,
         graph: bool | None = None,
     ):
-        """``graph``: replay decode steps from CUDA graphs (``None``: on the
-        card yes, on the CPU no, under a mesh only on a one-rank NCCL mesh;
-        ``True`` on the CPU raises).  ``pol``: the
+        """``graph``: replay prefill buckets and decode steps from CUDA
+        graphs (``None``: on the card yes, on the CPU no, under a mesh only
+        on a one-rank NCCL mesh; ``True`` on the CPU raises).  ``pol``: the
         sharding policy (the reference takes it third and positionally;
         here it is a keyword, after ``sc``, so the port's callers keep
         their order); under a mesh ``params`` must already be distributed
@@ -113,6 +129,8 @@ class ServeEngine:
             graph = False  # a collective that cannot be captured: eager by default
         self.graph = graphs.use_graph(graph, self.device)
         self._pool = torch.cuda.graph_pool_handle() if self.graph else None
+        self._prefill_pool = torch.cuda.graph_pool_handle() if self.graph else None
+        self._prefills: dict[tuple[int, int, int], _Prefill] = {}
         if emb.device.type != self.device.type:
             raise ValueError(f"params lie on {emb.device}, the engine on {self.device}")
         self.cfg, self.params, self.sc, self.pol = cfg, params, sc, pol
@@ -132,8 +150,14 @@ class ServeEngine:
         scaled = logits / self._temperature.to(logits.dtype)
         return random.categorical(sub, scaled).to(torch.int32)
 
-    def _tokens(self, toks: np.ndarray) -> dict:
-        return {"tokens": torch.from_numpy(toks).to(self.device)}
+    def _prefill(self, toks: np.ndarray, max_len: int):
+        """``lm.prefill`` of ``toks`` ``[B, plen]`` through its bucket
+        ``(B, plen, max_len)``: (logits, caches), the bucket's static
+        outputs when it replays."""
+        key = (toks.shape[0], toks.shape[1], max_len)
+        if key not in self._prefills:
+            self._prefills[key] = _Prefill(self, *key, self._policy(toks.shape[0]))
+        return self._prefills[key](torch.from_numpy(toks))
 
     def _policy(self, batch: int) -> ShardingPolicy:
         """The policy for a batch of ``batch`` rows: the engine's, without
@@ -181,17 +205,13 @@ class ServeEngine:
         slot_req = [-1] * b  # request id per slot
         slot_left = [0] * b  # tokens remaining per slot
 
-        def padded(r):
-            t = np.zeros((1, plen), np.int32)
-            p = prompts[r][-plen:]
-            t[0, plen - len(p):] = p
-            return self._tokens(t)
-
         max_len = plen + max_new_tokens * 2  # headroom across refills
 
         def prefill(r):
-            return lm.prefill(self.params, padded(r), self.cfg, max_len=max_len,
-                              pol=self._policy(1))
+            t = np.zeros((1, plen), np.int32)
+            p = prompts[r][-plen:]
+            t[0, plen - len(p):] = p
+            return self._prefill(t, max_len)
 
         caches = None
         tok = np.zeros(b, np.int32)
@@ -244,9 +264,9 @@ class ServeEngine:
         for r, p in enumerate(prompts):
             toks[r, plen - len(p) :] = p  # left-pad (keeps last token hot)
         pol = self._policy(b)
-        logits, caches = lm.prefill(
-            self.params, self._tokens(toks), self.cfg, max_len=plen + max_new_tokens, pol=pol
-        )
+        # decode writes into the bucket's caches: safe, as the bucket's next
+        # call (a later wave) comes after this wave has finished
+        logits, caches = self._prefill(toks, plen + max_new_tokens)
         results: list[list[int]] = [[] for _ in range(b)]
         done = np.zeros(b, bool)
         tok = self._sample(logits)
@@ -262,6 +282,29 @@ class ServeEngine:
                 break
             tok = self._sample(decode(tok))
         return results
+
+
+class _Prefill:
+    """One prefill bucket ``(batch, plen, max_len)``: ``lm.prefill`` over a
+    static token buffer ``[batch, plen]``, run eagerly or, on the card,
+    captured at its second call and replayed from then on, in the engine's
+    prefill pool.  Calling it with tokens ``[batch, plen]`` (on any device)
+    returns (logits, caches), valid until the bucket's next call."""
+
+    def __init__(self, eng: ServeEngine, batch: int, plen: int, max_len: int,
+                 pol: ShardingPolicy):
+        tokens = torch.zeros((batch, plen), dtype=torch.int32, device=eng.device)
+        params, cfg = eng.params, eng.cfg
+
+        def step():  # refers to no engine: the engine holds this bucket, no cycle
+            return lm.prefill(params, {"tokens": tokens}, cfg, max_len=max_len, pol=pol)
+
+        self.tokens = tokens
+        self.run = graphs.stepper(step, eng.device, eng.graph, pool=eng._prefill_pool)
+
+    def __call__(self, tokens: torch.Tensor):
+        self.tokens.copy_(tokens)
+        return self.run()
 
 
 class _Decode:
@@ -324,12 +367,14 @@ def _whole_batch(x: torch.Tensor) -> torch.Tensor:
 
 def _tile_cache(cache, b: int, pol: ShardingPolicy = ShardingPolicy(), specs=None):
     """Broadcast a batch-1 cache to b slots (every slot a copy of slot 0);
-    the other leaves (``slot_pos``) are kept.  Under a mesh the tiled leaves
-    are laid out at ``specs``' placements under ``pol``, each rank tiling
-    its own rows of the batch-1 cache's gathered row."""
+    the other leaves (``slot_pos``) are copied as they are.  No leaf shares
+    storage with ``cache``: a later prefill replayed into the batch-1
+    bucket's caches leaves the tiled cache as it was.  Under a mesh the
+    tiled leaves are laid out at ``specs``' placements under ``pol``, each
+    rank tiling its own rows of the batch-1 cache's gathered row."""
     def tile(x, spec=None):
         if not (x.dim() >= 2 and x.shape[1] == 1):  # [R, B=1, ...] per-layer stacks
-            return x
+            return x.clone()
         shape = (x.shape[0], b) + tuple(x.shape[2:])
         if not is_dtensor(x):
             return x.expand(shape).clone()

@@ -11,6 +11,10 @@ as in the reference.  On one card nothing is exchanged: the transforms
 model the bytes a cross-pod all-reduce would move, and train the same
 way.
 
+The residuals are rewritten in place once they exist (the first step
+makes them), as AdamW's state is, so a CUDA graph of the step reads each
+step's residuals on its next replay.
+
 Rounding follows the reference's: ``torch.round`` rounds half to even,
 as ``jnp.round`` does; the top-k threshold is the k-th largest magnitude
 (``torch.topk``, as ``jax.lax.top_k``), and every entry at or above it
@@ -50,8 +54,9 @@ def topk_mask(g: torch.Tensor, frac: float = 0.1) -> torch.Tensor:
 def apply(kind: str, grads: Any, opt_state: dict,
           pol: ShardingPolicy = ShardingPolicy()) -> tuple[Any, dict]:
     """Compress grads with error feedback carried in opt_state["ef"]
-    (float32, one residual a gradient; zeros when absent).  Returns (the
-    sent gradients, float32, and a new opt_state dict).  ``pol`` is the
+    (float32, one residual a gradient; zeros when absent, then updated in
+    place).  Returns (the sent gradients, float32, and a new opt_state dict
+    holding the residuals).  ``pol`` is the
     reference's argument: on DTensor gradients the residuals take each
     gradient's placements, and the scale's max and the top-k threshold are
     global (DTensor reduces them over the mesh)."""
@@ -68,10 +73,11 @@ def apply(kind: str, grads: Any, opt_state: dict,
             sent = topk_mask(corrected)
         else:
             raise ValueError(kind)
-        return sent, corrected - sent
+        e.copy_(corrected - sent)
+        return sent
 
     with pol.constants():
-        pairs = tree_map(one, grads, ef)
+        sent = tree_map(one, grads, ef)
     opt_state = dict(opt_state)
-    opt_state["ef"] = tree_map(lambda g, pair: pair[1], grads, pairs)
-    return tree_map(lambda g, pair: pair[0], grads, pairs), opt_state
+    opt_state["ef"] = ef
+    return sent, opt_state

@@ -9,12 +9,14 @@ weights before the Adam step instead of adding the decay to it.
 
 The state lives beside the parameters on their device: ``m``, ``v`` and
 ``master`` (float32, one per parameter) and an int32 ``count``.  The
-update goes in place, under ``torch.no_grad()`` — the moments, the
-master and the parameters are rewritten, not reallocated, so a step
+update goes in place, under ``torch.no_grad()`` — the count, the moments,
+the master and the parameters are rewritten, not reallocated, so a step
 needs one leaf's temporaries beyond the state (the reference returns new
-trees).  The learning rate, the clip scale and the bias corrections are
-0-d float32 tensors on the device, as the reference's traced scalars
-are: nothing is read back to the host.
+trees), and a CUDA graph captured over one step reads the advanced state
+on its next replay (``train_step.CompiledTrainStep``).  The learning
+rate, the clip scale and the bias corrections are 0-d float32 tensors on
+the device, as the reference's traced scalars are: nothing is read back
+to the host.
 """
 from __future__ import annotations
 
@@ -102,10 +104,10 @@ def adamw_update(
     params: Any, grads: Any, opt_state: dict, cfg: AdamWConfig
 ) -> tuple[Any, dict, dict[str, torch.Tensor]]:
     """One AdamW step.  Returns (params, opt_state, metrics); the params,
-    ``m``, ``v`` and ``master`` are the given tensors, updated in place,
-    and ``count`` a new tensor.  An ``"ef"`` entry (gradient compression's
-    error feedback) is carried through."""
-    count = opt_state["count"] + 1
+    ``m``, ``v``, ``master`` and ``count`` are the given tensors, updated
+    in place.  An ``"ef"`` entry (gradient compression's error feedback)
+    is carried through."""
+    count = opt_state["count"].add_(1)
     lr = cosine_lr(cfg, count)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)

@@ -1099,6 +1099,57 @@ def test_replayed_decode_equals_eager(dev, arch):
     assert float(((got - want).abs() - 2**-6 * want.abs()).max()) <= 2**-6 * rms
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x22b", "recurrentgemma-9b",
+                                  "llava-next-mistral-7b", "musicgen-large", "qwen2.5-14b",
+                                  "deepseek-7b", "yi-34b", "phi4-mini-3.8b", "mamba2-1.3b"])
+def test_replayed_train_step_equals_eager(dev, arch):
+    """``chip_smoke.py`` phase ``train``'s replayed-against-eager check:
+    4 steps of the compiled train step (step 1 eager, step 2 captured, then
+    replayed) from the seed of two eager runs give their losses, learning
+    rates and every parameter, moment, master (and residual) bit for bit,
+    or within twice the eager runs' spread where they already differ; a
+    replay that does not advance ``count`` fails the same check.  The eight
+    reduced configs of check (3) (int8 and top-k compression on two), and
+    phi4 and mamba2 at full width cut to 2 layers."""
+    import chip_smoke
+
+    if arch in chip_smoke.TRAIN_CARD_VS_CPU:
+        out = chip_smoke._replay_vs_eager_reduced(dev, arch)
+    else:
+        layers, batch, seq = chip_smoke.REPLAY_FULL
+        out = chip_smoke._replay_vs_eager(dev, chip_smoke._depth_cut(arch, layers), batch, seq)
+    assert out["planted_frozen_count"]["failed_the_check"]
+    if out["eager_runs_bit_equal"]:
+        assert not any(out["replayed_diff"].values())
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-1.3b"])
+def test_replayed_prefill_equals_eager(dev, arch):
+    """Prefill buckets replayed from CUDA graphs: both schedulers' greedy
+    tokens equal a ``graph=False`` engine's, with the same kernel launches;
+    the continuous scheduler's one bucket is captured at its second request
+    and replayed for every later one."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = ARCHS[arch].reduced()
+    params = lm.init_params(cfg, 0, device=dev)
+    prompts = [[1, 2, 3], [4, 5], [6, 7, 8, 9, 10], [11], [12, 13], [14, 15, 16]]
+    for name in ("generate", "generate_continuous"):
+        out = {}
+        for graph in (False, True):
+            eng = ServeEngine(cfg, params, ServeConfig(batch_slots=2), device=dev, graph=graph)
+            before = dict(LAUNCHES)
+            toks = getattr(eng, name)(prompts, 6)
+            out[graph] = (toks, {k: LAUNCHES[k] - before[k] for k in LAUNCHES})
+        assert out[True] == out[False], name
+        runs = [b.run for b in eng._prefills.values()]
+        assert all(r.graph is not None for r in runs)
+        assert sum(r.calls for r in runs) == (3 if name == "generate" else len(prompts))
+
+
 def test_checkpoint_restores_onto_the_card_bit_for_bit(dev, tmp_path):
     """A checkpoint of card state (f32, bf16, int and f64 leaves) restored
     with ``device="cuda"`` and into card targets equals the saved tensors;

@@ -163,13 +163,16 @@ def test_cache_tile_and_splice():
     overwrites a batch-1 cache whole (the reference replaces it) and writes
     one slot of a batched one, both in place (a decode graph holds the
     tensors), and leaves ``slot_pos`` (no batch dim) as it was, as the
-    reference does."""
+    reference does.  The tiled cache shares no storage with the batch-1
+    one, ``slot_pos`` included (a replayed prefill rewrites its bucket's
+    caches)."""
     k0 = torch.arange(6.0).view(2, 1, 3)
     single = [{"0": {"k": k0.clone(), "slot_pos": torch.tensor([[0, -1]] * 2)}}]
     tiled = _tile_cache(single, 3)
     assert tiled[0]["0"]["k"].shape == (2, 3, 3)
     assert torch.equal(tiled[0]["0"]["k"][:, 2], single[0]["0"]["k"][:, 0])
-    assert tiled[0]["0"]["slot_pos"] is single[0]["0"]["slot_pos"]
+    assert tiled[0]["0"]["slot_pos"] is not single[0]["0"]["slot_pos"]
+    assert torch.equal(tiled[0]["0"]["slot_pos"], single[0]["0"]["slot_pos"])
     other = [{"0": {"k": -torch.ones(2, 1, 3), "slot_pos": torch.tensor([[5, 6]] * 2)}}]
     k_single = single[0]["0"]["k"]
     _splice_cache(single, other, 0)
@@ -180,6 +183,49 @@ def test_cache_tile_and_splice():
     assert torch.equal(k_tiled[:, 1], -torch.ones(2, 3))
     assert torch.equal(k_tiled[:, 0], k0[:, 0])
     assert torch.equal(tiled[0]["0"]["slot_pos"], torch.tensor([[0, -1]] * 2))
+
+
+def _storages(tree) -> list[int]:
+    return [leaf.untyped_storage().data_ptr() for leaf in _leaves(tree)]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def test_tiled_cache_shares_no_storage_with_its_prefill(deepseek):
+    """``_tile_cache`` copies every leaf of the batch-1 cache, ``slot_pos``
+    included: a later prefill written into that cache in place (as a replay
+    of its bucket writes it) leaves the tiled cache as it was."""
+    cfg, params = deepseek
+    eng = ServeEngine(cfg, params, ServeConfig(batch_slots=3), device=CPU)
+    with torch.inference_mode():
+        _, single = eng._prefill(np.array([[0, 0, 0, 1, 2, 3, 4, 5]], np.int32), 12)
+        tiled = _tile_cache(single, 3)
+        want = [x.clone() for x in _leaves(tiled)]
+        assert not set(_storages(tiled)) & set(_storages(single))
+        _, later = eng._prefill(np.array([[9, 8, 7, 6, 5, 4, 3, 2]], np.int32), 12)
+        for dst, src in zip(_leaves(single), _leaves(later)):
+            dst.copy_(src)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(tiled), want))
+    assert any(not torch.equal(a, b) for a, b in zip(_leaves(single), _leaves(tiled)))
+    assert list(eng._prefills) == [(1, 8, 12)]
+
+
+def test_prefill_runs_per_bucket(deepseek):
+    """Prefill is keyed by the reference's bucket ``(batch, plen, max_len)``:
+    two waves of 2 at one padded length share one bucket, the continuous
+    scheduler prefills every request at ``(1, plen, plen + 2·new)``."""
+    cfg, params = deepseek
+    eng = ServeEngine(cfg, params, ServeConfig(batch_slots=2), device=CPU)
+    eng.generate([[1, 2, 3], [4, 5], [6, 7, 8, 9], [10]], max_new_tokens=3)
+    assert list(eng._prefills) == [(2, 8, 11)]
+    eng.generate_continuous([[1, 2, 3], [4, 5], [6, 7, 8, 9]], max_new_tokens=3)
+    assert list(eng._prefills) == [(2, 8, 11), (1, 8, 14)]
 
 
 def test_engine_rejects_what_the_slice_does_not_serve(deepseek):

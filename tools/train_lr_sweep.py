@@ -49,10 +49,11 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             ts = TrainStepConfig(n_microbatches=chip_smoke.TRAIN_MICROBATCHES, adamw=AdamWConfig(
                 peak_lr=lr, warmup_steps=1, total_steps=chip_smoke.TRAIN_STEPS))
-            params, opt, hist = chip_smoke._train_loop(dev, cfg, data, ts, chip_smoke.TRAIN_STEPS)
+            step, params, opt, hist, _ = chip_smoke._train_loop(dev, cfg, data, ts,
+                                                                chip_smoke.TRAIN_STEPS)
             print(json.dumps({"phase": phase, "lr": lr, "losses": [h.loss for h in hist],
                               "s": time.perf_counter() - t0}), flush=True)
-            del params, opt, hist
+            del step, params, opt, hist
             torch.cuda.empty_cache()
     return 0
 
