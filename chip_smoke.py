@@ -1431,9 +1431,9 @@ def phase_brainsim(device: str, per_run_launches: bool) -> dict:
 
 def _device_profile(run, steps: int, match: tuple[str, ...] = (), warmup: int = 2,
                     cpu: bool = True) -> dict:
-    """Where ``run(steps)``'s time goes, after ``run(warmup)``: device time
-    by kernel under ``torch.profiler`` and the device's busy share of the
-    run's wall time (the profiler's own cost is inside that wall time; a
+    """Where ``run(steps)``'s time goes, after ``run(warmup)`` (profiled
+    apart, unread): device time by kernel under ``torch.profiler`` and the
+    device's busy share of the run's wall time (the profiler's own cost is inside that wall time; a
     CUDA-graph capture made inside is not: ``capture_s``), CUDA kernels and
     graph launches (``cudaGraphLaunch`` calls; 0 without ``cpu``, which
     leaves the host's ops out of the trace: a train step has some 10⁵).
@@ -1443,10 +1443,13 @@ def _device_profile(run, steps: int, match: tuple[str, ...] = (), warmup: int = 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    if warmup:
-        run(warmup)
-    torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU] if cpu else []
+    if warmup:
+        # under a profiler too: the first profiled program span of a process sets up
+        # its annotation (about 0.2 s on the card), which the measured run must not hold
+        with profile(activities=activities + [ProfilerActivity.CUDA]):
+            run(warmup)
+    torch.cuda.synchronize()
     with captures() as caps, profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(steps)
@@ -1457,9 +1460,11 @@ def _device_profile(run, steps: int, match: tuple[str, ...] = (), warmup: int = 
         return float(getattr(e, "self_device_time_total", 0.0)
                      or getattr(e, "self_cuda_time_total", 0.0))
 
-    # kernel events only: an aten op's device time is its kernels' time again
+    # kernel events only: an aten op's device time is its kernels' time again, and
+    # a program span's device copy (a user annotation) is the interval it covers
     events = prof.key_averages()
-    rows = sorted((e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+    rows = sorted((e for e in events if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+                   and not e.is_user_annotation),
                   key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in rows) / 1e6
     out = {"wall_s": wall, "capture_s": sum(caps), "device_busy_s": busy,

@@ -42,6 +42,15 @@ second on.
   replay advances the stream as an eager step does.
 
 A failed capture or replay raises; nothing falls back to eager.
+
+Every step has a name (``snn.step``, ``snn.engine.step``,
+``serve.prefill``, ``serve.decode``, ``train.step``): the ``graph``
+argument of its ``graph.warmup`` and ``graph.capture`` spans
+(:mod:`repro_torch.obs`), which cover the eager first call and the capture
+(``torch.cuda.graph``'s synchronise and ``empty_cache`` included).
+:func:`run_steps` runs the steps after those two inside one ``graph.steps``
+span of the same ``graph``: on the card the host's enqueue of the replays,
+which the device runs behind; eagerly every step.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from collections.abc import Callable
 import torch
 
 from repro_torch.kernels._build import LAUNCHES
+from repro_torch.obs import trace as obs
 
 __all__ = ["use_graph", "StepGraph", "stepper", "run_steps"]
 
@@ -70,6 +80,7 @@ def use_graph(graph: bool | None, device: torch.device) -> bool:
 class StepGraph:
     """``step()`` run eagerly once, then captured and replayed.
 
+    ``name``: the step's name, the ``graph`` argument of its spans.
     ``ledger``: an object whose ``step_bytes`` list the step appends to
     (:class:`~repro_torch.snn.comm.LoopbackComm`).  ``pool``: a memory pool
     handle shared with other graphs (``torch.cuda.graph_pool_handle()``);
@@ -81,12 +92,13 @@ class StepGraph:
         step: Callable[[], object],
         device: torch.device,
         *,
+        name: str,
         ledger=None,
         pool=None,
     ):
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
-        self.step, self.device = step, device
+        self.step, self.device, self.name = step, device, name
         self.ledger, self.pool = ledger, pool
         self.stream = _capture_stream(device)
         self.graph: torch.cuda.CUDAGraph | None = None
@@ -99,7 +111,8 @@ class StepGraph:
     def __call__(self):
         self.calls += 1
         if self.calls == 1:
-            return self._on_stream(self.step)
+            with obs.span("graph.warmup", cat="graph", args={"graph": self.name}):
+                return self._on_stream(self.step)
         if self.graph is None:
             self._capture()
         self.graph.replay()
@@ -119,13 +132,20 @@ class StepGraph:
         here.wait_stream(self.stream)
         return out
 
+    def capture(self) -> None:
+        """Capture the step now, after the warm-up call, so that the next
+        call only replays (the second call captures otherwise)."""
+        if self.graph is None:
+            self._capture()
+
     def _capture(self) -> None:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         launches = dict(LAUNCHES)
         n_entries = len(self.ledger.step_bytes) if self.ledger is not None else 0
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            with (obs.span("graph.capture", cat="graph", args={"graph": self.name}),
+                  torch.cuda.graph(graph, pool=self.pool, stream=self.stream)):
                 self.out = self.step()
         finally:
             self.launches = {k: LAUNCHES[k] - launches[k] for k in LAUNCHES}
@@ -145,9 +165,11 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     return torch.cuda.Stream(device)
 
 
-def stepper(step: Callable[[], object], device: torch.device, graph: bool, **kw):
-    """``step`` itself (eager) or a :class:`StepGraph` over it (``graph``)."""
-    return StepGraph(step, device, **kw) if graph else step
+def stepper(step: Callable[[], object], device: torch.device, graph: bool, *, name: str,
+            **kw):
+    """``step`` itself (eager) or a :class:`StepGraph` named ``name`` over
+    it (``graph``)."""
+    return StepGraph(step, device, name=name, **kw) if graph else step
 
 
 def run_steps(
@@ -156,16 +178,27 @@ def run_steps(
     device: torch.device,
     graph: bool,
     *,
+    name: str,
     probe: Callable[[int, object], None] | None = None,
     **kw,
 ) -> float:
     """Call ``step()`` ``n_steps`` times through :func:`stepper`, then
     ``probe(t, out)`` with what step ``t`` returned (on the card the static
     output of the replay); returns the capture's seconds (0 when nothing
-    was captured)."""
-    run = stepper(step, device, graph, **kw)
-    for t in range(n_steps):
-        out = run()
+    was captured).  The warm-up step and the capture come first; the steps
+    after them (every step, eagerly) run inside one ``graph.steps`` span."""
+    run = stepper(step, device, graph, name=name, **kw)
+    first = 0
+    if isinstance(run, StepGraph) and n_steps:
+        out = run()  # the eager warm-up
         if probe is not None:
-            probe(t, out)
+            probe(0, out)
+        if n_steps > 1:
+            run.capture()
+        first = 1
+    with obs.span("graph.steps", cat="graph", args={"graph": name, "steps": n_steps - first}):
+        for t in range(first, n_steps):
+            out = run()
+            if probe is not None:
+                probe(t, out)
     return run.capture_s if isinstance(run, StepGraph) else 0.0

@@ -1,11 +1,18 @@
 """repro_torch.obs — tracing, metrics and critical-path attribution for
-the port (a copy of the reference's ``repro.obs``).
+the port (grown from the reference's ``repro.obs``).
 
-* :mod:`~repro_torch.obs.trace` — the zero-dependency tracer (nestable
-  spans, instants, labeled counters; process-global, off by default, one
-  branch when disabled) plus the always-on metrics registry;
+* :mod:`~repro_torch.obs.trace` — the tracer (nestable spans, instants,
+  labeled counters; process-global, off by default, two attribute reads
+  when off) plus the always-on metrics registry.  It follows
+  ``torch.profiler``: while a profiler session records, the tracer
+  collects and each span is also a profiler user annotation, so the
+  port's spans (``snn.run``, ``snn.init``, ``graph.warmup``,
+  ``graph.capture``, ``graph.steps``, ``serve.call``,
+  ``serve.prefill``, ``serve.decode``, ``serve.schedule``) name what the
+  host did in the profiler's trace;
 * :mod:`~repro_torch.obs.export` — Chrome-trace-event JSON (Perfetto-
-  loadable, deterministic bytes) and schema validation;
+  loadable, deterministic bytes, the tracer's origin on the profiler's
+  clock in its metadata) and schema validation;
 * :mod:`~repro_torch.obs.timeline` — simulated transmissions as trace
   events and the *exact* critical-path decomposition of a
   :class:`~repro_torch.netsim.SimResult` into serialization /

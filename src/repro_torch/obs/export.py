@@ -10,9 +10,13 @@ object Perfetto and ``chrome://tracing`` load:
   are emitted so lanes show the original labels;
 * events are sorted ``(pid, tid, ts, insertion)`` so ``ts`` is
   monotone within every thread lane (a property
-  :func:`validate_chrome_trace` checks and tests pin).
+  :func:`validate_chrome_trace` checks and tests pin);
+* the global tracer's own events carry its origin on the profiler's
+  clock in the metadata (``otherData.origin_ns``): ``ts`` plus
+  ``origin_ns / 1000`` is a ``torch.profiler`` host event's timestamp
+  in microseconds.
 
-Everything is stdlib-only and pure — the exporter never looks at the
+The export is pure — the exporter never looks at the
 clock, so exporting the same event list twice gives identical bytes
 (the golden-determinism guarantee ``tests/test_obs.py`` gates).
 """
@@ -30,9 +34,12 @@ _REQUIRED = ("name", "ph", "ts", "pid", "tid")
 
 def chrome_trace(events: list[dict] | None = None) -> dict:
     """Build the ``{"traceEvents": [...]}`` payload from ``events``
-    (default: the global tracer's collected events)."""
+    (default: the global tracer's collected events, with its origin on
+    the profiler's clock as ``otherData.origin_ns``)."""
+    origin_ns = None
     if events is None:
         events = _trace.events()
+        origin_ns = _trace.TRACER.origin_ns
     pids = sorted({str(e.get("pid", "main")) for e in events})
     pid_id = {p: i + 1 for i, p in enumerate(pids)}
     tid_id: dict[tuple[str, str], int] = {}
@@ -67,7 +74,10 @@ def chrome_trace(events: list[dict] | None = None) -> dict:
         out["pid"] = pid_id[p]
         out["tid"] = tid_id[(p, str(e.get("tid", "main")))]
         body.append(out)
-    return {"traceEvents": meta + body, "displayTimeUnit": "ms"}
+    payload = {"traceEvents": meta + body, "displayTimeUnit": "ms"}
+    if origin_ns is not None:
+        payload["otherData"] = {"origin_ns": origin_ns}
+    return payload
 
 
 def dumps_chrome_trace(events: list[dict] | None = None) -> str:

@@ -44,6 +44,13 @@ bucket's caches, leaves the decode cache as it was.  Sampling and the host's
 token bookkeeping stay outside the graphs, as in the reference, and
 ``_splice_cache`` copies a refill into the captured cache in place.
 
+While the tracer collects (:mod:`repro_torch.obs`: ``obs.enable()`` or a
+``torch.profiler`` session) each call is a ``serve.call`` span over a
+``serve.prefill`` span per prefill, a ``serve.decode`` span per decode step
+and, in the continuous scheduler, a ``serve.schedule`` span of the slot
+loop after each step (refills nest in it).  Their arguments are built
+only while the tracer collects.
+
 The schedules, and the reference's quirks, are kept as they are: the
 initial fill of ``generate_continuous`` leaves every slot with the last
 prefilled request's cache (``_splice_cache`` into a batch-1 cache
@@ -83,6 +90,7 @@ from repro_torch import graphs, random
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
+from repro_torch.obs import trace as obs
 from repro_torch.sharding.policies import ShardingPolicy, is_dtensor
 
 __all__ = ["ServeConfig", "ServeEngine"]
@@ -200,61 +208,74 @@ class ServeEngine:
     def _continuous(self, prompts, max_new_tokens) -> list[list[int]]:
         b = self.sc.batch_slots
         plen = max(8, 1 << (max(len(p) for p in prompts) - 1).bit_length())
-        queue = list(range(len(prompts)))
-        results: list[list[int]] = [[] for _ in prompts]
-        slot_req = [-1] * b  # request id per slot
-        slot_left = [0] * b  # tokens remaining per slot
+        traced = obs.is_enabled()  # the spans' arguments are built only then
+        with obs.span("serve.call", cat="serve", args={
+                "requests": len(prompts), "slots": b, "plen": plen,
+                "max_new_tokens": max_new_tokens} if traced else None):
+            queue = list(range(len(prompts)))
+            results: list[list[int]] = [[] for _ in prompts]
+            slot_req = [-1] * b  # request id per slot
+            slot_left = [0] * b  # tokens remaining per slot
 
-        max_len = plen + max_new_tokens * 2  # headroom across refills
+            max_len = plen + max_new_tokens * 2  # headroom across refills
 
-        def prefill(r):
-            t = np.zeros((1, plen), np.int32)
-            p = prompts[r][-plen:]
-            t[0, plen - len(p):] = p
-            return self._prefill(t, max_len)
-
-        caches = None
-        tok = np.zeros(b, np.int32)
-        for s_ in range(b):
-            if not queue:
-                break
-            r = queue.pop(0)
-            logits, c1 = prefill(r)
-            tok[s_] = int(self._sample(logits)[0])
-            results[r].append(int(tok[s_]))
-            slot_req[s_], slot_left[s_] = r, max_new_tokens - 1
-            caches = c1  # a batch-1 cache is replaced whole, as the reference's splice does
-        if caches is None:
-            return results
-        pol = self._policy(b)
-        specs = None if pol.mesh is None else lm.cache_specs(self.cfg, pol)
-        caches = _tile_cache(caches, b, pol, specs)  # the decode graph captures these tensors
-        decode = _Decode(self, caches, b, plen, pol)
-        while any(sr >= 0 for sr in slot_req):
-            logits = decode(torch.from_numpy(tok))
-            nxt = self._sample(logits).cpu().numpy()
-            for s_ in range(b):
-                r = slot_req[s_]
-                if r < 0:
-                    continue
-                done = slot_left[s_] <= 0 or (
-                    self.sc.eos_id is not None and results[r] and results[r][-1] == self.sc.eos_id
-                )
-                if not done:
-                    results[r].append(int(nxt[s_]))
-                    tok[s_] = int(nxt[s_])
-                    slot_left[s_] -= 1
-                if slot_left[s_] <= 0:
-                    if queue:  # refill the freed slot immediately
-                        r2 = queue.pop(0)
-                        logits2, c1 = prefill(r2)
+            def prefill(r, s_, refill):
+                """Request ``r`` prefilled into slot ``s_`` (spliced into the
+                batch's cache on a ``refill``), its first token sampled and read
+                back; returns its batch-1 cache."""
+                t = np.zeros((1, plen), np.int32)
+                p = prompts[r][-plen:]
+                t[0, plen - len(p):] = p
+                with obs.span("serve.prefill", cat="serve", args={
+                        "req": r, "slot": s_, "prompt_tokens": len(p), "padded_tokens": plen,
+                        "refill": refill} if traced else None):
+                    logits, c1 = self._prefill(t, max_len)
+                    if refill:
                         _splice_cache(caches, c1, s_)
-                        tok[s_] = int(self._sample(logits2)[0])
-                        results[r2].append(int(tok[s_]))
-                        slot_req[s_], slot_left[s_] = r2, max_new_tokens - 1
-                    else:
-                        slot_req[s_] = -1
-        return results
+                    tok[s_] = int(self._sample(logits)[0])
+                results[r].append(int(tok[s_]))
+                slot_req[s_], slot_left[s_] = r, max_new_tokens - 1
+                return c1
+
+            caches = None
+            tok = np.zeros(b, np.int32)
+            for s_ in range(b):
+                if not queue:
+                    break
+                # a batch-1 cache is replaced whole, as the reference's splice does
+                caches = prefill(queue.pop(0), s_, False)
+            if caches is None:
+                return results
+            pol = self._policy(b)
+            specs = None if pol.mesh is None else lm.cache_specs(self.cfg, pol)
+            caches = _tile_cache(caches, b, pol, specs)  # the decode graph captures these tensors
+            decode = _Decode(self, caches, b, plen, pol)
+            step = 0
+            while any(sr >= 0 for sr in slot_req):
+                with obs.span("serve.decode", cat="serve", args={
+                        "step": step, "live": b - slot_req.count(-1)} if traced else None):
+                    logits = decode(torch.from_numpy(tok))
+                    nxt = self._sample(logits).cpu().numpy()
+                step += 1
+                with obs.span("serve.schedule", cat="serve"):
+                    for s_ in range(b):
+                        r = slot_req[s_]
+                        if r < 0:
+                            continue
+                        done = slot_left[s_] <= 0 or (
+                            self.sc.eos_id is not None and results[r]
+                            and results[r][-1] == self.sc.eos_id
+                        )
+                        if not done:
+                            results[r].append(int(nxt[s_]))
+                            tok[s_] = int(nxt[s_])
+                            slot_left[s_] -= 1
+                        if slot_left[s_] <= 0:
+                            if queue:  # refill the freed slot immediately
+                                prefill(queue.pop(0), s_, True)
+                            else:
+                                slot_req[s_] = -1
+            return results
 
     def _wave(self, prompts, max_new_tokens) -> list[list[int]]:
         b = len(prompts)
@@ -264,23 +285,33 @@ class ServeEngine:
         for r, p in enumerate(prompts):
             toks[r, plen - len(p) :] = p  # left-pad (keeps last token hot)
         pol = self._policy(b)
-        # decode writes into the bucket's caches: safe, as the bucket's next
-        # call (a later wave) comes after this wave has finished
-        logits, caches = self._prefill(toks, plen + max_new_tokens)
-        results: list[list[int]] = [[] for _ in range(b)]
-        done = np.zeros(b, bool)
-        tok = self._sample(logits)
-        decode = _Decode(self, caches, b, plen, pol)
-        for _ in range(max_new_tokens):
-            t = tok.cpu().numpy()
-            for r in range(b):
-                if not done[r]:
-                    results[r].append(int(t[r]))
-                    if self.sc.eos_id is not None and t[r] == self.sc.eos_id:
-                        done[r] = True
-            if done.all():
-                break
-            tok = self._sample(decode(tok))
+        traced = obs.is_enabled()  # the spans' arguments are built only then
+        with obs.span("serve.call", cat="serve", args={
+                "requests": b, "slots": b, "plen": plen,
+                "max_new_tokens": max_new_tokens} if traced else None):
+            with obs.span("serve.prefill", cat="serve", args={
+                    "requests": b, "prompt_tokens": sum(map(len, prompts)),
+                    "padded_tokens": plen * b} if traced else None):
+                # decode writes into the bucket's caches: safe, as the bucket's
+                # next call (a later wave) comes after this wave has finished
+                logits, caches = self._prefill(toks, plen + max_new_tokens)
+                tok = self._sample(logits)
+                t = tok.cpu().numpy()
+            results: list[list[int]] = [[] for _ in range(b)]
+            done = np.zeros(b, bool)
+            decode = _Decode(self, caches, b, plen, pol)
+            for step in range(max_new_tokens):
+                for r in range(b):
+                    if not done[r]:
+                        results[r].append(int(t[r]))
+                        if self.sc.eos_id is not None and t[r] == self.sc.eos_id:
+                            done[r] = True
+                if done.all():
+                    break
+                with obs.span("serve.decode", cat="serve", args={
+                        "step": step, "live": int(b - done.sum())} if traced else None):
+                    tok = self._sample(decode(tok))
+                    t = tok.cpu().numpy()
         return results
 
 
@@ -300,7 +331,8 @@ class _Prefill:
             return lm.prefill(params, {"tokens": tokens}, cfg, max_len=max_len, pol=pol)
 
         self.tokens = tokens
-        self.run = graphs.stepper(step, eng.device, eng.graph, pool=eng._prefill_pool)
+        self.run = graphs.stepper(step, eng.device, eng.graph, name="serve.prefill",
+                                  pool=eng._prefill_pool)
 
     def __call__(self, tokens: torch.Tensor):
         self.tokens.copy_(tokens)
@@ -329,7 +361,7 @@ class _Decode:
             return logits.full_tensor() if is_dtensor(logits) else logits
 
         self.tokens = tokens
-        self.run = graphs.stepper(step, dev, eng.graph, pool=eng._pool)
+        self.run = graphs.stepper(step, dev, eng.graph, name="serve.decode", pool=eng._pool)
 
     def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
         self.tokens.copy_(tokens.reshape(self.tokens.shape))

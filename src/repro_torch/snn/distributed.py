@@ -54,6 +54,12 @@ every step eagerly.  A communicator whose collectives a graph cannot
 capture (gloo, and NCCL across ranks: ``ProcessGroupComm.capturable``)
 needs ``graph=False``: ``graph=True`` raises.
 
+While the tracer collects (:mod:`repro_torch.obs`: ``obs.enable()`` or a
+``torch.profiler`` session) a run is an ``snn.run`` span over ``snn.init``
+(the step's state, previous spikes and raster) and the steps
+(:func:`repro_torch.graphs.run_steps`: ``graph.warmup``, ``graph.capture``,
+``graph.steps``).
+
 :meth:`DistributedSNN.trace_step` runs eager steps through a recording
 communicator for planlint Layer 2 (:mod:`repro_torch.analysis.traced`).
 """
@@ -446,11 +452,17 @@ class DistributedSNN:
                 f"graph=True: a CUDA graph cannot capture {type(comm).__name__}"
                 f"({getattr(comm, 'backend', '')}) collectives; pass graph=False"
             )
+        with obs.span("snn.run", cat="snn", args={"exchange": self.exchange, "steps": n_steps,
+                                                  "ranks": len(comm.ranks)}):
+            if self.exchange in ("sparse", "ragged"):
+                fn, args = self._sparse_callable_and_args(comm.ranks)
+                return fn(*args, n_steps=n_steps, seed=seed, comm=comm, probe=probe,
+                          graph=self.graph)[0]
+            return self._run_dense(n_steps, seed, comm, probe)
+
+    def _run_dense(self, n_steps, seed, comm, probe) -> torch.Tensor:
+        """:meth:`run` of ``exchange='flat'`` / ``'two_level'``."""
         ranks = comm.ranks
-        if self.exchange in ("sparse", "ragged"):
-            fn, args = self._sparse_callable_and_args(ranks)
-            return fn(*args, n_steps=n_steps, seed=seed, comm=comm, probe=probe,
-                      graph=self.graph)[0]
         w = self._dense_w()
         m = w.shape[0]
         n_dev = self.n_devices
@@ -462,18 +474,19 @@ class DistributedSNN:
         w_block = w_block.contiguous()
         step = _step_fn(self.params)
         exchange = self.exchange
-        drive = self._drive(n_loc, ranks)
 
         def gather(spikes_loc):
             if exchange == "flat":
                 return comm.all_gather(spikes_loc, "joint")
             return comm.all_gather(comm.all_gather(spikes_loc, "inner"), "slow")
 
-        state = _init(self.params, ranks, n_dev, n_loc, seed, self.device)
-        prev = torch.zeros((n_held, n_loc), dtype=torch.float32, device=self.device)
-        raster = torch.empty((n_steps, n_held, n_loc), dtype=torch.float32,
-                             device=self.device)
-        t_dev = torch.zeros((1,), dtype=torch.long, device=self.device)
+        with obs.span("snn.init", cat="snn"):
+            drive = self._drive(n_loc, ranks)
+            state = _init(self.params, ranks, n_dev, n_loc, seed, self.device)
+            prev = torch.zeros((n_held, n_loc), dtype=torch.float32, device=self.device)
+            raster = torch.empty((n_steps, n_held, n_loc), dtype=torch.float32,
+                                 device=self.device)
+            t_dev = torch.zeros((1,), dtype=torch.long, device=self.device)
 
         def one_step():
             comm.new_step()
@@ -482,8 +495,8 @@ class DistributedSNN:
             _advance(step, state, prev, raster, t_dev, cur + drive, self.params)
             return cur
 
-        graphs.run_steps(one_step, n_steps, self.device, self.graph, ledger=comm,
-                         probe=_global(probe))
+        graphs.run_steps(one_step, n_steps, self.device, self.graph, name="snn.step",
+                         ledger=comm, probe=_global(probe))
         return raster.reshape(n_steps, n_held * n_loc)
 
     def step_profile(self, n_steps: int = 2, *, seed: int = 0) -> dict[str, float]:
@@ -528,7 +541,6 @@ class DistributedSNN:
         prof["bytes_per_step"] = bytes_step
         obs.counter("snn.exchange_bytes",
                     {k: float(v) for k, v in stats.items()}, tid="snn")
-        obs.metric_gauge("snn.bytes_per_step", bytes_step)
         ci = _sparse_step.cache_info()
         prof["step_cache_hits"] = float(ci.hits)
         prof["step_cache_misses"] = float(ci.misses)
@@ -576,12 +588,7 @@ class DistributedSNN:
             )
         else:
             idx_rows = ()
-        misses_before = _sparse_step.cache_info().misses
         fn = _sparse_step(self._step_key())
-        if _sparse_step.cache_info().misses > misses_before:
-            obs.metric_inc("snn.step_cache_misses")
-        else:
-            obs.metric_inc("snn.step_cache_hits")
         return fn, (src, blocks, self._drive(blocks.shape[-1], ranks), idx_rows)
 
 
@@ -706,11 +713,12 @@ class _SparseStep:
         key = self.key
         ranks, b = comm.ranks, blocks.shape[-1]
         dev = blocks.device
-        held = self.held(ranks, dev)
-        state = _init(key.params, ranks, self.n_dev, b, seed, dev)
-        prev = torch.zeros((len(ranks), b), dtype=torch.float32, device=dev)
-        raster = torch.empty((n_steps, len(ranks), b), dtype=torch.float32, device=dev)
-        t_dev = torch.zeros((1,), dtype=torch.long, device=dev)
+        with obs.span("snn.init", cat="snn"):
+            held = self.held(ranks, dev)
+            state = _init(key.params, ranks, self.n_dev, b, seed, dev)
+            prev = torch.zeros((len(ranks), b), dtype=torch.float32, device=dev)
+            raster = torch.empty((n_steps, len(ranks), b), dtype=torch.float32, device=dev)
+            t_dev = torch.zeros((1,), dtype=torch.long, device=dev)
 
         def one_step():
             comm.new_step()
@@ -723,8 +731,8 @@ class _SparseStep:
             _advance(self.step, state, prev, raster, t_dev, cur + drive, key.params)
             return cur
 
-        capture_s = graphs.run_steps(one_step, n_steps, dev, graph, ledger=comm,
-                                     probe=_global(probe))
+        capture_s = graphs.run_steps(one_step, n_steps, dev, graph, name="snn.step",
+                                     ledger=comm, probe=_global(probe))
         return raster.reshape(n_steps, len(ranks) * b), capture_s
 
 

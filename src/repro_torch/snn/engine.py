@@ -276,6 +276,6 @@ class SNNEngine:
                 vs.index_copy_(0, t_dev, new.v[None])
             t_dev.add_(1)
 
-        capture_s = graphs.run_steps(one_step, n_steps, dev, self.graph)
+        capture_s = graphs.run_steps(one_step, n_steps, dev, self.graph, name="snn.engine.step")
         return RunResult(spikes=spikes_out, v_trace=vs, final_state=state,
                          capture_s=capture_s)

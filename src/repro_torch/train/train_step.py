@@ -242,7 +242,7 @@ class CompiledTrainStep:
                                  "it was given: a replay would read stale state")
             return loss, metrics
 
-        return bufs, graphs.stepper(step, self.device, self.graph)
+        return bufs, graphs.stepper(step, self.device, self.graph, name="train.step")
 
 
 def compile_train_step(cfg: ArchConfig, ts: TrainStepConfig = TrainStepConfig(),
